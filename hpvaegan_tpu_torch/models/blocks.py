@@ -9,11 +9,15 @@ to the K1 kernel holds THWIO ``(3, 3, 3, 64, 64)``, the kernel's layout,
 so no call re-lays them out.  ``utils/convert.py`` fills both from the JAX
 package's flax ``(*k, I, O)`` kernels.
 
-BatchNorm in train mode normalises with the batch statistics and leaves
-the running statistics as loaded (the JAX sampler discards its updated
-``batch_stats``).  Spectral norm divides by ``sigma = u @ (W v)`` from the
-stored u/v with no power iteration in the forward, as the JAX package does
-(``blocks.py:261-269, 319-320``); the u/v update belongs to training.
+BatchNorm in train mode normalises with the batch statistics.  It leaves
+the running statistics as loaded unless the caller asks for an update
+(``update_stats``), which follows flax's rule, not torch's: momentum 0.9
+and the biased batch variance (``blocks.py:208-212, 242-245``).  Sampling
+never asks (the JAX sampler discards its updated ``batch_stats``).
+Spectral norm divides by ``sigma = u @ (W v)`` from the stored u/v with no
+power iteration in the forward, as the JAX package does
+(``blocks.py:261-269, 319-320``); ``SNConv.spectral_update`` advances u/v
+once per optimisation step (``:370-399``).
 
 This slice ports what ``GeneratorHPVAEGAN`` uses: zero padding, the
 torch-default init, conv -> BN -> LeakyReLU blocks and LeakyReLU SN convs.
@@ -23,7 +27,7 @@ norm, reflect padding, PReLU) come with the slices that use them.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,11 +42,15 @@ __all__ = [
     "ConvND",
     "ConvBlock",
     "SNConv",
+    "k1_geometry",
+    "to_thwio",
     "BN_EPS",
+    "BN_MOMENTUM",
 ]
 
 _SN_EPS = 1e-12  # torch spectral_norm default
 BN_EPS = 1e-5    # torch BatchNorm default (blocks.py:211-212)
+BN_MOMENTUM = 0.9  # flax's convention: ra <- 0.9 ra + 0.1 batch
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +98,26 @@ def _conv(ndim: int):
     return F.conv3d if ndim == 3 else F.conv2d
 
 
+def k1_geometry(ndim: int, ker_size: int, stride: int, padding: int,
+                in_features: int, features: int) -> bool:
+    """The K1 kernel's routing gate: a 3D, 3x3x3, stride-1, zero-padded
+    SAME conv with 64 -> 64 channels (``blocks.py:164-166``; the TPU-only
+    gates are dropped, see ``ops/kernels/conv3d_pack.py``)."""
+    return (ndim == 3 and ker_size == 3 and stride == 1 and padding == 1
+            and in_features == 64 and features == 64)
+
+
+def _to_nthwc(x: torch.Tensor) -> torch.Tensor:
+    """NCDHW in channels_last_3d -> NTHWC is a view, no copy."""
+    return x.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def to_thwio(weight: torch.Tensor) -> torch.Tensor:
+    """A torch ``(O, I, 3, 3, 3)`` kernel as the kernels' THWIO layout
+    (a differentiable copy)."""
+    return weight.permute(2, 3, 4, 1, 0).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Convolutions
 # ---------------------------------------------------------------------------
@@ -110,9 +138,8 @@ class ConvND(nn.Module):
         self.in_features, self.features = in_features, features
         self.ker_size, self.padding, self.ndim = ker_size, padding, ndim
         self.stride = stride
-        self.kernel_route = bool(
-            pconv and ndim == 3 and ker_size == 3 and stride == 1
-            and padding == 1 and in_features == 64 and features == 64)
+        self.kernel_route = pconv and k1_geometry(
+            ndim, ker_size, stride, padding, in_features, features)
         k = (ker_size,) * ndim
         shape = ((*k, in_features, features) if self.kernel_route
                  else (features, in_features, *k))
@@ -127,9 +154,7 @@ class ConvND(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernel_route:
-            # NCDHW in channels_last_3d -> NTHWC is a view, no copy
-            y = conv3d64(x.permute(0, 2, 3, 4, 1).contiguous(), self.weight,
-                         self.bias)
+            y = conv3d64(_to_nthwc(x), self.weight, self.bias)
             return y.permute(0, 4, 1, 2, 3)
         return _conv(self.ndim)(x, self.weight, self.bias, self.stride,
                                 self.padding)
@@ -137,7 +162,9 @@ class ConvND(nn.Module):
 
 class _BatchNorm(nn.Module):
     """BatchNorm with torch defaults (eps 1e-5).  Train mode uses the batch
-    statistics and never writes the running buffers."""
+    statistics; with ``update_stats`` it also moves the running buffers
+    towards them as flax does: ``ra = 0.9 ra + 0.1 batch`` with the
+    biased batch variance."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -153,13 +180,25 @@ class _BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = True,
+                update_stats: bool = False) -> torch.Tensor:
         if train:
+            if update_stats:
+                self._update_running_stats(x)
             return F.batch_norm(x, None, None, self.weight, self.bias,
                                 training=True, eps=BN_EPS)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             eps=BN_EPS)
+
+    @torch.no_grad()
+    def _update_running_stats(self, x: torch.Tensor) -> None:
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = x.mean(dim=dims)
+        var = (x * x).mean(dim=dims) - mean * mean  # biased, as flax
+        self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+        self.running_var.mul_(BN_MOMENTUM).add_(
+            (1 - BN_MOMENTUM) * var.clamp_min(0))
 
 
 class ConvBlock(nn.Module):
@@ -177,8 +216,10 @@ class ConvBlock(nn.Module):
         self.conv.reset_parameters(generator)
         self.norm.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        return activation(self.norm(self.conv(x), train), "lrelu")
+    def forward(self, x: torch.Tensor, train: bool = True,
+                update_stats: bool = False) -> torch.Tensor:
+        return activation(self.norm(self.conv(x), train, update_stats),
+                          "lrelu")
 
 
 # ---------------------------------------------------------------------------
@@ -194,14 +235,22 @@ class SNConv(nn.Module):
     bn=True, networks_3d.py:59-70: no normalization layer).
 
     ``u`` (O,) and ``v`` (I*prod(k),) are buffers; ``v`` follows the
-    flattening of ``weight.reshape(O, -1)``."""
+    flattening of ``weight.reshape(O, -1)``.  The weight stays in torch's
+    ``(O, I, *k)`` layout on every route.  With ``pconv`` a conv of K1's
+    geometry runs on the K1 kernel with the THWIO view of
+    ``weight / sigma`` (``blocks.py:325-345``); ``normalized`` hands the
+    same pair to the fused K2 path instead (the JAX ``defer``,
+    ``:290-295, 322-323``)."""
 
     def __init__(self, in_features: int, features: int, ker_size: int,
-                 padding: int, ndim: int = 2, stride: int = 1):
+                 padding: int, ndim: int = 2, stride: int = 1,
+                 pconv: bool = False):
         super().__init__()
         self.in_features, self.features = in_features, features
         self.ker_size, self.padding, self.ndim = ker_size, padding, ndim
         self.stride = stride
+        self.kernel_route = pconv and k1_geometry(
+            ndim, ker_size, stride, padding, in_features, features)
         k = (ker_size,) * ndim
         self.weight = nn.Parameter(torch.empty(features, in_features, *k))
         self.bias = nn.Parameter(torch.empty(features))
@@ -222,11 +271,27 @@ class SNConv(nn.Module):
         self.v.copy_(_l2normalize(self.weight.reshape(self.features, -1).T
                                   @ self.u))
 
+    @torch.no_grad()
+    def spectral_update(self) -> None:
+        """One power-iteration step in place on the buffers:
+        ``v <- normalize(W^T u)``, then ``u <- normalize(W v)``."""
+        w = self.weight.reshape(self.features, -1)
+        self.v.copy_(_l2normalize(w.T @ self.u))
+        self.u.copy_(_l2normalize(w @ self.v))
+
     def sigma(self) -> torch.Tensor:
         """u^T W v with u, v constants, differentiable w.r.t. the kernel."""
         return self.u @ (self.weight.reshape(self.features, -1) @ self.v)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _conv(self.ndim)(x, self.weight / self.sigma(), self.bias,
-                             self.stride, self.padding)
+    def normalized(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(weight / sigma, bias)``, differentiable in both."""
+        return self.weight / self.sigma(), self.bias
+
+    def forward(self, x: torch.Tensor, use_kernels: bool = True
+                ) -> torch.Tensor:
+        w, b = self.normalized()
+        if self.kernel_route and use_kernels:
+            y = conv3d64(_to_nthwc(x), to_thwio(w), b, neg_slope=0.2)
+            return y.permute(0, 4, 1, 2, 3)
+        y = _conv(self.ndim)(x, w, b, self.stride, self.padding)
         return activation(y, "lrelu")

@@ -15,8 +15,12 @@ per-stage rand-mode noise).  Whatever is not handed in is drawn from
 ``generator``.  Tests feed the draws the JAX package made, since torch
 cannot reproduce JAX's threefry bits.
 
-``apply_prefix``, ``apply_suffix`` and ``apply_fused`` are training-path
-forwards and wait for the training slice (ROADMAP).
+Training forwards ask for ``update_stats``: their BatchNorm layers then
+move the running statistics towards the batch's, in forward order, as the
+JAX package threads ``batch_stats`` (``generators.py:185-198``).
+``apply_prefix``, ``apply_suffix`` and ``apply_fused`` serve
+``--hoist-prefix`` and ``--fused-forwards`` and wait for ROADMAP Queue 1
+item 9.
 """
 from __future__ import annotations
 
@@ -115,7 +119,8 @@ class GeneratorHPVAEGAN(nn.Module):
               sample_init: Optional[Tuple[int, torch.Tensor]] = None,
               mode: str = "rec", train: bool = True,
               noises: Optional[Sequence] = None, eps=None,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              update_stats: bool = False):
         """Returns ``(out, vae_out, (mu, logvar) | None)``, all NTHWC.
 
         ``noise_init`` replaces the encoder (rand mode); otherwise
@@ -137,7 +142,7 @@ class GeneratorHPVAEGAN(nn.Module):
                 z_vae = to_model_layout(noise_init, dev)
                 stats = None
 
-            vae_out = torch.tanh(self.decoder(z_vae, train))
+            vae_out = torch.tanh(self.decoder(z_vae, train, update_stats))
 
             if sample_init is not None:
                 start_idx, x = sample_init[0], to_model_layout(sample_init[1],
@@ -148,22 +153,37 @@ class GeneratorHPVAEGAN(nn.Module):
                 start_idx, x = 0, vae_out
 
             x = self._refinement_layers(start_idx, x, amps, mode, train,
-                                        noises, generator)
+                                        noises, generator, update_stats)
         if stats is not None:
             stats = tuple(to_public_layout(s) for s in stats)
         return to_public_layout(x), to_public_layout(vae_out), stats
 
+    def _stage_has_noise(self, idx: int) -> bool:
+        """Does stage ``idx`` inject noise in rand mode?"""
+        return self.noise_all_stages or self.cfg.vae_levels <= idx + 1
+
+    def draw_stage_noises(self, batch: int,
+                          generator: Optional[torch.Generator] = None):
+        """One rand-mode forward's stage noises, NTHWC (``None`` for the
+        stages without noise): a list to hand to ``apply(noises=...)``,
+        so that two forwards can share one draw."""
+        shape = (self.pyramid.shape3d if self.ndim == 3
+                 else self.pyramid.shape2d)
+        return [torch.randn((batch, *shape(idx + 1), self.cfg.nc_im),
+                            generator=generator, device=self.device)
+                if self._stage_has_noise(idx) else None
+                for idx in range(len(self.body))]
+
     def _refinement_layers(self, start_idx: int, x: torch.Tensor,
                            amps: Sequence[float], mode: str, train: bool,
                            noises: Optional[Sequence],
-                           generator: Optional[torch.Generator]
-                           ) -> torch.Tensor:
+                           generator: Optional[torch.Generator],
+                           update_stats: bool) -> torch.Tensor:
         for idx in range(start_idx, len(self.body)):
             if self.cfg.vae_levels == idx + 1 and not self.cfg.train_all:
                 x = x.detach()
             x_up = self._upscale(x, idx + 1)
-            if mode == "rand" and (self.noise_all_stages
-                                   or self.cfg.vae_levels <= idx + 1):
+            if mode == "rand" and self._stage_has_noise(idx):
                 if noises is not None:
                     noise = to_model_layout(noises[idx], x_up.device)
                 else:
@@ -171,6 +191,6 @@ class GeneratorHPVAEGAN(nn.Module):
                 x_in = x_up + noise * amps[idx + 1]
             else:
                 x_in = x_up
-            y = self.body[idx](x_in, train)
+            y = self.body[idx](x_in, train, update_stats)
             x = torch.tanh(y + x_up)
         return x

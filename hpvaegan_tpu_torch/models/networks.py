@@ -1,11 +1,12 @@
 """Network modules (port of ``hpvaegan_tpu/models/networks.py``), 2D or 3D
 through ``ndim``, on NCHW / NCDHW activations.
 
-This slice ports what ``GeneratorHPVAEGAN`` runs: ``reparameterize``,
-``FeatureExtractor``, ``EncodeVAE``, ``Decoder`` and ``Stage``.  The
-critics, the ``_nb``/``1x1`` encoders and the baseline stages are ROADMAP
-items.  Every module takes its input channel count explicitly (PyTorch
-modules own their weights at construction).
+The port has what ``GeneratorHPVAEGAN`` and its critic run:
+``reparameterize``, ``FeatureExtractor``, ``EncodeVAE``, ``Decoder``,
+``Stage`` and ``WDiscriminator``.  The baselines' critic, the
+``_nb``/``1x1`` encoders and the baseline stages are ROADMAP items.  Every
+module takes its input channel count explicitly (PyTorch modules own their
+weights at construction).
 """
 from __future__ import annotations
 
@@ -14,10 +15,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from .blocks import ConvBlock, ConvND, SNConv
+from ..ops.kernels.conv3d_fuse import conv3d64_pair
+from .blocks import (ConvBlock, ConvND, SNConv, _to_nthwc, k1_geometry,
+                     to_thwio)
 
 __all__ = ["reparameterize", "FeatureExtractor", "EncodeVAE", "Decoder",
-           "Stage"]
+           "Stage", "WDiscriminator"]
 
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, training: bool,
@@ -102,10 +105,13 @@ class _ConvStack(nn.Module):
     def reset_parameters(self, generator=None):
         _reset((self.head, *self.blocks, self.tail), generator)
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        x = self.head(x, train)
+    def forward(self, x: torch.Tensor, train: bool = True,
+                update_stats: bool = False) -> torch.Tensor:
+        """``update_stats``: move the BatchNorm running statistics towards
+        this batch's (training forwards that keep their updates)."""
+        x = self.head(x, train, update_stats)
         for block in self.blocks:
-            x = block(x, train)
+            x = block(x, train, update_stats)
         return self.tail(x)
 
 
@@ -126,3 +132,56 @@ class Stage(_ConvStack):
                  num_layer: int, ndim: int = 2, pconv: bool = False):
         super().__init__(nc_im, nfc, nc_im, ker_size, padd_size, num_layer,
                          ndim, pconv)
+
+
+class WDiscriminator(nn.Module):
+    """Patch WGAN critic: SN head 3 -> nfc, ``num_layer`` SN body convs,
+    linear tail nfc -> 1; a per-patch score map with no pooling
+    (``hpvaegan_tpu/models/networks.py:228-286``, networks_3d.py:163-181).
+    The tail's padding is hard-coded to 1 whatever ``ker_size`` is: a
+    reference quirk, kept.
+
+    Kernel routes: under ``pfuse`` consecutive body pairs of K2's geometry
+    run fused on K2 (``ops/kernels/conv3d_fuse.py``) from the pair's
+    ``SNConv.normalized`` weights, keeping each block's own variables;
+    an odd trailing block, and every body block without ``pfuse``, runs
+    on K1 under ``pconv``.  ``forward(x, use_kernels=False)`` runs the
+    same weights on stock convs only: the counterpart of the JAX
+    package's ``D.clone(pconv=False, pfuse=False)``, which the WGAN-GP's
+    double backprop uses (``train/steps.py:316-323``)."""
+
+    def __init__(self, nc_im: int, nfc: int, ker_size: int, num_layer: int,
+                 ndim: int = 2, pconv: bool = False, pfuse: bool = False):
+        super().__init__()
+        pad = ker_size // 2
+        self.num_layer = num_layer
+        self.head = SNConv(nc_im, nfc, ker_size, pad, ndim)
+        self.body = nn.ModuleList(
+            SNConv(nfc, nfc, ker_size, pad, ndim, pconv=pconv)
+            for _ in range(num_layer))
+        self.tail = ConvND(nfc, 1, ker_size, 1, ndim)
+        self.pfuse = pfuse and k1_geometry(ndim, ker_size, 1, pad, nfc,
+                                           nfc)
+
+    def reset_parameters(self, generator=None):
+        _reset((self.head, *self.body, self.tail), generator)
+
+    def sn_convs(self):
+        return [self.head, *self.body]
+
+    def forward(self, x: torch.Tensor, use_kernels: bool = True
+                ) -> torch.Tensor:
+        x = self.head(x)
+        i = 0
+        while i < self.num_layer:
+            if use_kernels and self.pfuse and i + 1 < self.num_layer:
+                w1, b1 = self.body[i].normalized()
+                w2, b2 = self.body[i + 1].normalized()
+                y = conv3d64_pair(_to_nthwc(x), to_thwio(w1), b1,
+                                  to_thwio(w2), b2)
+                x = y.permute(0, 4, 1, 2, 3)
+                i += 2
+            else:
+                x = self.body[i](x, use_kernels)
+                i += 1
+        return self.tail(x)

@@ -1,7 +1,9 @@
 """JAX package variables -> the port's modules (no JAX counterpart).
 
-Input is the JAX package's generator variables as nested dicts of numpy
-arrays, ``{"encode": vars, "decoder": vars, "body": [vars, ...]}``
+Input is the JAX package's generator variables (``load_generator``) or
+critic variables (``load_discriminator``) as nested dicts of numpy
+arrays.  The generator's are
+``{"encode": vars, "decoder": vars, "body": [vars, ...]}``
 (``hpvaegan_tpu/models/generators.py:145-164``), each ``vars`` a flax
 variable dict with ``params`` and, where the module has them,
 ``batch_stats`` and ``spectral``.  Flax auto-names a ``ConvBlock``'s conv
@@ -25,7 +27,7 @@ import torch
 from ..models.blocks import ConvBlock, ConvND, SNConv
 
 __all__ = ["load_conv", "load_conv_block", "load_snconv", "load_encoder",
-           "load_conv_stack", "load_generator"]
+           "load_conv_stack", "load_generator", "load_discriminator"]
 
 
 def _t(a) -> torch.Tensor:
@@ -106,3 +108,13 @@ def load_generator(G, gvars: Mapping[str, Any]) -> None:
     load_conv_stack(G.decoder, gvars["decoder"])
     for stage, v in zip(G.body, body):
         load_conv_stack(stage, v)
+
+
+def load_discriminator(D, dvars: Mapping[str, Any]) -> None:
+    """Fill a port ``WDiscriminator`` from the JAX critic variables
+    ``{"params", "spectral"}`` (``head``, ``block{i}``, ``tail/conv``)."""
+    p, s = dvars["params"], dvars["spectral"]
+    load_snconv(D.head, p["head"], s["head"])
+    for i, block in enumerate(D.body):
+        load_snconv(block, p[f"block{i}"], s[f"block{i}"])
+    load_conv(D.tail, p["tail"]["conv"])

@@ -42,7 +42,7 @@ def test_cpu_matches_pallas_interpret(shape, neg_slope):
     cp.counts.reset()
     got = cp.conv3d64(torch.from_numpy(x), torch.from_numpy(w),
                       torch.from_numpy(b), neg_slope=neg_slope)
-    assert cp.counts.plain_calls == 1 and cp.counts.launches == 0
+    assert cp.counts.plain_calls == 1 and cp.counts.fwd_launches == 0
     assert got.shape == x.shape and got.dtype == torch.float32
     _assert_close(got.numpy(), ref)
 

@@ -13,6 +13,9 @@ import sys
 import hpvaegan_tpu_torch
 import hpvaegan_tpu_torch.serving
 import hpvaegan_tpu_torch.ops.kernels.conv3d_pack
+import hpvaegan_tpu_torch.ops.kernels.conv3d_fuse
+import hpvaegan_tpu_torch.losses
+import hpvaegan_tpu_torch.train.trainer
 import hpvaegan_tpu_torch.utils.convert
 banned = {"jax", "flax", "optax", "cv2", "msgpack", "imageio", "tensorboardX"}
 loaded = sorted(m for m in sys.modules
@@ -42,6 +45,7 @@ def test_sources_import_no_jax_and_no_jax_package():
 
 def test_kernel_sources_ship_with_the_package():
     """The CUDA sources live in the package (pyproject ships ``csrc``)."""
-    assert (PORT / "csrc" / "conv3d_pack.cu").is_file()
+    for name in ("conv3d_pack", "conv3d_dw", "conv3d_fuse"):
+        assert (PORT / "csrc" / f"{name}.cu").is_file()
     text = (REPO / "pyproject.toml").read_text()
     assert "csrc/*.cu" in text

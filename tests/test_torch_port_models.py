@@ -242,7 +242,7 @@ def test_stage_matches_with_kernel_route():
     convert.load_conv_stack(stage, v)
     cp.counts.reset()
     _close(_port(stage, x, True), ref)
-    assert cp.counts.plain_calls == 2 and cp.counts.launches == 0
+    assert cp.counts.plain_calls == 2 and cp.counts.fwd_launches == 0
 
 
 @pytest.mark.parametrize("training", [True, False])

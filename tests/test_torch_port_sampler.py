@@ -87,7 +87,7 @@ def test_rand_mode_matches_jax(models):
                                   train=True, noises=noises)
     assert stats is None
     assert cp.counts.plain_calls == cfg.num_layer * SCALE
-    assert cp.counts.launches == 0
+    assert cp.counts.fwd_launches == 0
     assert out.shape == (BATCH, *pyr.shape3d(SCALE), 3)
     np.testing.assert_allclose(vae.numpy(), np.asarray(ref_vae), rtol=RTOL,
                                atol=ATOL)
