@@ -16,6 +16,10 @@ Phases; any failure exits non-zero and prints no result:
    time of one library call computing the same function, and the bound:
    K1's forward, input gradient and weight gradient, and K2 (with and
    without its intermediate, and its backward);
+3b. the same for the bf16 kernels (``--bf16``) at the top stage's shape
+   (2,13,144,256,64) and the critic's (4,13,144,256,64), against cuDNN's
+   bf16 conv, its bf16 gradients and the unfused bf16 pair, with the bound
+   at the bf16 tensor-core rate;
 4. the serving path at full width: the repository's default 3D
    GeneratorHPVAEGAN (nfc 64, latent 128, 5 layers, 3 VAE levels, pyramid
    to 256 px) on the in-repo wingsuit clip's geometry (256x144, 24 fps),
@@ -25,6 +29,8 @@ Phases; any failure exits non-zero and prints no result:
    checked for shape, finite values in [-1, 1] and 45 K1 launches;
    before that, the same model widths on a small pyramid agree between the
    card and the CPU path on the same draws;
+4b. the same with a checkpoint whose config.json says ``bf16``: each
+   request 45 bf16 K1 launches, nothing else, bf16 values in [-1, 1];
 5. the training path at full width, under ``--pconv --pconv-all --pfuse``
    with PyTorch's default TF32 flags (the steps hold f32 themselves):
    first one GAN step of the full-width model on a small pyramid on the
@@ -34,8 +40,12 @@ Phases; any failure exits non-zero and prints no result:
    top stage (2, 13, 144, 256), the critic on (4, 13, 144, 256, 3)) on
    clips made from ``--seed``, each step's wall time, losses, peak memory
    and launches per kernel printed and the launches checked;
-6. a ``{"kernels": [...]}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+5b. the same under ``--bf16``: per scale-9 GAN step 137 K1-fwd, 4 K2,
+   80 K1-dx and 75 K1-dw launches of the bf16 kernels, no f32 launch and
+   no plain call;
+6. a ``{"kernels": [...]}`` line (eight rows: four kernels, f32 and bf16,
+   each with its launches over the four main-path runs), the card line,
+   and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -52,13 +62,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet, dense):
-# f32 outside the tensor cores, and HBM3
+# f32 outside the tensor cores, bf16 on the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # kernel vs plain version: max |y_kernel - y_plain| <= KERNEL_TOL * max(1, max|y_plain|)
 # (both f32; only the summation order differs)
 KERNEL_TOL = 1e-4
+# bf16 kernel vs its plain version: the same bf16 products, f32 sums in
+# another order, one rounding to bf16, so an output may take the
+# neighbouring bf16 value: 1 ulp, at most 2**-7 of max(1, max|y_plain|).
+# Outputs of a second conv over an earlier output's 1-ulp flips (K2's y,
+# the pair's dx): 2 ulp.  dw is f32 from identical bf16 products:
+# KERNEL_TOL.
+BF16_TOL, BF16_TOL2 = 2.0 ** -7, 2.0 ** -6
+# card vs CPU path of a bf16 GAN step (losses, BN statistics, u/v: means
+# over the flips): the JAX package's bf16 bar (tests/test_pconv.py:49-57),
+# of max(1, max|ref|).  The bf16 sample's bar is measured
+# (check_card_against_cpu).
+BF16_MODEL_BAR = 5e-2
 # card vs CPU path of the whole generator (the tests' f32 bar)
 RTOL, ATOL = 2e-3, 2e-4
 
@@ -123,10 +146,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the f32 FMA time and the time
-    to move ``nbytes`` once."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """(bound_ms, bound_by): the larger of ``flops`` at ``peak`` (the f32
+    FMA rate by default) and the time to move ``nbytes`` once."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -135,39 +158,45 @@ def voxels(shape) -> int:
     return shape[0] * shape[1] * shape[2] * shape[3]
 
 
-def k1_bound(shape, bias: bool = True):
+def k1_bound(shape, bias: bool = True, bf16: bool = False):
     """One conv: 2*27*64*64 FLOP per voxel; x, w (and b) read once, y
-    written once."""
-    v = voxels(shape)
+    written once, in f32 or bf16 (then at the bf16 tensor-core rate)."""
+    v, e = voxels(shape), 2 if bf16 else 4
     return bound(2 * 27 * 64 * 64 * v,
-                 4 * (2 * v * 64 + 27 * 64 * 64 + 64 * bias))
+                 e * (2 * v * 64 + 27 * 64 * 64 + 64 * bias),
+                 PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
-def dw_bound(shape):
-    """The weight gradient: the forward's FLOPs; x and dy read once, dw
-    written once."""
-    v = voxels(shape)
-    return bound(2 * 27 * 64 * 64 * v, 4 * (2 * v * 64 + 27 * 64 * 64))
+def dw_bound(shape, bf16: bool = False):
+    """The weight gradient: the forward's FLOPs; x and dy read once (f32
+    or bf16), dw written once (f32)."""
+    v, e = voxels(shape), 2 if bf16 else 4
+    return bound(2 * 27 * 64 * 64 * v, e * 2 * v * 64 + 4 * 27 * 64 * 64,
+                 PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
-def pair_bound(shape, with_mid: bool = False):
+def pair_bound(shape, with_mid: bool = False, bf16: bool = False):
     """Two convs' FLOPs; x read once, y (and z) written once, the two
     weights and biases read once."""
-    v = voxels(shape)
+    v, e = voxels(shape), 2 if bf16 else 4
     return bound(2 * 2 * 27 * 64 * 64 * v,
-                 4 * ((2 + with_mid) * v * 64 + 2 * (27 * 64 * 64 + 64)))
+                 e * ((2 + with_mid) * v * 64 + 2 * (27 * 64 * 64 + 64)),
+                 PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
 
 
-def check_close(what: str, got, ref) -> float:
-    """max |got - ref| against KERNEL_TOL * max(1, max|ref|); fails the
-    run on a miss or a non-finite value."""
+def check_close(what: str, got, ref, tol: float = KERNEL_TOL) -> float:
+    """max |got - ref| against tol * max(1, max|ref|), in the same dtype;
+    fails the run on a miss or a non-finite value."""
     import torch
     torch.cuda.synchronize()
+    if got.dtype != ref.dtype:
+        fail(f"{what}: {got.dtype} against a {ref.dtype} plain version")
+    got, ref = got.float(), ref.float()
     err = float((got - ref).abs().max())
     scale = max(1.0, float(ref.abs().max()))
     print(f"{what}: max_abs_err {err:.3e} (tolerance "
-          f"{KERNEL_TOL * scale:.3e})", flush=True)
-    if not bool(torch.isfinite(got).all()) or err > KERNEL_TOL * scale:
+          f"{tol * scale:.3e})", flush=True)
+    if not bool(torch.isfinite(got).all()) or err > tol * scale:
         fail(f"{what} disagrees with its plain version")
     return err
 
@@ -392,6 +421,161 @@ def check_k2(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the bf16 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def bf16_inputs(dev, g, shape):
+    """bf16 activations; f32 weights and biases (the parameters stay f32
+    under --bf16: the wrappers round them)."""
+    import torch
+    x, w, b = conv_inputs(dev, g, shape)
+    return x.to(torch.bfloat16), w, b
+
+
+def check_k1_bf16(dev):
+    """K1's forward, dx and dw in bf16 at the top stage's and the critic's
+    shapes; yardsticks: cuDNN's bf16 conv and its two gradients."""
+    import torch
+    import torch.nn.functional as F
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2234)
+    worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    data = {}
+    for shape in (TOP_SHAPE, CRITIC_SHAPE, SMALL_SHAPE):
+        x, w, b = bf16_inputs(dev, g, shape)
+        dy = torch.randn(shape, device=dev, generator=g).to(bf)
+        for slope in (None, 0.2):
+            worst["fwd"] = max(worst["fwd"], check_close(
+                f"K1 bf16 {shape} lrelu={slope}",
+                cp.conv3d64(x, w, b, neg_slope=slope),
+                cp.conv3d64_plain(x, w, b, neg_slope=slope), BF16_TOL))
+        worst["dx"] = max(worst["dx"], check_close(
+            f"K1-dx bf16 {shape}", cp.conv3d64_dx(dy, w),
+            cp.conv3d64_plain(dy, cp.flip_swap(w)), BF16_TOL))
+        dw = cp.conv3d64_dw(x, dy)
+        worst["dw"] = max(worst["dw"], check_close(
+            f"K1-dw bf16 {shape}", dw, cp.conv3d64_dw_plain(x, dy)))
+        if not torch.equal(dw, cp.conv3d64_dw(x, dy)):
+            fail(f"K1-dw bf16 {shape} differs from run to run")
+        data[shape] = (x, w, b, dy)
+
+    rows = []
+    x, w, b, dy = data[TOP_SHAPE]
+    wb, bb = w.to(bf), b.to(bf)
+    lib_fwd = lambda: F.conv3d(ncdhw(x), oi(wb), bb, padding=1)  # noqa: E731
+    ms = time_ms(lambda: cp.conv3d64(x, w, b), iters=20)
+    plain_ms = time_ms(lambda: cp.conv3d64_plain(x, w, b), iters=5)
+    lib_ms = time_ms(lib_fwd, iters=20)
+    bd = k1_bound(TOP_SHAPE, bf16=True)
+    print(f"K1 bf16 timing at {TOP_SHAPE}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, F.conv3d bf16 (cuDNN) {lib_ms:.4f} ms, bound "
+          f"{bd[0]:.4f} ms ({bd[1]}), {bd[0] / ms:.3f} of the bound",
+          flush=True)
+    rows.append(kernel_row("conv3d64_fwd_bf16", cp.SOURCE, cp.REPLACES,
+                           worst["fwd"], ms, plain_ms, bd, lib_ms))
+
+    size = ncdhw(dy).shape
+    ms = time_ms(lambda: cp.conv3d64_dx(dy, w), iters=20)
+    plain_ms = time_ms(lambda: cp.conv3d64_plain(dy, cp.flip_swap(w)),
+                       iters=5)
+    lib_ms = time_ms(lambda: torch.nn.grad.conv3d_input(
+        size, oi(wb), ncdhw(dy), padding=1), iters=20)
+    bd = k1_bound(TOP_SHAPE, bias=False, bf16=True)
+    print(f"K1-dx bf16 timing at {TOP_SHAPE}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.nn.grad.conv3d_input bf16 (cuDNN) "
+          f"{lib_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+          f"{bd[0] / ms:.3f} of the bound", flush=True)
+    rows.append(kernel_row("conv3d64_dx_bf16", cp.SOURCE, cp.DX_REPLACES,
+                           worst["dx"], ms, plain_ms, bd, lib_ms))
+
+    for shape in (TOP_SHAPE, CRITIC_SHAPE):
+        x, _, _, dy = data[shape]
+        ms = time_ms(lambda: cp.conv3d64_dw(x, dy), iters=10)
+        bd = dw_bound(shape, bf16=True)
+        print(f"K1-dw bf16 timing at {shape}: kernel {ms:.4f} ms, bound "
+              f"{bd[0]:.4f} ms ({bd[1]}), {bd[0] / ms:.3f} of the bound",
+              flush=True)
+    plain_ms = time_ms(lambda: cp.conv3d64_dw_plain(x, dy), iters=5)
+    lib_ms = time_ms(lambda: torch.nn.grad.conv3d_weight(
+        ncdhw(x), (64, 64, 3, 3, 3), ncdhw(dy), padding=1), iters=10)
+    print(f"K1-dw bf16 at {CRITIC_SHAPE}: plain {plain_ms:.4f} ms, "
+          f"torch.nn.grad.conv3d_weight bf16 (cuDNN) {lib_ms:.4f} ms",
+          flush=True)
+    rows.append(kernel_row("conv3d64_dw_bf16", cp.DW_SOURCE, cp.DW_REPLACES,
+                           worst["dw"], ms, plain_ms, bd, lib_ms))
+    return rows
+
+
+def check_k2_bf16(dev):
+    """K2 in bf16 at the critic's shape: y, (y, z) and the backward
+    against the plain pair; timed against the unfused bf16 cuDNN pair."""
+    import torch
+    import torch.nn.functional as F
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_fuse as cf
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2237)
+    worst = 0.0
+    for shape in (CRITIC_SHAPE, SMALL_SHAPE, (1, 1, 8, 14, 64)):
+        x, w1, b1 = bf16_inputs(dev, g, shape)
+        _, w2, b2 = conv_inputs(dev, g, shape)
+        y_ref, z_ref = cf.conv3d64_pair_plain(x, w1, b1, w2, b2,
+                                              with_mid=True)
+        y, z = cf.conv3d64_pair_forward(x, w1, b1, w2, b2, with_mid=True)
+        worst = max(worst, check_close(f"K2 bf16 y {shape}", y, y_ref,
+                                       BF16_TOL2),
+                    check_close(f"K2 bf16 z {shape}", z, z_ref, BF16_TOL),
+                    check_close(f"K2 bf16 y without mid {shape}",
+                                cf.conv3d64_pair_forward(x, w1, b1, w2, b2),
+                                y_ref, BF16_TOL2))
+        del y_ref, z_ref, y, z
+        if shape == CRITIC_SHAPE:
+            args = (x, w1, b1, w2, b2)
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    dy = torch.randn(CRITIC_SHAPE, device=dev, generator=g).to(bf)
+    got = torch.autograd.grad(cf.conv3d64_pair(*leaves), leaves, dy)
+    y, z = cf.conv3d64_pair_forward(*args, with_mid=True)
+    ref = cf.conv3d64_pair_backward(args[0], z, y, args[1], args[3], dy,
+                                    plain=True)
+    # dx: two K1-dx in a row; dw rounded to bf16; db1 sums d_pre1, which
+    # carries dz's flips; db2 sums the same d_pre2 on both sides
+    tols = (BF16_TOL2, BF16_TOL, BF16_TOL, BF16_TOL, KERNEL_TOL)
+    for name, a, r, tol in zip(("dx", "dw1", "db1", "dw2", "db2"), got, ref,
+                               tols):
+        worst = max(worst, check_close(f"K2 bf16 backward {name}", a, r, tol))
+    del got, ref, y, z
+
+    x, w1, b1, w2, b2 = args
+    ms = time_ms(lambda: cf.conv3d64_pair_forward(*args), iters=5)
+    mid_ms = time_ms(lambda: cf.conv3d64_pair_forward(*args, with_mid=True),
+                     iters=5)
+    y_fn = cf.conv3d64_pair(*leaves)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(y_fn, leaves, dy,
+                                                 retain_graph=True), iters=3)
+    plain_ms = time_ms(lambda: cf.conv3d64_pair_plain(*args), iters=2)
+    xc, w1c, w2c, b1c, b2c = (ncdhw(x), oi(w1.to(bf)), oi(w2.to(bf)),
+                              b1.to(bf), b2.to(bf))
+
+    def unfused():
+        z = F.leaky_relu(F.conv3d(xc, w1c, b1c, padding=1), 0.2)
+        return F.leaky_relu(F.conv3d(z, w2c, b2c, padding=1), 0.2)
+
+    unfused_ms = time_ms(unfused, iters=10)
+    bd, bd_mid = (pair_bound(CRITIC_SHAPE, bf16=True),
+                  pair_bound(CRITIC_SHAPE, True, bf16=True))
+    print(f"K2 bf16 timing at {CRITIC_SHAPE}: kernel {ms:.4f} ms (with z "
+          f"{mid_ms:.4f} ms, bound {bd_mid[0]:.4f} ms), backward "
+          f"{bwd_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms "
+          f"({bd[1]}), {bd[0] / ms:.3f} of the bound", flush=True)
+    print(f"K2 bf16 unfused pair (two F.conv3d bf16 + LeakyReLU, cuDNN) at "
+          f"{CRITIC_SHAPE}: {unfused_ms:.4f} ms", flush=True)
+    return kernel_row("conv3d64_pair_bf16", cf.SOURCE, cf.REPLACES, worst,
+                      ms, plain_ms, bd, None)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -415,16 +599,22 @@ def build_generator(cfg, scale: int, seed: int):
     return G
 
 
-def check_card_against_cpu(dev, seed: int) -> None:
+def check_card_against_cpu(dev, seed: int, bf16: bool = False) -> None:
     """Full model widths on a small pyramid: the card (K1 + cuDNN) and
-    the CPU path (plain versions) on the same weights and draws."""
+    the CPU path (plain versions) on the same weights and draws.
+
+    f32: the tests' f32 bar.  bf16: a 1-ulp rounding flip in one conv
+    moves the 4-scale, 26-conv model's output far more than one ulp, so
+    the bar is the model's own bf16 noise, measured here: the card's
+    distance to the CPU bf16 path, in RMS and max, may not exceed the CPU
+    bf16 path's distance to the CPU f32 path (the same weights and
+    draws) in RMS, nor twice it in max."""
     import copy
 
     import numpy as np
     import torch
-    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
 
-    cfg = main_config(img_size=48, min_size=24, max_size=48)
+    cfg = main_config(img_size=48, min_size=24, max_size=48, bf16=bf16)
     scale = cfg.stop_scale
     G = build_generator(cfg, scale, seed)
     pyr = cfg.pyramid()
@@ -434,32 +624,48 @@ def check_card_against_cpu(dev, seed: int) -> None:
     noises = [rng.standard_normal((BATCH, *pyr.shape3d(i + 1), 3),
                                   dtype=np.float32) for i in range(scale)]
     amps = [1.0] + [cfg.noise_amp] * scale
+    runs = [("cpu", G), ("cuda", copy.deepcopy(G).to(dev))]
+    if bf16:
+        cfg32 = main_config(img_size=48, min_size=24, max_size=48)
+        runs.append(("cpu f32", build_generator(cfg32, scale, seed)))
     outs = {}
-    for name, model in (("cpu", G), ("cuda", copy.deepcopy(G).to(dev))):
-        cp.counts.reset()
+    for name, model in runs:
+        reset_counts()
         with torch.inference_mode():
             out, _, _ = model.apply(amps, noise_init=z, mode="rand",
                                     train=True, noises=noises)
-            outs[name] = out.cpu().numpy()
-        print(f"small pyramid on {name}: K1 launches "
-              f"{cp.counts.fwd_launches}, plain calls "
-              f"{cp.counts.plain_calls}", flush=True)
+            outs[name] = out.float().cpu().numpy()
+        print(f"small pyramid on {name} ({dtype_name(bf16)}): launches "
+              f"{all_counts()}", flush=True)
     err = float(np.max(np.abs(outs["cuda"] - outs["cpu"])))
-    print(f"card vs CPU path, {pyr.all_shapes3d()[-1]} at scale {scale}: "
-          f"max_abs_err {err:.3e}", flush=True)
-    if not np.allclose(outs["cuda"], outs["cpu"], rtol=RTOL, atol=ATOL):
+    print(f"card vs CPU path ({dtype_name(bf16)}), {pyr.all_shapes3d()[-1]} "
+          f"at scale {scale}: max_abs_err {err:.3e}", flush=True)
+    if bf16:
+        def rms(d):
+            return float(np.sqrt(np.mean(np.square(d))))
+        card, noise = outs["cuda"] - outs["cpu"], outs["cpu"] - outs["cpu f32"]
+        print(f"bf16 card vs CPU bf16: rms {rms(card):.3e}, max {err:.3e}; "
+              f"the bar, CPU bf16 vs CPU f32: rms {rms(noise):.3e}, max "
+              f"{float(np.abs(noise).max()):.3e}", flush=True)
+        ok = (rms(card) <= rms(noise)
+              and err <= 2 * float(np.abs(noise).max()))
+    else:
+        ok = np.allclose(outs["cuda"], outs["cpu"], rtol=RTOL, atol=ATOL)
+    if not ok:
         fail("the generator on the card disagrees with the CPU path")
 
 
-def serve_main_path(dev, seed: int, profile: bool):
+def serve_main_path(dev, seed: int, profile: bool, bf16: bool = False):
+    """Three full-width requests from a scale-9 checkpoint whose
+    config.json says ``bf16``; returns the launches of the requests."""
     import numpy as np
     import torch
     from hpvaegan_tpu_torch.core.config import Config
-    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
     from hpvaegan_tpu_torch.serving import SamplerSession, apply_snapshot
     from hpvaegan_tpu_torch.utils.saver import save_generator
 
-    cfg = main_config()
+    cfg = main_config(bf16=bf16)
+    k1 = "conv3d64_fwd_bf16" if bf16 else "conv3d64_fwd"
     shapes = cfg.pyramid().all_shapes3d()
     if shapes[0] != (4, 18, 33) or shapes[SCALE] != TOP_SHAPE[1:4]:
         fail(f"unexpected pyramid {shapes}")
@@ -476,6 +682,8 @@ def serve_main_path(dev, seed: int, profile: bool):
 
         scfg = Config(netG=netG, pconv_all=True)
         apply_snapshot(scfg, netG, explicit=set(), user_chose_source=False)
+        if scfg.bf16 != bf16:
+            fail(f"the snapshot restored bf16={scfg.bf16}, want {bf16}")
         scfg.adjust_scales()
         session = SamplerSession(scfg, batch_size=BATCH, manual_seed=seed,
                                  device=dev)
@@ -486,10 +694,10 @@ def serve_main_path(dev, seed: int, profile: bool):
 
     per_stage = 5 * SCALE
     torch.cuda.reset_peak_memory_stats(dev)
-    cp.counts.reset()
+    reset_counts()
     times = []
     for i in range(REQUESTS):
-        before = cp.counts.fwd_launches
+        before = all_counts()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -497,23 +705,23 @@ def serve_main_path(dev, seed: int, profile: bool):
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
-        launched = cp.counts.fwd_launches - before
+        now = all_counts()
+        launched = {k: now[k] - before[k] for k in now}
         want = (BATCH, *TOP_SHAPE[1:4], 3)
-        print(f"request {i}: {times[-1]:.3f} ms, shape {out.shape}, "
-              f"range [{out.min():.4f}, {out.max():.4f}], K1 launches "
-              f"{launched}", flush=True)
+        print(f"request {i} ({dtype_name(bf16)}): {times[-1]:.3f} ms, shape "
+              f"{out.shape} {out.dtype}, range [{out.min():.4f}, "
+              f"{out.max():.4f}], launches {launched}", flush=True)
         if out.shape != want:
             fail(f"sample shape {out.shape}, want {want}")
         if not np.all(np.isfinite(out)) or np.abs(out).max() > 1.0:
             fail("sample not finite or outside [-1, 1]")
-        if launched != per_stage:
-            fail(f"K1 launched {launched} times, want {per_stage}")
-    launches, plain = cp.counts.fwd_launches, cp.counts.plain_calls
-    if plain != 0:
-        fail(f"the plain version ran {plain} times on the card")
+        if launched != {**{k: 0 for k in launched}, k1: per_stage}:
+            fail(f"a request launched {launched}, want {per_stage} {k1} "
+                 f"and nothing else")
+    launches = all_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"main path: {REQUESTS} requests, ms per request {times}, "
-          f"peak memory {peak} bytes", flush=True)
+    print(f"main path ({dtype_name(bf16)}): {REQUESTS} requests, ms per "
+          f"request {times}, peak memory {peak} bytes", flush=True)
 
     # K1's share of a request: its 45 launches timed at their shapes
     from hpvaegan_tpu_torch.ops.kernels.conv3d_pack import conv3d64
@@ -521,10 +729,12 @@ def serve_main_path(dev, seed: int, profile: bool):
     b = torch.zeros(64, device=dev)
     k1_total = 0.0
     for idx in range(1, SCALE + 1):
-        x = torch.randn((BATCH, *shapes[idx], 64), device=dev)
+        x = torch.randn((BATCH, *shapes[idx], 64), device=dev).to(
+            torch.bfloat16 if bf16 else torch.float32)
         k1_total += 5 * time_ms(lambda: conv3d64(x, w, b), iters=10)
-    print(f"K1 time per request (45 launches at the stage shapes): "
-          f"{k1_total:.4f} ms of {min(times):.3f} ms", flush=True)
+    print(f"K1 ({dtype_name(bf16)}) time per request (45 launches at the "
+          f"stage shapes): {k1_total:.4f} ms of {min(times):.3f} ms",
+          flush=True)
 
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof
@@ -540,14 +750,24 @@ def serve_main_path(dev, seed: int, profile: bool):
 # phase 5: the training path
 # ---------------------------------------------------------------------------
 
+def dtype_name(bf16: bool) -> str:
+    return "bf16" if bf16 else "f32"
+
+
 def all_counts() -> dict:
+    """Launches per kernel row (f32 and bf16 apart) and plain calls."""
     from hpvaegan_tpu_torch.ops.kernels import conv3d_fuse as cf
     from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
-    return {"conv3d64_fwd": cp.counts.fwd_launches,
-            "conv3d64_dx": cp.counts.dx_launches,
-            "conv3d64_dw": cp.counts.dw_launches,
+    c = cp.counts
+    return {"conv3d64_fwd": c.fwd_launches,
+            "conv3d64_dx": c.dx_launches,
+            "conv3d64_dw": c.dw_launches,
             "conv3d64_pair": cf.counts.launches,
-            "plain": cp.counts.plain_calls + cf.counts.plain_calls}
+            "conv3d64_fwd_bf16": c.fwd_bf16_launches,
+            "conv3d64_dx_bf16": c.dx_bf16_launches,
+            "conv3d64_dw_bf16": c.dw_bf16_launches,
+            "conv3d64_pair_bf16": cf.counts.bf16_launches,
+            "plain": c.plain_calls + cf.counts.plain_calls}
 
 
 def reset_counts() -> None:
@@ -557,10 +777,11 @@ def reset_counts() -> None:
     cf.counts.reset()
 
 
-def check_train_card_against_cpu(dev, seed: int) -> None:
+def check_train_card_against_cpu(dev, seed: int, bf16: bool = False) -> None:
     """One GAN step of the full-width model (critic included) on a small
     pyramid, on the card and on the CPU path, from the same weights and
-    draws: losses, BN running statistics and spectral u/v agree."""
+    draws: losses, BN running statistics and spectral u/v agree, in f32
+    (the tests' f32 bar) or bf16 (the JAX package's bf16 bar)."""
     import copy
 
     import numpy as np
@@ -568,7 +789,8 @@ def check_train_card_against_cpu(dev, seed: int) -> None:
     from hpvaegan_tpu_torch.models.registry import make_discriminator
     from hpvaegan_tpu_torch.train import optim, steps
 
-    cfg = main_config(img_size=48, min_size=24, max_size=48, **TRAIN_FLAGS)
+    cfg = main_config(img_size=48, min_size=24, max_size=48, bf16=bf16,
+                      **TRAIN_FLAGS)
     scale = cfg.vae_levels                      # the first GAN scale
     cfg.scale_idx = scale
     pyr = cfg.pyramid()
@@ -598,26 +820,37 @@ def check_train_card_against_cpu(dev, seed: int) -> None:
         bufs = {f"G.{k}": v.cpu().numpy() for k, v in g.named_buffers()}
         bufs.update({f"D.{k}": v.cpu().numpy() for k, v in d.named_buffers()})
         runs[name] = ({k: float(v) for k, v in metrics.items()}, bufs)
-        print(f"small-pyramid GAN step on {name}: {runs[name][0]}, "
-              f"launches {all_counts()}", flush=True)
+        print(f"small-pyramid GAN step on {name} ({dtype_name(bf16)}): "
+              f"{runs[name][0]}, launches {all_counts()}", flush=True)
     (m_cpu, b_cpu), (m_gpu, b_gpu) = runs["cpu"], runs["cuda"]
     worst = 0.0
     for key in list(m_cpu) + list(b_cpu):
         a = np.asarray(m_gpu[key] if key in m_gpu else b_gpu[key])
         b = np.asarray(m_cpu[key] if key in m_cpu else b_cpu[key])
-        if not np.allclose(a, b, rtol=RTOL, atol=ATOL):
+        err = float(np.max(np.abs(a - b)))
+        if bf16:
+            ok = err <= BF16_MODEL_BAR * max(1.0, float(np.abs(b).max()))
+        else:
+            ok = np.allclose(a, b, rtol=RTOL, atol=ATOL)
+        if not ok:
             fail(f"GAN step on the card disagrees with the CPU path in {key}:"
-                 f" {np.max(np.abs(a - b)):.3e}")
-        worst = max(worst, float(np.max(np.abs(a - b))))
-    print(f"card vs CPU GAN step at scale {scale} "
+                 f" {err:.3e}")
+        worst = max(worst, err)
+    print(f"card vs CPU GAN step ({dtype_name(bf16)}) at scale {scale} "
           f"{pyr.shape3d(scale)}: losses, BN statistics and u/v agree, "
           f"max_abs_err {worst:.3e}", flush=True)
 
 
-def train_main_path(dev, seed: int, profile: bool):
-    """``train_scale`` at full width: scale 2 (VAE) and scale 9 (GAN).
-    Returns the launches of the whole run, per kernel.  ``profile``: a
-    torch.profiler table of the scale-9 run."""
+def train_main_path(dev, seed: int, profile: bool, bf16: bool = False):
+    """``train_scale`` at full width: scale 2 (VAE) and scale 9 (GAN),
+    with ``--bf16`` or not.  Returns the launches of the whole run, per
+    kernel row.  ``profile``: a torch.profiler table of the scale-9 run."""
+    sfx = "_bf16" if bf16 else ""
+    # per GAN step: GAN_STEP_LAUNCHES of this dtype's kernels, none of the
+    # other dtype's
+    want_step = {f"{k}{other}": (n if other == sfx else 0)
+                 for k, n in GAN_STEP_LAUNCHES.items()
+                 for other in ("", "_bf16")}
     import contextlib
 
     import torch
@@ -633,7 +866,7 @@ def train_main_path(dev, seed: int, profile: bool):
 
     reset_counts()
     for scale, iters in ((VAE_SCALE, VAE_ITERS), (SCALE, GAN_ITERS)):
-        cfg = main_config(niter=iters, **TRAIN_FLAGS)
+        cfg = main_config(niter=iters, bf16=bf16, **TRAIN_FLAGS)
         cfg.scale_idx = scale
         cfg.Noise_Amps = [1.0] + [cfg.noise_amp] * (scale - 1)
         G = build_generator(cfg, scale, seed).to(dev)
@@ -652,14 +885,15 @@ def train_main_path(dev, seed: int, profile: bool):
             delta = {k: now[k] - state["counts"][k] for k in now}
             peak = torch.cuda.max_memory_allocated(dev)
             values = {k: float(v) for k, v in info.items()}
-            print(f"scale {scale} {event} {it}: {wall:.4f} s, {values}, "
-                  f"peak memory {peak} bytes, launches {delta}", flush=True)
+            print(f"scale {scale} ({dtype_name(bf16)}) {event} {it}: "
+                  f"{wall:.4f} s, {values}, peak memory {peak} bytes, "
+                  f"launches {delta}", flush=True)
             if not all(math.isfinite(v) for v in values.values()):
                 fail(f"scale {scale} {event} {it}: a loss is not finite")
             if delta["plain"]:
                 fail(f"the plain versions ran {delta['plain']} times")
             if gan and event == "step":
-                for name, want in GAN_STEP_LAUNCHES.items():
+                for name, want in want_step.items():
                     if delta[name] != want:
                         fail(f"{name} launched {delta[name]} times in a "
                              f"scale-{scale} GAN step, want {want}")
@@ -670,15 +904,20 @@ def train_main_path(dev, seed: int, profile: bool):
         if profile and gan:
             from torch.profiler import ProfilerActivity, profile as prof
             tracer = prof(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA])
+                                      ProfilerActivity.CUDA],
+                          record_shapes=True)
         with tracer:
             _, D, hist = train_scale(cfg, G, clips(cfg.pyramid(), scale),
                                      seed=seed, callback=on_event)
         if profile and gan:
-            print(f"profile of train_scale at scale {scale} (calibration + "
-                  f"{iters} steps):", flush=True)
+            print(f"profile of train_scale at scale {scale} "
+                  f"({dtype_name(bf16)}, calibration + {iters} steps):",
+                  flush=True)
             print(tracer.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=25), flush=True)
+            print("the same by input shapes:", flush=True)
+            print(tracer.key_averages(group_by_input_shape=True).table(
+                sort_by="cuda_time_total", row_limit=25), flush=True)
         if len(hist) != iters or (D is not None) != gan:
             fail(f"train_scale at scale {scale} ran {len(hist)} steps")
         del G, D, hist
@@ -698,9 +937,10 @@ def main() -> None:
     if not (ROOT / "hpvaegan_tpu_torch" / "csrc").is_dir():
         fail(f"no hpvaegan_tpu_torch/ beside {__file__}: run from the "
              f"root of the repository")
-    # phases 3-4 in f32 everywhere: the kernels are f32, and so are their
-    # references (plain versions, cuDNN yardsticks).  Phase 5 runs with
-    # PyTorch's own defaults, so that the steps' full_f32 is what holds f32
+    # phases 3-4 with TF32 off: the f32 kernels' references (plain
+    # versions, cuDNN yardsticks) and the bf16 plain versions' f32 sums are
+    # full f32.  Phase 5 runs with PyTorch's own defaults, so that the
+    # steps' full_f32 is what holds f32
     tf32_defaults = (torch.backends.cuda.matmul.allow_tf32,
                      torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -722,25 +962,34 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
     for name in sources:
         print(_build.ptxas_report(name), flush=True)
-    print(f"conv3d64_fwd launch config: {cp.kernel_config()}; "
-          f"conv3d64_pair launch config: {cf.kernel_config()}", flush=True)
+    print(f"conv3d64_fwd launch config: f32 {cp.kernel_config()}, bf16 "
+          f"{cp.kernel_config(torch.bfloat16)}; conv3d64_pair launch "
+          f"config: f32 {cf.kernel_config()}, bf16 "
+          f"{cf.kernel_config(torch.bfloat16)}", flush=True)
 
     rows = [check_k1(dev), check_k1_dx(dev), check_k1_dw(dev),
-            check_k2(dev)]
+            check_k2(dev)]                                   # phase 3
     torch.cuda.empty_cache()
-    check_card_against_cpu(dev, args.seed)
-    served = serve_main_path(dev, args.seed, args.profile)
+    rows += check_k1_bf16(dev) + [check_k2_bf16(dev)]        # phase 3b
+    torch.cuda.empty_cache()
+    # the main paths: each reads the launches of its own run
+    paths = {}
+    for bf16 in (False, True):                               # phases 4, 4b
+        check_card_against_cpu(dev, args.seed, bf16)
+        paths[f"serving {dtype_name(bf16)}"] = serve_main_path(
+            dev, args.seed, args.profile, bf16)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32_defaults
     print(f"training phase TF32 flags (PyTorch defaults): matmul "
           f"{tf32_defaults[0]}, cudnn {tf32_defaults[1]}", flush=True)
-    check_train_card_against_cpu(dev, args.seed)
-    trained = train_main_path(dev, args.seed, args.profile)
-    print(f"launches: serving path {served} (conv3d64_fwd), training path "
-          f"{trained}", flush=True)
-    trained["conv3d64_fwd"] += served
+    for bf16 in (False, True):                               # phases 5, 5b
+        check_train_card_against_cpu(dev, args.seed, bf16)
+        paths[f"training {dtype_name(bf16)}"] = train_main_path(
+            dev, args.seed, args.profile, bf16)
+    for name, launched in paths.items():
+        print(f"launches, {name} path: {launched}", flush=True)
     for row in rows:
-        row["launches"] = trained[row["name"]]
+        row["launches"] = sum(p[row["name"]] for p in paths.values())
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on the main path")
 

@@ -32,7 +32,10 @@ def full_f32():
     so the stock convs of the model (encoder, 3 -> 64 heads, 64 -> 3 tails,
     decoder) would drift from the JAX package's f32 result while the K1
     kernel computes in f32.  The port holds f32 semantics end to end; the
-    previous settings come back on exit."""
+    previous settings come back on exit.  Under ``--bf16`` the convs take
+    bf16 operands instead (flax's ``nn.Conv(dtype=bf16)``), which these
+    flags do not touch; the f32 parts of a bf16 model (BatchNorm, the
+    resize, spectral norm) still run in full f32."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     old = cudnn.allow_tf32, matmul.allow_tf32
     cudnn.allow_tf32 = matmul.allow_tf32 = False

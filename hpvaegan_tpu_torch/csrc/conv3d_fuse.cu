@@ -1,4 +1,4 @@
-// K2: two fused 3x3x3 SAME convs, 64 -> 64 -> 64 channels, f32,
+// K2: two fused 3x3x3 SAME convs, 64 -> 64 -> 64 channels, f32 and bf16,
 //
 //   z = lrelu(conv(x, w1) + b1),   y = lrelu(conv(z, w2) + b2)
 //
@@ -34,11 +34,32 @@
 // operations.  The recomputed z halo costs (TILE_H+2)(TILE_W+2) /
 // (TILE_H*TILE_W) = 1.52x conv1's work.
 //
+// The bf16 instance (conv3d64_pair_pallas with bf16 x, conv3d_fuse.py:
+// 225-233, z ring in x's dtype :173, 282) is conv3d64_pair_bf16_kernel, on
+// the tensor cores, with the same grid and T streaming:
+//   * bf16 x, weights and biases; f32 accumulation on mma.sync m16n8k16;
+//     each z value is rounded to bf16 as it enters the ring, so conv2
+//     reads the rounded z; y and z are stored rounded to nearest even;
+//   * the ring, the x slab and the weights are bf16 pixel (or input
+//     channel) rows of 128 bytes, XOR-swizzled (bf16_mma.cuh): 3 x 128 z
+//     pixels + 180 x pixels + 3 x 64 weight rows = 96,768 bytes, two
+//     256-thread blocks an SM;
+//   * conv1: the z slice's 8 x 16 pixels are 8 m16 tiles, one row a warp;
+//     conv2: the 6 x 14 output pixels are 6 m16 tiles (the last 12 rows
+//     padding), warps 0-5; each warp all 64 output channels.
+// Bound by the bf16 tensor-core rate; every H tap's weights are staged
+// again from L2 for each z slice and each output slice (as in the f32
+// instance), which the next design should keep resident instead.
+//
 // Plain C interface, loaded with ctypes; launches on the caller's stream
 // and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -259,6 +280,203 @@ conv3d64_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int BF_THREADS = 256;               // 8 warps
+constexpr int Z_PIX = ZH * ZW;                // 128: one z slice with its halo
+constexpr int X_PIX = XH * XW;                // 180: the x slab feeding it
+constexpr int OUT_PIX = TILE_H * TILE_W;      // 84
+constexpr int OUT_MTILES = (OUT_PIX + 15) / 16;  // 6
+static_assert(Z_PIX == 16 * BF_THREADS / 32, "conv1: one z row of 16 a warp");
+static_assert(ZW == 16, "conv1: one z row is one m16 tile");
+constexpr int RB = bf16_mma::ROW_BYTES;
+constexpr size_t BF_SMEM_Z = (size_t)3 * Z_PIX * RB;   // 49,152
+constexpr size_t BF_SMEM_X = (size_t)X_PIX * RB;       // 23,040
+constexpr size_t BF_SMEM_W = (size_t)3 * C * RB;       // 24,576
+constexpr size_t BF_SMEM_BYTES = BF_SMEM_Z + BF_SMEM_X + BF_SMEM_W;
+
+// the three W taps of weight tap (dt, dh) into `ws`: 3 x 64 rows of 64
+__device__ __forceinline__ void stage_weights_bf16(unsigned char* ws,
+                                                   const __nv_bfloat16* w,
+                                                   int dt, int dh) {
+  const uint4* src = reinterpret_cast<const uint4*>(
+      w + (size_t)(dt * 3 + dh) * 3 * C * C);
+  for (int i = threadIdx.x; i < 3 * C * 8; i += BF_THREADS)
+    *reinterpret_cast<uint4*>(ws + bf16_mma::swz(i >> 3, i & 7)) = __ldg(src + i);
+}
+
+// z[tz] over rows h0-1 .. h0+TILE_H, columns w0-1 .. w0+TILE_W into ring
+// slot `zslot`: zero outside the volume, bf16 rounded.  Warp w computes z
+// row w (16 pixels) for all 64 channels.
+__device__ void conv1_slice_bf16(const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ w1,
+                                 const __nv_bfloat16* __restrict__ b1,
+                                 float slope, const Geometry& g, int tz,
+                                 unsigned char* zslot, unsigned char* xs,
+                                 unsigned char* ws) {
+  using namespace bf16_mma;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const uint32_t xs_s = smem_u32(xs);
+  const uint32_t ws_s = smem_u32(ws);
+
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[n][k] = 0.f;
+
+  for (int kt = 0; kt < 3; ++kt) {
+    const int tx = tz + kt - 1;
+    if (tx < 0 || tx >= g.T) continue;  // uniform across the block
+    const __nv_bfloat16* xt = x + g.batch_off + (size_t)tx * g.frame;
+    __syncthreads();  // the previous slab and weights are consumed
+    for (int i = tid; i < X_PIX * 8; i += BF_THREADS) {
+      const int pix = i >> 3;
+      const int ch = i & 7;
+      const int sr = pix / XW;
+      const int sc = pix - sr * XW;
+      const int hh = g.h0 - 2 + sr;
+      const int ww = g.w0 - 2 + sc;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (hh >= 0 && hh < g.H && ww >= 0 && ww < g.W)
+        v = __ldg(reinterpret_cast<const uint4*>(
+                      xt + ((size_t)hh * g.W + ww) * C) + ch);
+      *reinterpret_cast<uint4*>(xs + swz(pix, ch)) = v;
+    }
+    for (int dh = 0; dh < 3; ++dh) {
+      if (dh > 0) __syncthreads();
+      stage_weights_bf16(ws, w1, kt, dh);
+      __syncthreads();
+#pragma unroll 1
+      for (int dw = 0; dw < 3; ++dw)
+        tap_16x64(acc, xs_s, (warp + dh) * XW + (lane & 15) + dw,
+                  ws_s + (uint32_t)(dw * C * RB), lane);
+    }
+  }
+
+  // accumulator (n, j): z pixel (warp, lane/4 (+8 for j >= 2)), channels
+  // n*8 + 2*(lane%4) + (j & 1)
+  const int hz = g.h0 - 1 + warp;
+  const int q = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int zc = (lane >> 2) + half * 8;
+    const int wz = g.w0 - 1 + zc;
+    const bool inside = hz >= 0 && hz < g.H && wz >= 0 && wz < g.W;
+    const int zp = warp * ZW + zc;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int co = n * 8 + 2 * q;
+      float v0 = 0.f, v1 = 0.f;
+      if (inside) {
+        v0 = lrelu(acc[n][2 * half] + __bfloat162float(b1[co]), slope);
+        v1 = lrelu(acc[n][2 * half + 1] + __bfloat162float(b1[co + 1]), slope);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(zslot + swz_pair(zp, co)) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BF_THREADS, 2)
+conv3d64_pair_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ w1,
+                          const __nv_bfloat16* __restrict__ b1,
+                          const __nv_bfloat16* __restrict__ w2,
+                          const __nv_bfloat16* __restrict__ b2,
+                          __nv_bfloat16* __restrict__ y,
+                          __nv_bfloat16* __restrict__ mid, int T, int H, int W,
+                          int tiles_w, float slope) {
+  using namespace bf16_mma;
+  extern __shared__ __align__(128) unsigned char smem_bf[];
+  unsigned char* zr = smem_bf;                          // [3][128 px] rows
+  unsigned char* xs = smem_bf + BF_SMEM_Z;              // [180 px] rows
+  unsigned char* ws = smem_bf + BF_SMEM_Z + BF_SMEM_X;  // [3 * 64 ci] rows
+  const uint32_t zr_s = smem_u32(zr);
+  const uint32_t ws_s = smem_u32(ws);
+
+  Geometry g;
+  g.T = T;
+  g.H = H;
+  g.W = W;
+  g.h0 = (blockIdx.x / tiles_w) * TILE_H;
+  g.w0 = (blockIdx.x % tiles_w) * TILE_W;
+  g.frame = (size_t)H * W * C;
+  g.batch_off = (size_t)blockIdx.y * T * g.frame;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool active = warp < OUT_MTILES;
+  // this lane's ldmatrix row in conv2: output pixel warp*16 + lane%16
+  // (rows past the tile read pixel OUT_PIX - 1 and are never stored)
+  const int a_p = min(warp * 16 + (lane & 15), OUT_PIX - 1);
+  const int a_zp = (a_p / TILE_W) * ZW + a_p % TILE_W;  // its z pixel at tap (0, 0)
+
+  conv1_slice_bf16(x, w1, b1, slope, g, 0, zr, xs, ws);
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T)
+      conv1_slice_bf16(x, w1, b1, slope, g, t + 1,
+                       zr + (size_t)((t + 1) % 3) * Z_PIX * RB, xs, ws);
+
+    float acc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[n][k] = 0.f;
+    for (int kt = 0; kt < 3; ++kt) {
+      const int tz = t + kt - 1;
+      if (tz < 0 || tz >= T) continue;  // z outside [0, T) is zero
+      const uint32_t zslot = zr_s + (uint32_t)((tz % 3) * Z_PIX * RB);
+      for (int dh = 0; dh < 3; ++dh) {
+        __syncthreads();  // z writes visible; previous weights consumed
+        stage_weights_bf16(ws, w2, kt, dh);
+        __syncthreads();
+        if (active) {
+#pragma unroll 1
+          for (int dw = 0; dw < 3; ++dw)
+            tap_16x64(acc, zslot, a_zp + dh * ZW + dw,
+                      ws_s + (uint32_t)(dw * C * RB), lane);
+        }
+      }
+    }
+    if (!active) continue;
+
+    // accumulator (n, j): output pixel warp*16 + lane/4 (+8 for j >= 2),
+    // channels n*8 + 2*(lane%4) + (j & 1)
+    const unsigned char* zmid = zr + (size_t)(t % 3) * Z_PIX * RB;
+    const int q = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = warp * 16 + (lane >> 2) + half * 8;
+      if (p >= OUT_PIX) continue;
+      const int r = p / TILE_W;
+      const int c = p % TILE_W;
+      const int h = g.h0 + r;
+      const int ww = g.w0 + c;
+      if (h >= H || ww >= W) continue;
+      const size_t at = g.batch_off + (size_t)t * g.frame
+                        + ((size_t)h * W + ww) * C;
+      const int zp = (r + 1) * ZW + c + 1;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int co = n * 8 + 2 * q;
+        const float v0 = lrelu(acc[n][2 * half] + __bfloat162float(b2[co]), slope);
+        const float v1 = lrelu(acc[n][2 * half + 1] + __bfloat162float(b2[co + 1]),
+                               slope);
+        *reinterpret_cast<__nv_bfloat162*>(y + at + co) =
+            __floats2bfloat162_rn(v0, v1);
+        if (mid != nullptr)
+          *reinterpret_cast<__nv_bfloat162*>(mid + at + co) =
+              *reinterpret_cast<const __nv_bfloat162*>(zmid + swz_pair(zp, co));
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -281,10 +499,38 @@ int conv3d64_pair_f32(const float* x, const float* w1, const float* b1,
   return (int)cudaGetLastError();
 }
 
+// The bf16 instance: every tensor bf16 (f32 accumulation, z rounded to
+// bf16 before conv2, y and z rounded to nearest even).
+int conv3d64_pair_bf16(const void* x, const void* w1, const void* b1,
+                       const void* w2, const void* b2, void* y, void* mid,
+                       int B, int T, int H, int W, float slope, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3d64_pair_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BF_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  using E = __nv_bfloat16;
+  const int tiles_w = (W + TILE_W - 1) / TILE_W;
+  const int tiles_h = (H + TILE_H - 1) / TILE_H;
+  const dim3 grid((unsigned)(tiles_w * tiles_h), (unsigned)B);
+  conv3d64_pair_bf16_kernel<<<grid, BF_THREADS, BF_SMEM_BYTES,
+                              (cudaStream_t)stream>>>(
+      static_cast<const E*>(x), static_cast<const E*>(w1),
+      static_cast<const E*>(b1), static_cast<const E*>(w2),
+      static_cast<const E*>(b2), static_cast<E*>(y), static_cast<E*>(mid), T,
+      H, W, tiles_w, slope);
+  return (int)cudaGetLastError();
+}
+
 // Dynamic shared memory and threads per block of one launch, for reports.
 int conv3d64_pair_f32_config(int* smem_bytes, int* threads) {
   *smem_bytes = (int)SMEM_BYTES;
   *threads = THREADS;
+  return 0;
+}
+
+int conv3d64_pair_bf16_config(int* smem_bytes, int* threads) {
+  *smem_bytes = (int)BF_SMEM_BYTES;
+  *threads = BF_THREADS;
   return 0;
 }
 

@@ -1,6 +1,12 @@
 """Losses and GAN math (port of ``hpvaegan_tpu/losses/__init__.py:23-82``;
 reference: modules/losses.py, modules/utils.py).
 
+Dtypes follow torch's promotion, which gives the JAX package's scalars
+here: ``mean`` of a bf16 critic score is bf16 (``steps.py:309-310,
+362``), ``mse`` of a bf16 sample against the f32 real is f32 (``:360``),
+the KL of bf16 ``mu``/``logvar`` is bf16.  The GP's interpolates are the
+one place where they differ (see ``calc_gradient_penalty``).
+
 The WGAN-GP's double backprop is ``torch.autograd.grad`` with
 ``create_graph=True``, as in the reference.  The critic it differentiates
 must be made of stock ops: the kernels' gradients are first order only.
@@ -52,11 +58,14 @@ def calc_gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
       in the reference.
 
     ``d_apply`` is the critic forward; the penalty is differentiable in
-    its parameters (double backprop)."""
+    its parameters (double backprop).  The interpolates are f32 whatever
+    ``fake``'s dtype, as the JAX package's f32 alpha makes them (torch
+    would keep a 0-d f32 tensor times a bf16 tensor in bf16)."""
     if alpha is None:
         alpha = torch.rand((), generator=generator, device=real.device)
-    alpha = torch.as_tensor(alpha, dtype=real.dtype, device=real.device)
-    interpolates = (alpha * real + (1.0 - alpha) * fake).detach()
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=real.device)
+    interpolates = (alpha * real.float()
+                    + (1.0 - alpha) * fake.float()).detach()
     interpolates.requires_grad_(True)
     out = d_apply(interpolates)
     (grads,) = torch.autograd.grad(out.sum(), interpolates,

@@ -19,6 +19,18 @@ power iteration in the forward, as the JAX package does
 (``blocks.py:261-269, 319-320``); ``SNConv.spectral_update`` advances u/v
 once per optimisation step (``:370-399``).
 
+Compute dtype (``dtype``, flax's ``dtype=``; None is f32): a conv casts
+its input, weight and bias to it, convolves with f32 accumulation, rounds
+to it and adds the bias in it (flax ``nn.Conv``, ``blocks.py:196-205``;
+the SN conv ``:350-358``).  The parameters stay f32.  BatchNorm always
+runs in f32 (``dtype=jnp.float32``, ``:242-245``), so a ``ConvBlock``'s
+output is f32 and the next conv casts it back.  The K1 route computes the
+same function with one rounding: the bias is added in f32 inside the
+kernel (``conv3d_pack.py:176``); the SN conv's route also applies its
+LeakyReLU in f32 before rounding, where the JAX package applies it to
+the rounded bf16 output (``blocks.py:338-345``): the two differ by at
+most one bf16 ulp on negative values.
+
 This slice ports what ``GeneratorHPVAEGAN`` uses: zero padding, the
 torch-default init, conv -> BN -> LeakyReLU blocks and LeakyReLU SN convs.
 The JAX package's baseline-only options (N(0, 0.02) init, blocks without
@@ -33,7 +45,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.conv3d_pack import conv3d64
+from ..ops.kernels.conv3d_pack import conv3d64, scalar_as
 
 __all__ = [
     "torch_kernel_init",
@@ -86,7 +98,8 @@ def activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     if act == "relu":
         return F.relu(x)
     if act == "lrelu":
-        return F.leaky_relu(x, negative_slope=0.2)
+        # the slope in x's dtype, as flax's leaky_relu takes it
+        return F.leaky_relu(x, negative_slope=scalar_as(0.2, x.dtype))
     if act == "elu":
         return F.elu(x, alpha=1.0)
     if act == "selu":
@@ -96,6 +109,23 @@ def activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
 
 def _conv(ndim: int):
     return F.conv3d if ndim == 3 else F.conv2d
+
+
+def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` in the compute dtype (None: as it is)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def _stock_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                ndim: int, stride: int, padding: int,
+                dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """A stock conv in the compute dtype: f32 with the bias fused, or
+    operands cast to ``dtype``, the product rounded to it and the bias
+    added in it (flax's ``nn.Conv(dtype=...)``)."""
+    if dtype is None:
+        return _conv(ndim)(x, w, b, stride, padding)
+    y = _conv(ndim)(x.to(dtype), w.to(dtype), None, stride, padding)
+    return y + b.to(dtype).reshape(-1, *(1,) * ndim)
 
 
 def k1_geometry(ndim: int, ker_size: int, stride: int, padding: int,
@@ -129,15 +159,15 @@ class ConvND(nn.Module):
     64 -> 64 runs on the K1 kernel (``ops/kernels/conv3d_pack.py``): the
     route of ``blocks.py:164-186`` without its TPU-only gates.  The route
     is fixed at construction (``kernel_route``) and decides the weight
-    layout."""
+    layout.  ``dtype``: the compute dtype (None: f32)."""
 
     def __init__(self, in_features: int, features: int, ker_size: int,
                  padding: int, ndim: int = 2, stride: int = 1,
-                 pconv: bool = False):
+                 pconv: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_features, self.features = in_features, features
         self.ker_size, self.padding, self.ndim = ker_size, padding, ndim
-        self.stride = stride
+        self.stride, self.dtype = stride, dtype
         self.kernel_route = pconv and k1_geometry(
             ndim, ker_size, stride, padding, in_features, features)
         k = (ker_size,) * ndim
@@ -154,14 +184,16 @@ class ConvND(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernel_route:
-            y = conv3d64(_to_nthwc(x), self.weight, self.bias)
+            y = conv3d64(_to_nthwc(_cast(x, self.dtype)), self.weight,
+                         self.bias)
             return y.permute(0, 4, 1, 2, 3)
-        return _conv(self.ndim)(x, self.weight, self.bias, self.stride,
-                                self.padding)
+        return _stock_conv(x, self.weight, self.bias, self.ndim, self.stride,
+                           self.padding, self.dtype)
 
 
 class _BatchNorm(nn.Module):
-    """BatchNorm with torch defaults (eps 1e-5).  Train mode uses the batch
+    """BatchNorm with torch defaults (eps 1e-5), in f32 whatever its input
+    (flax ``BatchNorm(dtype=jnp.float32)``).  Train mode uses the batch
     statistics; with ``update_stats`` it also moves the running buffers
     towards them as flax does: ``ra = 0.9 ra + 0.1 batch`` with the
     biased batch variance."""
@@ -182,6 +214,7 @@ class _BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False) -> torch.Tensor:
+        x = x.float()
         if train:
             if update_stats:
                 self._update_running_stats(x)
@@ -202,14 +235,15 @@ class _BatchNorm(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv -> BatchNorm -> LeakyReLU(0.2) (networks_3d.py:48-56)."""
+    """Conv (in ``dtype``) -> BatchNorm (f32) -> LeakyReLU(0.2)
+    (networks_3d.py:48-56): the output is f32."""
 
     def __init__(self, in_features: int, features: int, ker_size: int,
                  padding: int, ndim: int = 2, stride: int = 1,
-                 pconv: bool = False):
+                 pconv: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv = ConvND(in_features, features, ker_size, padding, ndim,
-                           stride, pconv=pconv)
+                           stride, pconv=pconv, dtype=dtype)
         self.norm = _BatchNorm(features)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -240,15 +274,16 @@ class SNConv(nn.Module):
     geometry runs on the K1 kernel with the THWIO view of
     ``weight / sigma`` (``blocks.py:325-345``); ``normalized`` hands the
     same pair to the fused K2 path instead (the JAX ``defer``,
-    ``:290-295, 322-323``)."""
+    ``:290-295, 322-323``).  ``dtype``: the compute dtype (None: f32);
+    the output has it."""
 
     def __init__(self, in_features: int, features: int, ker_size: int,
                  padding: int, ndim: int = 2, stride: int = 1,
-                 pconv: bool = False):
+                 pconv: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_features, self.features = in_features, features
         self.ker_size, self.padding, self.ndim = ker_size, padding, ndim
-        self.stride = stride
+        self.stride, self.dtype = stride, dtype
         self.kernel_route = pconv and k1_geometry(
             ndim, ker_size, stride, padding, in_features, features)
         k = (ker_size,) * ndim
@@ -291,7 +326,9 @@ class SNConv(nn.Module):
                 ) -> torch.Tensor:
         w, b = self.normalized()
         if self.kernel_route and use_kernels:
-            y = conv3d64(_to_nthwc(x), to_thwio(w), b, neg_slope=0.2)
+            y = conv3d64(_to_nthwc(_cast(x, self.dtype)), to_thwio(w), b,
+                         neg_slope=0.2)
             return y.permute(0, 4, 1, 2, 3)
-        y = _conv(self.ndim)(x, w, b, self.stride, self.padding)
+        y = _stock_conv(x, w, b, self.ndim, self.stride, self.padding,
+                        self.dtype)
         return activation(y, "lrelu")

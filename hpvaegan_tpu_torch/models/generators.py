@@ -18,6 +18,14 @@ cannot reproduce JAX's threefry bits.
 Training forwards ask for ``update_stats``: their BatchNorm layers then
 move the running statistics towards the batch's, in forward order, as the
 JAX package threads ``batch_stats`` (``generators.py:185-198``).
+
+Under ``cfg.bf16`` every conv computes in bf16 (``generators.py:128``)
+and the residual stream is bf16 as in the JAX package: ``mu``/``logvar``,
+``vae_out``, each upscaled ``x_up``, the stage noise and each stage's
+``tanh(y + x_up)``.  The noisy stage input ``x_up + noise * amp`` is f32
+there, because the JAX package's amps are an f32 array, so it is
+computed in f32 here too (torch would keep ``bf16 * float`` in bf16).
+The parameters stay f32.
 ``apply_prefix``, ``apply_suffix`` and ``apply_fused`` serve
 ``--hoist-prefix`` and ``--fused-forwards`` and wait for ROADMAP Queue 1
 item 9.
@@ -40,13 +48,16 @@ from .networks import Decoder, EncodeVAE, Stage, reparameterize
 __all__ = ["GeneratorHPVAEGAN", "to_model_layout", "to_public_layout"]
 
 
-def to_model_layout(t, device=None) -> torch.Tensor:
-    """NTHWC (NHWC) array or tensor -> NCDHW (NCHW) float32 tensor in
+def to_model_layout(t, device=None, dtype=None) -> torch.Tensor:
+    """NTHWC (NHWC) array or tensor -> NCDHW (NCHW) tensor in
     channels-last memory format (a view when ``t`` is a contiguous tensor
-    on ``device``)."""
+    on ``device``), in ``dtype``: by default float32, or bfloat16 for a
+    bfloat16 tensor."""
     if isinstance(t, np.ndarray):
         t = torch.from_numpy(np.array(t, dtype=np.float32))  # writable copy
-    t = t.to(device=device, dtype=torch.float32)
+    if dtype is None:
+        dtype = torch.bfloat16 if t.dtype == torch.bfloat16 else torch.float32
+    t = t.to(device=device, dtype=dtype)
     if t.dim() == 5:
         return t.permute(0, 4, 1, 2, 3).contiguous(
             memory_format=torch.channels_last_3d)
@@ -69,11 +80,14 @@ class GeneratorHPVAEGAN(nn.Module):
         self.cfg = cfg
         self.pyramid = pyramid
         self.ndim = ndim
+        # the convs' compute dtype (None: f32)
+        self.dtype = torch.bfloat16 if getattr(cfg, "bf16", False) else None
         self.encode = EncodeVAE(cfg.nc_im, cfg.latent_dim, cfg.nfc,
-                                cfg.ker_size, cfg.enc_blocks, ndim)
+                                cfg.ker_size, cfg.enc_blocks, ndim,
+                                dtype=self.dtype)
         self.decoder = Decoder(cfg.latent_dim, cfg.nfc, cfg.nc_im,
                                cfg.ker_size, cfg.padd_size, cfg.num_layer,
-                               ndim)
+                               ndim, dtype=self.dtype)
         self.body = nn.ModuleList()
         # 2D/3D rand-mode noise-injection asymmetry (networks_2d.py:261 vs
         # networks_3d.py:398)
@@ -101,7 +115,8 @@ class GeneratorHPVAEGAN(nn.Module):
             cfg = self.cfg
             stage = Stage(cfg.nfc, cfg.nc_im, cfg.ker_size, cfg.padd_size,
                           cfg.num_layer, self.ndim,
-                          pconv=getattr(cfg, "pconv_all", False))
+                          pconv=getattr(cfg, "pconv_all", False),
+                          dtype=self.dtype)
             stage.to(self.device)
             stage.reset_parameters(generator)
         else:
@@ -121,7 +136,8 @@ class GeneratorHPVAEGAN(nn.Module):
               noises: Optional[Sequence] = None, eps=None,
               generator: Optional[torch.Generator] = None,
               update_stats: bool = False):
-        """Returns ``(out, vae_out, (mu, logvar) | None)``, all NTHWC.
+        """Returns ``(out, vae_out, (mu, logvar) | None)``, all NTHWC, in
+        the compute dtype.
 
         ``noise_init`` replaces the encoder (rand mode); otherwise
         ``real_zero`` is encoded and reparameterized with ``eps``.
@@ -170,7 +186,8 @@ class GeneratorHPVAEGAN(nn.Module):
         shape = (self.pyramid.shape3d if self.ndim == 3
                  else self.pyramid.shape2d)
         return [torch.randn((batch, *shape(idx + 1), self.cfg.nc_im),
-                            generator=generator, device=self.device)
+                            generator=generator, device=self.device,
+                            dtype=self.dtype or torch.float32)
                 if self._stage_has_noise(idx) else None
                 for idx in range(len(self.body))]
 
@@ -185,10 +202,12 @@ class GeneratorHPVAEGAN(nn.Module):
             x_up = self._upscale(x, idx + 1)
             if mode == "rand" and self._stage_has_noise(idx):
                 if noises is not None:
-                    noise = to_model_layout(noises[idx], x_up.device)
+                    noise = to_model_layout(noises[idx], x_up.device,
+                                            x_up.dtype)
                 else:
                     noise = generate_noise(ref=x_up, generator=generator)
-                x_in = x_up + noise * amps[idx + 1]
+                # f32, as the JAX package's f32 amps make it
+                x_in = x_up.float() + noise.float() * amps[idx + 1]
             else:
                 x_in = x_up
             y = self.body[idx](x_in, train, update_stats)

@@ -6,7 +6,9 @@ The port has what ``GeneratorHPVAEGAN`` and its critic run:
 ``Stage`` and ``WDiscriminator``.  The baselines' critic, the
 ``_nb``/``1x1`` encoders and the baseline stages are ROADMAP items.  Every
 module takes its input channel count explicitly (PyTorch modules own their
-weights at construction).
+weights at construction), and ``dtype``, the compute dtype of its convs
+(None: f32; ``torch.bfloat16`` under ``--bf16``), as the JAX modules take
+flax's ``dtype``.
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.kernels.conv3d_fuse import conv3d64_pair
-from .blocks import (ConvBlock, ConvND, SNConv, _to_nthwc, k1_geometry,
-                     to_thwio)
+from .blocks import (ConvBlock, ConvND, SNConv, _cast, _to_nthwc,
+                     k1_geometry, to_thwio)
 
 __all__ = ["reparameterize", "FeatureExtractor", "EncodeVAE", "Decoder",
            "Stage", "WDiscriminator"]
@@ -29,10 +31,12 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, training: bool,
                    ) -> torch.Tensor:
     """VAE trick; NOTE eval mode returns pure N(0,1) noise, not mu — a
     deliberate reference quirk (networks_3d.py:29-35).  ``eps`` is the
-    N(0,1) draw (shaped like ``mu``); drawn from ``generator`` when None."""
+    N(0,1) draw (shaped like ``mu``, taken in mu's dtype); drawn from
+    ``generator`` when None."""
     if eps is None:
         eps = torch.randn(mu.shape, dtype=mu.dtype, device=mu.device,
                           generator=generator)
+    eps = eps.to(mu.dtype)
     if training:
         return eps * torch.exp(0.5 * logvar) + mu
     return eps
@@ -49,11 +53,12 @@ class FeatureExtractor(nn.Module):
     ported."""
 
     def __init__(self, in_features: int, nfc: int, ker_size: int,
-                 padding: int, num_blocks: int = 2, ndim: int = 2):
+                 padding: int, num_blocks: int = 2, ndim: int = 2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         ins = [in_features] + [nfc] * num_blocks
         self.conv_blocks = nn.ModuleList(
-            SNConv(ins[i], nfc, ker_size, padding, ndim)
+            SNConv(ins[i], nfc, ker_size, padding, ndim, dtype=dtype)
             for i in range(num_blocks + 1))
 
     def reset_parameters(self, generator=None):
@@ -70,13 +75,16 @@ class EncodeVAE(nn.Module):
     (networks_3d.py:88-107)."""
 
     def __init__(self, in_features: int, latent_dim: int, nfc: int,
-                 ker_size: int, enc_blocks: int = 2, ndim: int = 2):
+                 ker_size: int, enc_blocks: int = 2, ndim: int = 2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         pad = ker_size // 2
         self.features = FeatureExtractor(in_features, nfc, ker_size, pad,
-                                         num_blocks=enc_blocks, ndim=ndim)
-        self.mu = ConvND(nfc, latent_dim, ker_size, pad, ndim)
-        self.logvar = ConvND(nfc, latent_dim, ker_size, pad, ndim)
+                                         num_blocks=enc_blocks, ndim=ndim,
+                                         dtype=dtype)
+        self.mu = ConvND(nfc, latent_dim, ker_size, pad, ndim, dtype=dtype)
+        self.logvar = ConvND(nfc, latent_dim, ker_size, pad, ndim,
+                             dtype=dtype)
 
     def reset_parameters(self, generator=None):
         _reset((self.features, self.mu, self.logvar), generator)
@@ -93,14 +101,17 @@ class _ConvStack(nn.Module):
 
     def __init__(self, in_features: int, nfc: int, nc_im: int,
                  ker_size: int, padd_size: int, num_layer: int,
-                 ndim: int = 2, pconv: bool = False):
+                 ndim: int = 2, pconv: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.head = ConvBlock(in_features, nfc, ker_size, padd_size, ndim,
-                              pconv=pconv)
+                              pconv=pconv, dtype=dtype)
         self.blocks = nn.ModuleList(
-            ConvBlock(nfc, nfc, ker_size, padd_size, ndim, pconv=pconv)
+            ConvBlock(nfc, nfc, ker_size, padd_size, ndim, pconv=pconv,
+                      dtype=dtype)
             for _ in range(num_layer))
-        self.tail = ConvND(nfc, nc_im, ker_size, ker_size // 2, ndim)
+        self.tail = ConvND(nfc, nc_im, ker_size, ker_size // 2, ndim,
+                           dtype=dtype)
 
     def reset_parameters(self, generator=None):
         _reset((self.head, *self.blocks, self.tail), generator)
@@ -119,9 +130,10 @@ class Decoder(_ConvStack):
     """VAE decoder conv stack (networks_3d.py:337-341): latent_dim in."""
 
     def __init__(self, latent_dim: int, nfc: int, nc_im: int, ker_size: int,
-                 padd_size: int, num_layer: int, ndim: int = 2):
+                 padd_size: int, num_layer: int, ndim: int = 2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(latent_dim, nfc, nc_im, ker_size, padd_size,
-                         num_layer, ndim)
+                         num_layer, ndim, dtype=dtype)
 
 
 class Stage(_ConvStack):
@@ -129,9 +141,10 @@ class Stage(_ConvStack):
     With ``pconv`` its 64 -> 64 block convs run on the K1 kernel."""
 
     def __init__(self, nfc: int, nc_im: int, ker_size: int, padd_size: int,
-                 num_layer: int, ndim: int = 2, pconv: bool = False):
+                 num_layer: int, ndim: int = 2, pconv: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(nc_im, nfc, nc_im, ker_size, padd_size, num_layer,
-                         ndim, pconv)
+                         ndim, pconv, dtype)
 
 
 class WDiscriminator(nn.Module):
@@ -143,7 +156,8 @@ class WDiscriminator(nn.Module):
 
     Kernel routes: under ``pfuse`` consecutive body pairs of K2's geometry
     run fused on K2 (``ops/kernels/conv3d_fuse.py``) from the pair's
-    ``SNConv.normalized`` weights, keeping each block's own variables;
+    ``SNConv.normalized`` weights, on the input cast to the compute dtype
+    (``networks.py:276``), keeping each block's own variables;
     an odd trailing block, and every body block without ``pfuse``, runs
     on K1 under ``pconv``.  ``forward(x, use_kernels=False)`` runs the
     same weights on stock convs only: the counterpart of the JAX
@@ -151,15 +165,16 @@ class WDiscriminator(nn.Module):
     double backprop uses (``train/steps.py:316-323``)."""
 
     def __init__(self, nc_im: int, nfc: int, ker_size: int, num_layer: int,
-                 ndim: int = 2, pconv: bool = False, pfuse: bool = False):
+                 ndim: int = 2, pconv: bool = False, pfuse: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         pad = ker_size // 2
-        self.num_layer = num_layer
-        self.head = SNConv(nc_im, nfc, ker_size, pad, ndim)
+        self.num_layer, self.dtype = num_layer, dtype
+        self.head = SNConv(nc_im, nfc, ker_size, pad, ndim, dtype=dtype)
         self.body = nn.ModuleList(
-            SNConv(nfc, nfc, ker_size, pad, ndim, pconv=pconv)
+            SNConv(nfc, nfc, ker_size, pad, ndim, pconv=pconv, dtype=dtype)
             for _ in range(num_layer))
-        self.tail = ConvND(nfc, 1, ker_size, 1, ndim)
+        self.tail = ConvND(nfc, 1, ker_size, 1, ndim, dtype=dtype)
         self.pfuse = pfuse and k1_geometry(ndim, ker_size, 1, pad, nfc,
                                            nfc)
 
@@ -177,8 +192,8 @@ class WDiscriminator(nn.Module):
             if use_kernels and self.pfuse and i + 1 < self.num_layer:
                 w1, b1 = self.body[i].normalized()
                 w2, b2 = self.body[i + 1].normalized()
-                y = conv3d64_pair(_to_nthwc(x), to_thwio(w1), b1,
-                                  to_thwio(w2), b2)
+                y = conv3d64_pair(_to_nthwc(_cast(x, self.dtype)),
+                                  to_thwio(w1), b1, to_thwio(w2), b2)
                 x = y.permute(0, 4, 1, 2, 3)
                 i += 2
             else:

@@ -6,6 +6,8 @@ ROADMAP item lands.
 """
 from __future__ import annotations
 
+import torch
+
 from ..core.pyramid import Pyramid
 from .generators import GeneratorHPVAEGAN
 from .networks import WDiscriminator
@@ -34,7 +36,9 @@ def make_generator(name: str, cfg, pyramid: Pyramid, ndim: int):
 
 def make_discriminator(name: str, cfg, ndim: int) -> WDiscriminator:
     """The critic of ``hpvaegan_tpu/models/registry.py:36-46``: K1 under
-    ``--pconv`` or ``--pconv-all``, K2 pairs under ``--pfuse``."""
+    ``--pconv`` or ``--pconv-all``, K2 pairs under ``--pfuse``, bf16
+    convs under ``--bf16`` (the generator reads ``cfg.bf16`` itself, as
+    ``generators.py:128`` does)."""
     if name in ("WDiscriminator2D", "WDiscriminator3D"):
         expected = 2 if name.endswith("2D") else 3
         if expected != ndim:
@@ -42,7 +46,8 @@ def make_discriminator(name: str, cfg, ndim: int) -> WDiscriminator:
         return WDiscriminator(cfg.nc_im, cfg.nfc, cfg.ker_size,
                               cfg.num_layer, ndim,
                               pconv=bool(cfg.pconv or cfg.pconv_all),
-                              pfuse=bool(cfg.pfuse))
+                              pfuse=bool(cfg.pfuse),
+                              dtype=torch.bfloat16 if cfg.bf16 else None)
     if name == "WDiscriminatorBaselines":
         raise NotImplementedError(
             f"{name} is not ported yet: ROADMAP Queue 1 item 7 (baselines)")

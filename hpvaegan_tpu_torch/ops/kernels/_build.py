@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout,
-at first use (never at import).  The digest covers the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+at first use (never at import).  The digest covers the source, the
+``csrc/*.cuh`` headers it may include and the flags, so an edited source
+or header rebuilds and an unchanged one is reused.
 ``nvcc -Xptxas -v`` output (registers, shared memory, spills) is kept
 beside the library as ``<name>-<digest>.ptxas.txt``.
 
@@ -53,7 +54,9 @@ def _paths(name: str):
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(src)
-    digest = hashlib.sha256(src.read_bytes()
+    parts = [src.read_bytes()] + [h.read_bytes()
+                                  for h in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = f"{name}-{digest}"
     return src, BUILD_DIR / f"lib{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"

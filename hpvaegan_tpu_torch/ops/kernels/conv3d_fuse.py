@@ -9,15 +9,22 @@ WDiscriminator body's conv pairs under ``--pfuse``:
     z = lrelu(conv(x, w1) + b1),    y = lrelu(conv(z, w2) + b2)
 
 x ``(B,T,H,W,64)`` NTHWC, w1/w2 ``(3,3,3,64,64)`` THWIO, b1/b2 ``(64,)``,
-f32.  The kernel (``csrc/conv3d_fuse.cu``) keeps z in shared memory and
-streams T inside each block through a 3-slot ring of z slices; with
-``with_mid`` it also writes z out, the backward's residual.
+computed in x's dtype: f32, or bf16 (``--bf16``) with the weights and
+biases rounded to bf16, f32 accumulation, and z rounded to bf16 before
+conv2 (the TPU kernel's z ring has x's dtype, ``conv3d_fuse.py:173,
+282``).  The kernels (``csrc/conv3d_fuse.cu``: f32 on the CUDA cores,
+bf16 on the tensor cores) keep z in shared memory and stream T inside
+each block through a 3-slot ring of z slices; with ``with_mid`` they also
+write z out, the backward's residual.
 
-The backward follows ``conv3d_fuse.py:315-345``: the LeakyReLU masks come
-from the signs of y and z (LeakyReLU is sign-preserving), dz and dx run
-on K1's input-gradient kernel.  dw1 and dw2 run on the port's K1-dw
-kernel, which computes the same function as the JAX package's XLA
-correlation there (``:334-337``): no feature is added.
+The backward follows ``conv3d_fuse.py:315-345``: the cotangent is rounded
+to x's dtype, the LeakyReLU masks come from the signs of y and z
+(LeakyReLU is sign-preserving), dz and dx run on K1's input-gradient
+kernel.  dw1 and dw2 run on the port's K1-dw kernel, which computes the
+same function as the JAX package's XLA correlation there (``:334-337``):
+no feature is added.  In bf16 that correlation has bf16 operands and a
+bf16 result, cast to f32; the K1-dw kernel sums in f32, so its f32 result
+is rounded to bf16 here to give the JAX package's values.
 
 Routing gate: the geometry only (3D, 3x3x3, 64 -> 64, stride 1, pad 1),
 decided by the critic.  The TPU's ``pfuse_wins`` (W % 256) and its VMEM
@@ -48,15 +55,15 @@ SLOPE = 0.2  # LeakyReLU slope of the critic body (networks_3d.py:18-26)
 
 @dataclasses.dataclass
 class PairCounts:
-    """``launches``: K2 kernel launches; ``plain_calls``: calls served by
-    the plain version (CPU tensors)."""
+    """``launches``/``bf16_launches``: K2 kernel launches in f32 / bf16;
+    ``plain_calls``: calls served by the plain version (CPU tensors)."""
 
     launches: int = 0
+    bf16_launches: int = 0
     plain_calls: int = 0
 
     def reset(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
+        self.launches = self.bf16_launches = self.plain_calls = 0
 
 
 counts = PairCounts()
@@ -64,7 +71,8 @@ counts = PairCounts()
 
 def conv3d64_pair_plain(x, w1, b1, w2, b2, slope: float = SLOPE,
                         with_mid: bool = False):
-    """Two ``conv3d64_plain`` + LeakyReLU, in f32: ``y`` or ``(y, z)``."""
+    """Two ``conv3d64_plain`` + LeakyReLU: ``y`` or ``(y, z)``, each
+    rounded to x's dtype (so conv2 reads the rounded z)."""
     z = cp.conv3d64_plain(x, w1, b1, neg_slope=slope)
     y = cp.conv3d64_plain(z, w2, b2, neg_slope=slope)
     return (y, z) if with_mid else y
@@ -74,20 +82,23 @@ def conv3d64_pair_plain(x, w1, b1, w2, b2, slope: float = SLOPE,
 def _lib() -> ctypes.CDLL:
     from ._build import load_library
     lib = load_library("conv3d_fuse")
-    lib.conv3d64_pair_f32.argtypes = ([ctypes.c_void_p] * 7
-                                      + [ctypes.c_int] * 4
-                                      + [ctypes.c_float, ctypes.c_void_p])
-    lib.conv3d64_pair_f32.restype = ctypes.c_int
-    lib.conv3d64_pair_f32_config.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.conv3d64_pair_f32_config.restype = ctypes.c_int
+    for sfx in ("f32", "bf16"):
+        fn = getattr(lib, f"conv3d64_pair_{sfx}")
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        cfg = getattr(lib, f"conv3d64_pair_{sfx}_config")
+        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        cfg.restype = ctypes.c_int
     return lib
 
 
-def kernel_config() -> dict:
-    """Dynamic shared memory and threads of one block (builds the kernel
-    if needed)."""
+def kernel_config(dtype: torch.dtype = torch.float32) -> dict:
+    """Dynamic shared memory and threads of one block in ``dtype``
+    (builds the kernel if needed)."""
     smem, threads = ctypes.c_int(), ctypes.c_int()
-    _lib().conv3d64_pair_f32_config(ctypes.byref(smem), ctypes.byref(threads))
+    getattr(_lib(), f"conv3d64_pair_{cp._suffix(dtype)}_config")(
+        ctypes.byref(smem), ctypes.byref(threads))
     return {"smem_bytes": smem.value, "threads": threads.value}
 
 
@@ -106,6 +117,7 @@ def conv3d64_pair_forward(x, w1, b1, w2, b2, slope: float = SLOPE,
     if x.device.type == "cpu":
         counts.plain_calls += 1
         return conv3d64_pair_plain(x, w1, b1, w2, b2, slope, with_mid)
+    w1, b1, w2, b2 = (cp.as_compute(t, x.dtype) for t in (w1, b1, w2, b2))
     B, T, H, W, _ = x.shape
     y = torch.empty_like(x)
     z = torch.empty_like(x) if with_mid else None
@@ -114,12 +126,15 @@ def conv3d64_pair_forward(x, w1, b1, w2, b2, slope: float = SLOPE,
     cp._check_launch([x, w1, b1, w2, b2, y] + ([z] if with_mid else []),
                      B, 1)
     with torch.cuda.device(x.device):
-        err = _lib().conv3d64_pair_f32(
+        err = getattr(_lib(), f"conv3d64_pair_{cp._suffix(x.dtype)}")(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), y.data_ptr(), z.data_ptr() if with_mid else None,
             B, T, H, W, float(slope), cp._stream(x.device))
     cp._raise_on(err, "conv3d64_pair")
-    counts.launches += 1
+    if x.dtype == torch.bfloat16:
+        counts.bf16_launches += 1
+    else:
+        counts.launches += 1
     return (y, z) if with_mid else y
 
 
@@ -127,32 +142,38 @@ def conv3d64_pair_backward(x, z, y, w1, w2, dy, needs=(True,) * 5,
                            plain: bool = False):
     """``(dx, dw1, db1, dw2, db2)`` of the pair from the forward's x, z and
     y (``conv3d_fuse.py:315-345``); a gradient ``needs`` does not ask for
-    is ``None``.  The LeakyReLU masks come from y and z themselves, so a
-    reference built with ``plain=True`` (the plain versions, on any
-    device) differs from the kernels only in summation order: a mask taken
-    from another forward would flip wherever a pre-activation rounds to
-    the other side of zero."""
+    is ``None``.  dx has x's dtype, the others are f32; in bf16 dw1 and dw2
+    are rounded to bf16 as the JAX package's correlation rounds them.  The
+    LeakyReLU masks come from y and z themselves, so a reference built
+    with ``plain=True`` (the plain versions, on any device) differs from
+    the kernels only in summation order: a mask taken from another forward
+    would flip wherever a pre-activation rounds to the other side of
+    zero."""
     if plain:
         def dx_of(d, w):
             return cp.conv3d64_plain(d, cp.flip_swap(w))
         dw_of = cp.conv3d64_dw_plain
     else:
         dx_of, dw_of = cp.conv3d64_dx, cp.conv3d64_dw
+
+    def dw_rounded(inp, d):
+        return dw_of(inp, d).to(x.dtype).float()
+
     need_x, need_w1, need_b1, need_w2, need_b2 = needs
-    d_pre2 = cp._lrelu_grad(dy, y, SLOPE)
+    d_pre2 = cp._lrelu_grad(cp.as_compute(dy, x.dtype), y, SLOPE)
     dx = dw1 = db1 = dw2 = db2 = None
     if need_w2:
-        dw2 = dw_of(z, d_pre2)
+        dw2 = dw_rounded(z, d_pre2)
     if need_b2:
-        db2 = d_pre2.sum(dim=(0, 1, 2, 3))
+        db2 = d_pre2.float().sum(dim=(0, 1, 2, 3))
     if need_x or need_w1 or need_b1:
         d_pre1 = cp._lrelu_grad(dx_of(d_pre2, w2), z, SLOPE)
         if need_x:
             dx = dx_of(d_pre1, w1)
         if need_w1:
-            dw1 = dw_of(x, d_pre1)
+            dw1 = dw_rounded(x, d_pre1)
         if need_b1:
-            db1 = d_pre1.sum(dim=(0, 1, 2, 3))
+            db1 = d_pre1.float().sum(dim=(0, 1, 2, 3))
     return dx, dw1, db1, dw2, db2
 
 

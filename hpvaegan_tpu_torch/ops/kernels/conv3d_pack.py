@@ -23,12 +23,19 @@ Replaces the TPU kernels behind ``conv3d64``
 ``once_differentiable``: the WGAN-GP's double backprop runs the stock
 critic, as in the JAX package, and a second-order use raises).
 
-On the card all three are bound by f32 operations: 2*27*64*64 FLOP per
-voxel against 512 bytes read and written, far above the H100's ratio of
-f32 FLOPs to HBM bytes.  Both kernels keep their operands in shared memory
-and their accumulators in registers, and run on the CUDA cores in f32.
-Moving the products onto the tensor cores (``wgmma``, bf16) is later work
-(ROADMAP).
+Two compute dtypes, as in the JAX package (``conv3d_pack.py:190-197,
+315-320, 423-444``):
+
+* f32: every operand f32, CUDA-core kernels.  Bound by f32 operations:
+  2*27*64*64 FLOP per voxel against 512 bytes read and written.
+* bf16 (``--bf16``): x bf16, w and b cast to bf16 here (the parameters
+  stay f32), f32 accumulation, bias and LeakyReLU in f32, y rounded to
+  bf16; dw takes bf16 x and dy (cast to x's dtype) and returns f32.  The
+  forward and dw kernels run on the tensor cores (``mma.sync`` bf16, f32
+  accumulate), bound by the 989 TFLOP/s bf16 rate.  A bf16 tensor
+  launches a bf16 kernel: nothing is cast to f32 to reuse the f32 ones.
+
+Launches are counted per kernel and dtype (``counts``).
 
 Routing gate: the port routes a conv here when it is 3D, 3x3x3, stride 1,
 padding 1 with zeros and 64 -> 64 (``hpvaegan_tpu/models/blocks.py:164-166``).
@@ -51,8 +58,9 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 __all__ = ["conv3d64", "conv3d64_plain", "conv3d64_dw", "conv3d64_dw_plain",
-           "conv3d64_dx", "flip_swap", "Conv3d64Function", "counts",
-           "KernelCounts", "kernel_config", "SOURCE", "DW_SOURCE",
+           "conv3d64_dx", "flip_swap", "as_compute", "scalar_as",
+           "Conv3d64Function",
+           "counts", "KernelCounts", "kernel_config", "SOURCE", "DW_SOURCE",
            "REPLACES", "DX_REPLACES", "DW_REPLACES"]
 
 SOURCE = "hpvaegan_tpu_torch/csrc/conv3d_pack.cu"
@@ -67,20 +75,37 @@ _DW_BLOCKS_PER_SM = 3  # its __launch_bounds__ minimum
 
 @dataclasses.dataclass
 class KernelCounts:
-    """Launches of each K1 kernel, and calls served by a plain version
-    (CPU tensors)."""
+    """Launches of each K1 kernel per dtype, and calls served by a plain
+    version (CPU tensors)."""
 
     fwd_launches: int = 0
     dx_launches: int = 0
     dw_launches: int = 0
+    fwd_bf16_launches: int = 0
+    dx_bf16_launches: int = 0
+    dw_bf16_launches: int = 0
     plain_calls: int = 0
 
     def reset(self) -> None:
-        self.fwd_launches = self.dx_launches = self.dw_launches = 0
-        self.plain_calls = 0
+        for field in dataclasses.fields(self):
+            setattr(self, field.name, 0)
+
+    def add(self, kind: str, dtype: torch.dtype) -> None:
+        """One launch of ``kind`` ("fwd", "dx" or "dw") in ``dtype``."""
+        name = f"{kind}_bf16_launches" if dtype == torch.bfloat16 \
+            else f"{kind}_launches"
+        setattr(self, name, getattr(self, name) + 1)
 
 
 counts = KernelCounts()
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def as_compute(t: Optional[torch.Tensor], dtype: torch.dtype):
+    """``t`` rounded to the compute dtype (the JAX package's
+    ``astype(x.dtype)`` of the weights, bias and cotangent)."""
+    return t if t is None or t.dtype == dtype else t.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -90,11 +115,12 @@ counts = KernelCounts()
 def conv3d64_plain(x: torch.Tensor, w: torch.Tensor,
                    b: Optional[torch.Tensor] = None,
                    neg_slope: Optional[float] = None) -> torch.Tensor:
-    """The forward as 27 shifted-tap products over a zero-padded input, in
-    f32."""
+    """The forward as 27 shifted-tap products over a zero-padded input:
+    ``w`` and ``b`` rounded to x's dtype first, then f32 products and sums,
+    bias and LeakyReLU in f32, the result rounded to x's dtype."""
     B, T, H, W, C = x.shape
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
-    wf = w.float()
+    wf = as_compute(w, x.dtype).float()
     y = torch.zeros((B, T, H, W, w.shape[-1]), dtype=torch.float32,
                     device=x.device)
     for dt in range(3):
@@ -103,17 +129,18 @@ def conv3d64_plain(x: torch.Tensor, w: torch.Tensor,
                 y = y + torch.matmul(xp[:, dt:dt + T, dh:dh + H, dw:dw + W],
                                      wf[dt, dh, dw])
     if b is not None:
-        y = y + b.float()
+        y = y + as_compute(b, x.dtype).float()
     if neg_slope is not None:
         y = torch.where(y >= 0, y, neg_slope * y)
     return y.to(x.dtype)
 
 
 def conv3d64_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """The weight gradient as 27 tap products ``x_shift^T @ dy`` in f32."""
+    """The weight gradient as 27 tap products ``x_shift^T @ dy`` in f32,
+    ``dy`` rounded to x's dtype first; f32 out."""
     B, T, H, W, C = x.shape
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
-    dyf = dy.float().reshape(-1, dy.shape[-1])
+    dyf = as_compute(dy, x.dtype).float().reshape(-1, dy.shape[-1])
     taps = [xp[:, dt:dt + T, dh:dh + H, dw:dw + W].reshape(-1, C).T @ dyf
             for dt in range(3) for dh in range(3) for dw in range(3)]
     return torch.stack(taps).reshape(3, 3, 3, C, dy.shape[-1])
@@ -141,15 +168,20 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
 
 
 def _check_tensors(tensors) -> None:
-    dev = tensors[0].device
+    """The first tensor sets the compute dtype (float32 or bfloat16); the
+    others are float32 or that dtype."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"the conv kernels compute in float32 or bfloat16, got {dtype}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors must share a device, got "
                              f"{[str(u.device) for u in tensors]}")
-        if t.dtype != torch.float32:
+        if t.dtype not in (torch.float32, dtype):
             raise NotImplementedError(
-                f"the conv kernels take float32 only, got {t.dtype} (the "
-                f"bf16 variant is a ROADMAP item)")
+                f"a {dtype} conv takes float32 or {dtype} operands, got "
+                f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the conv kernels take contiguous tensors")
     if dev.type not in ("cpu", "cuda"):
@@ -171,17 +203,23 @@ def _raise_on(err: int, what: str) -> None:
                            f"{err}")
 
 
+def _suffix(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """Build (first use only), load and declare the forward's C interface."""
     from ._build import load_library
     lib = load_library("conv3d_pack")
-    lib.conv3d64_fwd_f32.argtypes = ([ctypes.c_void_p] * 4
-                                     + [ctypes.c_int] * 5
-                                     + [ctypes.c_float, ctypes.c_void_p])
-    lib.conv3d64_fwd_f32.restype = ctypes.c_int
-    lib.conv3d64_fwd_f32_config.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.conv3d64_fwd_f32_config.restype = ctypes.c_int
+    for sfx in ("f32", "bf16"):
+        fn = getattr(lib, f"conv3d64_fwd_{sfx}")
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        cfg = getattr(lib, f"conv3d64_fwd_{sfx}_config")
+        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        cfg.restype = ctypes.c_int
     return lib
 
 
@@ -189,17 +227,20 @@ def _lib() -> ctypes.CDLL:
 def _dw_lib() -> ctypes.CDLL:
     from ._build import load_library
     lib = load_library("conv3d_dw")
-    lib.conv3d64_dw_f32.argtypes = ([ctypes.c_void_p] * 4
-                                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.conv3d64_dw_f32.restype = ctypes.c_int
+    for sfx in ("f32", "bf16"):
+        fn = getattr(lib, f"conv3d64_dw_{sfx}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def kernel_config() -> dict:
-    """Dynamic shared memory and threads of one forward block (builds the
-    kernel if needed)."""
+def kernel_config(dtype: torch.dtype = torch.float32) -> dict:
+    """Dynamic shared memory and threads of one forward block in ``dtype``
+    (builds the kernel if needed)."""
     smem, threads = ctypes.c_int(), ctypes.c_int()
-    _lib().conv3d64_fwd_f32_config(ctypes.byref(smem), ctypes.byref(threads))
+    getattr(_lib(), f"conv3d64_fwd_{_suffix(dtype)}_config")(
+        ctypes.byref(smem), ctypes.byref(threads))
     return {"smem_bytes": smem.value, "threads": threads.value}
 
 
@@ -209,48 +250,49 @@ def _stream(device) -> int:
 
 def _forward(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
              neg_slope: Optional[float], kind: str) -> torch.Tensor:
-    """One forward conv: the plain version on the CPU, else the kernel,
-    counted as ``kind`` ("fwd" or "dx")."""
+    """One forward conv in x's dtype: the plain version on the CPU, else
+    the kernel of that dtype, counted as ``kind`` ("fwd" or "dx")."""
     if x.device.type == "cpu":
         counts.plain_calls += 1
         return conv3d64_plain(x, w, b, neg_slope)
+    w, b = as_compute(w, x.dtype), as_compute(b, x.dtype)
     B, T, H, W, _ = x.shape
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    _check_launch((x, w, y), B, T)
+    _check_launch((x, w, y) + ((b,) if b is not None else ()), B, T)
     with torch.cuda.device(x.device):
-        err = _lib().conv3d64_fwd_f32(
+        err = getattr(_lib(), f"conv3d64_fwd_{_suffix(x.dtype)}")(
             x.data_ptr(), w.data_ptr(),
             b.data_ptr() if b is not None else None, y.data_ptr(),
             B, T, H, W, int(neg_slope is not None), float(neg_slope or 0.0),
             _stream(x.device))
     _raise_on(err, "conv3d64")
-    if kind == "dx":
-        counts.dx_launches += 1
-    else:
-        counts.fwd_launches += 1
+    counts.add(kind, x.dtype)
     return y
 
 
 def conv3d64_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of the conv for the cotangent ``dy`` (of the
-    pre-activation): the forward on ``flip_swap(w)``, no bias."""
+    pre-activation): the forward on ``flip_swap(w)``, no bias, in dy's
+    dtype."""
     _check(dy, w, None)
     return _forward(dy, flip_swap(w), None, None, "dx")
 
 
 def _dw_chunks(B: int, T: int, H: int, W: int, device) -> int:
-    """Voxel chunks of the dw kernel: one wave of 9 tap-pair blocks per
-    chunk across the card's SMs, never more chunks than row tiles."""
+    """Voxel chunks of the dw kernel (either dtype: both take 3 blocks an
+    SM): one wave of 9 tap-pair blocks per chunk across the card's SMs,
+    never more chunks than row tiles."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = B * T * H * -(-W // _DW_TILE_W)
     return max(1, min(tiles, _DW_BLOCKS_PER_SM * sms // 9))
 
 
 def conv3d64_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Weight gradient ``(3,3,3,64,64)`` THWIO of the conv for input ``x``
-    and cotangent ``dy`` (both ``(B,T,H,W,64)``).
+    """Weight gradient ``(3,3,3,64,64)`` THWIO, f32, of the conv for input
+    ``x`` and cotangent ``dy`` (both ``(B,T,H,W,64)``; dy is rounded to
+    x's dtype).
 
     On the card: per-chunk partial sums into a scratch buffer, summed in a
     second pass in a fixed order, so the result is the same from run to
@@ -262,6 +304,7 @@ def conv3d64_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         counts.plain_calls += 1
         return conv3d64_dw_plain(x, dy)
+    dy = as_compute(dy, x.dtype)
     B, T, H, W, _ = x.shape
     dw = torch.empty((3, 3, 3, 64, 64), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
@@ -274,29 +317,39 @@ def conv3d64_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                           device=x.device)
     _check_launch((x, dy, partial, dw), 1, 1)
     with torch.cuda.device(x.device):
-        err = _dw_lib().conv3d64_dw_f32(
+        err = getattr(_dw_lib(), f"conv3d64_dw_{_suffix(x.dtype)}")(
             x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
             B, T, H, W, nchunk, _stream(x.device))
     _raise_on(err, "conv3d64_dw")
-    counts.dw_launches += 1
+    counts.add("dw", x.dtype)
     return dw
+
+
+@functools.lru_cache(maxsize=None)
+def scalar_as(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: JAX turns a Python scalar into the
+    array's dtype before an op (``bf16(0.2) * dy`` in bf16), where torch
+    would multiply by the f32 scalar and round once."""
+    return float(torch.tensor(value, dtype=torch.float32).to(dtype))
 
 
 def _lrelu_grad(dy: torch.Tensor, y: torch.Tensor, slope: float):
     """LeakyReLU is sign-preserving: its mask comes from the output."""
-    return torch.where(y >= 0, dy, slope * dy)
+    return torch.where(y >= 0, dy, scalar_as(slope, dy.dtype) * dy)
 
 
 class Conv3d64Function(torch.autograd.Function):
     """``conv3d64`` with its gradients on the kernels: dx on the forward
-    kernel with ``flip_swap(w)``, dw on the dw kernel, db a plain sum
-    (``conv3d_pack.py:414-447``).  Gradients not asked for are skipped."""
+    kernel with ``flip_swap(w)``, dw on the dw kernel, db a plain f32 sum
+    (``conv3d_pack.py:414-447``).  The cotangent is rounded to x's dtype
+    first; dx comes back in the cotangent's dtype, dw and db in the
+    parameters'.  Gradients not asked for are skipped."""
 
     @staticmethod
     def forward(ctx, x, w, b, neg_slope):
         y = _forward(x, w, b, neg_slope, "fwd")
         ctx.neg_slope = neg_slope
-        ctx.has_bias = b is not None
+        ctx.b_dtype = b.dtype if b is not None else None
         ctx.save_for_backward(x, w, y if neg_slope is not None else None)
         return y
 
@@ -304,13 +357,15 @@ class Conv3d64Function(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         x, w, y = ctx.saved_tensors
-        dy = dy.contiguous()
+        out_dtype = dy.dtype
+        dy = as_compute(dy.contiguous(), x.dtype)
         if ctx.neg_slope is not None:
             dy = _lrelu_grad(dy, y, ctx.neg_slope)
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx = conv3d64_dx(dy, w) if need_x else None
-        dw = conv3d64_dw(x, dy) if need_w else None
-        db = dy.sum(dim=(0, 1, 2, 3)) if need_b and ctx.has_bias else None
+        dx = conv3d64_dx(dy, w).to(out_dtype) if need_x else None
+        dw = conv3d64_dw(x, dy).to(w.dtype) if need_w else None
+        db = (dy.float().sum(dim=(0, 1, 2, 3)).to(ctx.b_dtype)
+              if need_b and ctx.b_dtype is not None else None)
         return dx, dw, db, None
 
 
@@ -318,7 +373,8 @@ def conv3d64(x: torch.Tensor, w: torch.Tensor,
              b: Optional[torch.Tensor] = None,
              neg_slope: Optional[float] = None) -> torch.Tensor:
     """3x3x3 SAME conv + bias (+ LeakyReLU) for x ``(B,T,H,W,64)``,
-    differentiable once.
+    differentiable once, computed in x's dtype (float32, or bfloat16 with
+    ``w`` and ``b`` rounded to it and f32 accumulation).
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels
     on the current stream.  Anything the kernels do not take raises."""

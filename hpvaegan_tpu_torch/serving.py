@@ -14,6 +14,11 @@ port's session reads ``ar`` and ``org_fps`` from the experiment's
 (``Config.snapshot_dict``).  The video itself is not opened, and rec mode
 takes the real zero-scale clip as an array.
 
+A snapshot with ``bf16: true`` samples in bf16 (the generator reads
+``cfg.bf16``), as the JAX session does; the JAX sampler returns that bf16
+array, and numpy has no bf16, so the port returns the same values as
+float32.
+
 This slice serves 3D ``GeneratorHPVAEGAN`` checkpoints in the port's own
 format (``utils/saver.py``); the 2D image path, the baselines and
 extrapolated (``h/w/t_factor``) sampling are ROADMAP items.
@@ -184,15 +189,16 @@ class SamplerSession:
 
     def sample_batch(self, generator: Optional[torch.Generator] = None
                      ) -> np.ndarray:
-        """One rand-mode batch, NTHWC in [-1, 1]: draw the latent noise,
-        run the pyramid (BatchNorm on batch statistics, as in training)."""
+        """One rand-mode batch, NTHWC in [-1, 1], float32 (holding bf16
+        values under ``bf16``): draw the latent noise, run the pyramid
+        (BatchNorm on batch statistics, as in training)."""
         g = self.generator if generator is None else generator
         with torch.inference_mode():
             noise = torch.randn(self.noise_shape, generator=g,
                                 device=self.device)
             out, _, _ = self.G.apply(self.amps, noise_init=noise,
                                      mode="rand", train=True, generator=g)
-            return out.cpu().numpy()
+            return out.float().cpu().numpy()
 
     def reconstruct_batch(self, real_zero: np.ndarray,
                           generator: Optional[torch.Generator] = None
@@ -206,7 +212,7 @@ class SamplerSession:
         with torch.inference_mode():
             out, _, _ = self.G.apply(self.amps, real_zero=real_zero,
                                      mode="rec", train=True, generator=g)
-            return out.cpu().numpy()
+            return out.float().cpu().numpy()
 
     def warmup(self, modes=("rand",)) -> None:
         """Run one batch per mode before serving (kernel build, allocator,

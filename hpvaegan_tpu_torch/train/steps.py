@@ -4,7 +4,12 @@
 Each step runs eagerly on the modules in place: spectral update, forward,
 ``backward``, clip and Adam.  The whole step is held in ``full_f32()``
 (forwards, both backward passes, the GP's ``create_graph`` backward and
-Adam), so no stock conv falls back to cuDNN's default TF32.
+Adam), so no stock f32 conv falls back to cuDNN's default TF32.  Under
+``cfg.bf16`` the models' convs compute in bf16 (the GP's stock critic
+too, on cuDNN), the cotangents reaching K1 and K2 are bf16 as the JAX
+package casts them, and the parameters, their gradients, the clip and
+Adam stay f32; the metrics keep the JAX package's dtypes (the critic's
+means and the KL bf16, the MSEs, the GP and the totals f32).
 
 Semantics kept from the JAX package:
 

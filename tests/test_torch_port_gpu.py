@@ -21,7 +21,9 @@ from hpvaegan_tpu_torch.ops.kernels import conv3d_fuse as cf
 from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
 from hpvaegan_tpu_torch.train import optim, steps
 
-# kernel vs plain version, both f32: max error below 1e-4 * max(|y|, 1)
+# kernel vs plain version, both f32 (and K1-dw from bf16 operands: the
+# same products, f32 sums in another order): max error below
+# 1e-4 * max(|y|, 1)
 TOL = 1e-4
 RTOL, ATOL = 2e-3, 2e-4
 
@@ -60,14 +62,124 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, neg_slope):
     assert err < TOL * max(float(ref.abs().max()), 1.0), err
 
 
+# bf16 kernel vs its plain version: the same bf16 operands, f32 sums in
+# another order, one rounding to bf16 each, so an output may take the
+# neighbouring bf16 value: 1 ulp, at most 2**-7 of max(|y|, 1).  K2's y
+# also sees z's 1-ulp flips through conv2: 2 ulp.  dw is f32 from the
+# same bf16 products: the f32 bar.
+BF16_TOL, BF16_PAIR_TOL = 2.0 ** -7, 2.0 ** -6
+BF16_SHAPES = [(1, 3, 9, 7, 64), (2, 5, 45, 81, 64)]
+
+
+def _bf16(g, dev, *shape, scale=1.0):
+    return (torch.randn(shape, device=dev, generator=g) * scale).to(
+        torch.bfloat16)
+
+
+def _close_bf16(got, ref, tol):
+    assert got.dtype == ref.dtype
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= tol * max(float(ref.float().abs().max()), 1.0), err
+
+
 @pytest.mark.gpu
-def test_kernel_rejects_bf16_on_card(cuda_device):
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_k1_kernels_match_plain_on_card(cuda_device, shape):
+    """K1's forward (with and without LeakyReLU), dx and dw in bf16: f32
+    weights and bias are rounded to bf16 by the wrapper, and only the bf16
+    kernels launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    x, dy = _bf16(g, cuda_device, *shape), _bf16(g, cuda_device, *shape)
+    w = _randn(g, cuda_device, 3, 3, 3, 64, 64, scale=0.05)
+    b = _randn(g, cuda_device, 64, scale=0.1)
+    cp.counts.reset()
+    ys = [cp.conv3d64(x, w, b, neg_slope=s) for s in (None, 0.2)]
+    dx = cp.conv3d64_dx(dy, w)
+    dw = cp.conv3d64_dw(x, dy)
+    torch.cuda.synchronize()
+    assert (cp.counts.fwd_bf16_launches, cp.counts.dx_bf16_launches,
+            cp.counts.dw_bf16_launches) == (2, 1, 1)
+    assert (cp.counts.fwd_launches, cp.counts.dx_launches,
+            cp.counts.dw_launches, cp.counts.plain_calls) == (0, 0, 0, 0)
+    for y, s in zip(ys, (None, 0.2)):
+        _close_bf16(y, cp.conv3d64_plain(x, w, b, neg_slope=s), BF16_TOL)
+    _close_bf16(dx, cp.conv3d64_plain(dy, cp.flip_swap(w)), BF16_TOL)
+    assert dw.dtype == torch.float32
+    _close_to_plain(dw, cp.conv3d64_dw_plain(x, dy))
+    assert torch.equal(dw, cp.conv3d64_dw(x, dy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BF16_SHAPES + [(1, 1, 8, 14, 64)])
+def test_bf16_pair_kernel_matches_plain_on_card(cuda_device, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    x = _bf16(g, cuda_device, *shape)
+    w1, w2 = (_randn(g, cuda_device, 3, 3, 3, 64, 64, scale=0.05)
+              for _ in range(2))
+    b1, b2 = (_randn(g, cuda_device, 64, scale=0.1) for _ in range(2))
+    cf.counts.reset()
+    y, z = cf.conv3d64_pair_forward(x, w1, b1, w2, b2, with_mid=True)
+    y_only = cf.conv3d64_pair_forward(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert (cf.counts.bf16_launches, cf.counts.launches,
+            cf.counts.plain_calls) == (2, 0, 0)
+    y_ref, z_ref = cf.conv3d64_pair_plain(x, w1, b1, w2, b2, with_mid=True)
+    _close_bf16(z, z_ref, BF16_TOL)
+    _close_bf16(y, y_ref, BF16_PAIR_TOL)
+    assert torch.equal(y, y_only)
+
+
+@pytest.mark.gpu
+def test_bf16_pair_backward_matches_plain_on_card(cuda_device):
+    """dx in bf16 (1 ulp per K1-dx, two in a row), dw and db in f32 with
+    dw rounded to bf16 (1 ulp).  db1 sums d_pre1, which carries dz's
+    1-ulp flips: the bf16 bar; db2 sums the same d_pre2 on both sides:
+    the f32 bar."""
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    shape = BF16_SHAPES[1]
+    leaves = [_bf16(g, cuda_device, *shape),
+              _randn(g, cuda_device, 3, 3, 3, 64, 64, scale=0.05),
+              _randn(g, cuda_device, 64, scale=0.1),
+              _randn(g, cuda_device, 3, 3, 3, 64, 64, scale=0.05),
+              _randn(g, cuda_device, 64, scale=0.1)]
+    dy = _bf16(g, cuda_device, *shape)
+    leaves = [t.requires_grad_(True) for t in leaves]
+    cp.counts.reset()
+    got = torch.autograd.grad(cf.conv3d64_pair(*leaves), leaves, dy)
+    assert (cp.counts.dx_bf16_launches, cp.counts.dw_bf16_launches) == (2, 2)
+    assert cp.counts.dx_launches == cp.counts.dw_launches == 0
+    x, w1, b1, w2, b2 = (t.detach() for t in leaves)
+    y, z = cf.conv3d64_pair_forward(x, w1, b1, w2, b2, with_mid=True)
+    refs = cf.conv3d64_pair_backward(x, z, y, w1, w2, dy, plain=True)
+    assert [t.dtype for t in got] == [torch.bfloat16] + [torch.float32] * 4
+    for a, b, tol in zip(got, refs, (BF16_PAIR_TOL, BF16_TOL, BF16_TOL,
+                                     BF16_TOL, TOL)):
+        _close_bf16(a, b, tol)
+
+
+@pytest.mark.gpu
+def test_bf16_failed_launch_raises(cuda_device, monkeypatch):
+    """No fallback: a bf16 launch that reports a CUDA error raises, and
+    nothing is counted."""
+    class FailingLib:
+        def __getattr__(self, name):
+            return lambda *args: 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(cp, "_lib", lambda: FailingLib())
+    monkeypatch.setattr(cp, "_dw_lib", lambda: FailingLib())
+    monkeypatch.setattr(cf, "_lib", lambda: FailingLib())
     x = torch.zeros((1, 3, 8, 8, 64), device=cuda_device,
                     dtype=torch.bfloat16)
-    w = torch.zeros((3, 3, 3, 64, 64), device=cuda_device,
-                    dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="float32"):
-        cp.conv3d64(x, w)
+    w = torch.zeros((3, 3, 3, 64, 64), device=cuda_device)
+    b = torch.zeros(64, device=cuda_device)
+    cp.counts.reset()
+    cf.counts.reset()
+    for call in (lambda: cp.conv3d64(x, w, b), lambda: cp.conv3d64_dx(x, w),
+                 lambda: cp.conv3d64_dw(x, x),
+                 lambda: cf.conv3d64_pair(x, w, b, w, b)):
+        with pytest.raises(RuntimeError, match="CUDA error 98"):
+            call()
+    assert cp.counts == cp.KernelCounts() and cf.counts == cf.PairCounts()
 
 
 @pytest.mark.gpu
@@ -190,9 +302,24 @@ def test_gan_step_on_card_gives_every_kernel_weight_a_gradient(cuda_device):
     """The repaired fault: a K1- or K2-routed weight gets a gradient on the
     card (the forward used to fill a tensor through ctypes with no
     ``grad_fn``, so the optimizer silently skipped it)."""
+    _gan_step_gives_every_kernel_weight_a_gradient(cuda_device, bf16=False)
+
+
+@pytest.mark.gpu
+def test_bf16_gan_step_on_card_gives_every_kernel_weight_a_gradient(
+        cuda_device):
+    """The same under ``--bf16``: only the bf16 kernels launch, and every
+    routed (f32) weight gets a finite, non-zero f32 gradient."""
+    _gan_step_gives_every_kernel_weight_a_gradient(cuda_device, bf16=True)
+    assert cf.counts.launches == cp.counts.fwd_launches == 0
+    assert cp.counts.dx_launches == cp.counts.dw_launches == 0
+    assert cp.counts.fwd_bf16_launches > 0 and cp.counts.dw_bf16_launches > 0
+
+
+def _gan_step_gives_every_kernel_weight_a_gradient(cuda_device, bf16):
     cfg = Config(img_size=16, min_size=8, max_size=16, nfc=64, latent_dim=8,
                  num_layer=3, enc_blocks=1, vae_levels=2, pconv_all=True,
-                 pfuse=True)
+                 pfuse=True, bf16=bf16)
     cfg.ar, cfg.org_fps = 0.5625, 24.0
     cfg.adjust_scales()
     cfg.scale_idx = 3
@@ -219,10 +346,11 @@ def test_gan_step_on_card_gives_every_kernel_weight_a_gradient(cuda_device):
     torch.cuda.synchronize()
     assert all(torch.isfinite(v) for v in metrics.values())
     assert cp.counts.plain_calls == cf.counts.plain_calls == 0
-    assert cf.counts.launches == 2
+    assert (cf.counts.bf16_launches if bf16 else cf.counts.launches) == 2
     routed = [b.conv.weight for b in G.body[-1].blocks]
     routed += [b.weight for b in D.body]  # one K2 pair, one K1 block
     assert all(b.conv.kernel_route for b in G.body[-1].blocks)
     for w in routed:
-        assert w.grad is not None and bool(torch.isfinite(w.grad).all())
+        assert w.grad is not None and w.grad.dtype == torch.float32
+        assert bool(torch.isfinite(w.grad).all())
         assert float(w.grad.abs().max()) > 0
