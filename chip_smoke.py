@@ -20,6 +20,13 @@ Phases; any failure exits non-zero and prints no result:
    (2,13,144,256,64) and the critic's (4,13,144,256,64), against cuDNN's
    bf16 conv, its bf16 gradients and the unfused bf16 pair, with the bound
    at the bf16 tensor-core rate;
+3c. K3, the fused conv3d + bias + LeakyReLU for any channel count,
+   against its plain version at the top stage's shape with 3 -> 64, 64 ->
+   64 and 64 -> 3 channels and at a ragged 5 -> 7 shape with T = 1, 2, 4,
+   its gradients against autograd through the plain conv, timed
+   against cuDNN's conv + LeakyReLU.  The JAX package routes K3 nowhere,
+   so its row counts the launches of this phase's own forward and
+   backward at the three shapes (run before the comparisons);
 4. the serving path at full width: the repository's default 3D
    GeneratorHPVAEGAN (nfc 64, latent 128, 5 layers, 3 VAE levels, pyramid
    to 256 px) on the in-repo wingsuit clip's geometry (256x144, 24 fps),
@@ -43,13 +50,25 @@ Phases; any failure exits non-zero and prints no result:
 5b. the same under ``--bf16``: per scale-9 GAN step 137 K1-fwd, 4 K2,
    80 K1-dx and 75 K1-dw launches of the bf16 kernels, no f32 launch and
    no plain call;
-6. a ``{"kernels": [...]}`` line (eight rows: four kernels, f32 and bf16,
-   each with its launches over the four main-path runs), the card line,
-   and last ``{"ok": true, "device": {...}}``.
+6. the training entry point at full width:
+   ``python -m hpvaegan_tpu_torch.cli.train_video`` in-process on
+   ``data/vids/wingsuit.avi`` (its committed frames file) with the default
+   model, ``--niter 2 --pconv --pconv-all --pfuse``, all ten scales: each
+   step's wall time, peak memory and launches printed, 137/4/80/75
+   launches and no plain call per scale-9 GAN step, the JAX package's file
+   set; then a ``--netG`` resume (scale 9 again, 10 amps kept) and one
+   request at batch 2 from the run through ``SamplerSession`` (45 K1
+   launches, finite values in [-1, 1]);
+7. a ``{"kernels": [...]}`` line (nine rows: four kernels in f32 and in
+   bf16, each with its launches over the main-path runs, and K3 with its
+   own phase's), the card line, and last ``{"ok": true, "device":
+   {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -576,6 +595,108 @@ def check_k2_bf16(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: K3, the fused conv + bias + LeakyReLU for any channel count
+# ---------------------------------------------------------------------------
+
+# (C_in, C_out) at the top stage's (2, 13, 144, 256): the encoder head's
+# 3 -> 64, a body conv's 64 -> 64, a tail's 64 -> 3
+K3_CHANNELS = ((3, 64), (64, 64), (64, 3))
+K3_RAGGED = [((1, t, 9, 7, 5), 7) for t in (1, 2, 4)]
+
+
+def k3_bound(shape, c_out: int):
+    """2*27*C_in*C_out FLOP per output voxel at the f32 rate; x read once,
+    y written once, w and b read once, all f32."""
+    v, c_in = voxels(shape), shape[-1]
+    return bound(2 * 27 * c_in * c_out * v,
+                 4 * (v * (c_in + c_out) + 27 * c_in * c_out + c_out))
+
+
+def k3_inputs(dev, g, shape, c_out):
+    """x like the activations, w and b at the model's init scale."""
+    import torch
+    scale = 1.0 / (27 * shape[-1]) ** 0.5
+    x = torch.randn(shape, device=dev, generator=g)
+    w = (torch.rand((3, 3, 3, shape[-1], c_out), device=dev, generator=g)
+         * 2 - 1) * scale
+    b = (torch.rand(c_out, device=dev, generator=g) * 2 - 1) * scale
+    return x, w, b
+
+
+def check_k3(dev):
+    """K3's own phase: one forward and backward through the differentiable
+    ``conv3d_lrelu`` at each full shape (the row's launches), then the
+    kernel against its plain version, the Function's gradients against
+    autograd through the plain conv, and the timings."""
+    import torch
+    import torch.nn.functional as F
+    from hpvaegan_tpu_torch.ops.kernels import conv3d as k3
+
+    g = torch.Generator(device=dev).manual_seed(3234)
+    full = [((BATCH, *TOP_SHAPE[1:4], c_in), c_out)
+            for c_in, c_out in K3_CHANNELS]
+    data = {}
+    k3.counts.reset()
+    for shape, c_out in full:
+        leaves = [t.requires_grad_(True)
+                  for t in k3_inputs(dev, g, shape, c_out)]
+        torch.autograd.grad(k3.conv3d_lrelu(*leaves).square().sum(), leaves)
+        data[(shape, c_out)] = [t.detach() for t in leaves]
+    torch.cuda.synchronize()
+    launches = k3.counts.launches
+    print(f"K3 path (forward + backward at {len(full)} shapes): launches "
+          f"{launches}, plain calls {k3.counts.plain_calls}", flush=True)
+    if launches != len(full) or k3.counts.plain_calls:
+        fail("K3's own path did not launch the kernel once per shape")
+
+    worst = 0.0
+    for shape, c_out in full + K3_RAGGED:
+        x, w, b = data.get((shape, c_out)) or k3_inputs(dev, g, shape, c_out)
+        worst = max(worst, check_close(f"K3 {shape} -> {c_out}",
+                                       k3.conv3d_lrelu(x, w, b),
+                                       k3.conv3d_lrelu_plain(x, w, b)))
+        # the backward against autograd through the plain conv (slope 1:
+        # no LeakyReLU) for the cotangent masked by the kernel's own y: a
+        # mask from the plain forward would flip wherever an output
+        # rounds to the other side of zero
+        dy = torch.randn((*shape[:4], c_out), device=dev, generator=g)
+        got_leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        ref_leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        y = k3.conv3d_lrelu(*got_leaves)
+        got = torch.autograd.grad(y, got_leaves, dy)
+        d_pre = torch.where(y.detach() >= 0, dy, k3.NEG_SLOPE * dy)
+        ref = torch.autograd.grad(
+            k3.conv3d_lrelu_plain(*ref_leaves, neg_slope=1.0), ref_leaves,
+            d_pre)
+        for name, a, r in zip(("dx", "dw", "db"), got, ref):
+            check_close(f"K3 {shape} -> {c_out} {name}", a, r)
+        del got, ref, got_leaves, ref_leaves, y, d_pre
+
+    row = None
+    for shape, c_out in full:
+        x, w, b = data[(shape, c_out)]
+        xc, wc = ncdhw(x), w.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        ms = time_ms(lambda: k3.conv3d_lrelu(x, w, b), iters=10)
+        plain_ms = time_ms(lambda: k3.conv3d_lrelu_plain(x, w, b), iters=5)
+        lib_ms = time_ms(lambda: F.leaky_relu(F.conv3d(xc, wc, b, padding=1),
+                                              0.2), iters=10)
+        bd = k3_bound(shape, c_out)
+        print(f"K3 timing at {shape} -> {c_out}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, F.conv3d + leaky_relu (cuDNN, TF32 off) "
+              f"{lib_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+              f"{bd[0] / ms:.3f} of the bound; launch config "
+              f"{k3.kernel_config(c_out)}", flush=True)
+        if shape[-1] == c_out == 64:
+            row = kernel_row("conv3d_lrelu", k3.SOURCE, k3.REPLACES, worst,
+                             ms, plain_ms, bd, None)
+    row["launches"] = launches
+    row["routed"] = ("nowhere, as in the JAX package: launches of its own "
+                     "phase (3c)")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -851,8 +972,6 @@ def train_main_path(dev, seed: int, profile: bool, bf16: bool = False):
     want_step = {f"{k}{other}": (n if other == sfx else 0)
                  for k, n in GAN_STEP_LAUNCHES.items()
                  for other in ("", "_bf16")}
-    import contextlib
-
     import torch
     from hpvaegan_tpu_torch.train.trainer import train_scale
 
@@ -925,6 +1044,144 @@ def train_main_path(dev, seed: int, profile: bool, bf16: bool = False):
     return all_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training entry point
+# ---------------------------------------------------------------------------
+
+CLI_FILES = (["netG", "Noise_Amps", "Noise_Amps.json", "config.json",
+              "logbook.txt", "eval"]
+             + [f"netD_{s}" for s in range(MAIN_CFG["vae_levels"], SCALE + 1)])
+
+
+def train_cli_main_path(dev, seed: int):
+    """``hpvaegan_tpu_torch.cli.train_video`` at full width on the in-repo
+    clip, all ten scales with ``--niter 2``; a ``--netG`` resume; one
+    request from the run.  Returns the launches of the three runs."""
+    import logging
+
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.cli import train_video
+    from hpvaegan_tpu_torch.core.config import Config
+    from hpvaegan_tpu_torch.serving import SamplerSession, apply_snapshot
+
+    want_step = {**{k: 0 for k in all_counts()}, **GAN_STEP_LAUNCHES}
+    state = {"t": 0.0, "counts": None, "steps": {}}
+    out = sys.stdout   # the CLI's own console log goes to `console` below
+
+    def mark():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state["t"], state["counts"] = time.perf_counter(), all_counts()
+
+    def on_event(scale, event, it, info):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - state["t"]
+        now = all_counts()
+        delta = {k: now[k] - state["counts"][k] for k in now}
+        peak = torch.cuda.max_memory_allocated(dev)
+        values = {k: float(v) for k, v in info.items()}
+        print(f"CLI scale {scale} {event} {it}: {wall:.4f} s, {values}, peak "
+              f"memory {peak} bytes, launches "
+              f"{ {k: v for k, v in delta.items() if v} }", file=out,
+              flush=True)
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"CLI scale {scale} {event} {it}: a loss is not finite")
+        if delta["plain"]:
+            fail(f"the plain versions ran {delta['plain']} times")
+        if event == "step":
+            state["steps"][scale] = state["steps"].get(scale, 0) + 1
+            if scale == SCALE and delta != want_step:
+                fail(f"a scale-{scale} GAN step of the CLI launched {delta}, "
+                     f"want {want_step}")
+        mark()
+
+    root = logging.getLogger()
+    handlers = list(root.handlers)
+    console = io.StringIO()   # kept out of the output's tail; logbook.txt
+    flags = ["--video-path", str(ROOT / MAIN_CFG["video_path"]),
+             "--niter", "2", "--pconv", "--pconv-all", "--pfuse",
+             "--manualSeed", str(seed)]
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            mark()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(console):
+                cfg = train_video.main(flags + ["--run-dir", tmp],
+                                       callback=on_event)
+            print(f"CLI run: {time.perf_counter() - t0:.3f} s for "
+                  f"{cfg.stop_scale + 1} scales, steps per scale "
+                  f"{state['steps']}", flush=True)
+            exp = Path(tmp) / "wingsuit" / "DEBUG" / "experiment_0"
+            missing = [n for n in CLI_FILES if not (exp / n).exists()]
+            with open(exp / "Noise_Amps.json") as f:
+                amps = json.load(f)["noise_amps"]
+            print(f"CLI files: {sorted(p.name for p in exp.iterdir())}; "
+                  f"amps {amps}", flush=True)
+            if (missing or cfg.stop_scale != SCALE or len(amps) != SCALE + 1
+                    or amps[0] != 1.0
+                    or not all(math.isfinite(a) for a in amps)
+                    or state["steps"] != {s: 2 for s in range(SCALE + 1)}):
+                fail(f"the CLI run is incomplete: missing {missing}, amps "
+                     f"{amps}, steps {state['steps']}")
+
+            state["steps"] = {}
+            mark()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(console):
+                cfg = train_video.main(
+                    flags + ["--run-dir", tmp, "--netG", str(exp / "netG")],
+                    callback=on_event)
+            with open(exp.parent / "experiment_1" / "Noise_Amps.json") as f:
+                amps2 = json.load(f)["noise_amps"]
+            print(f"CLI resume from netG: {time.perf_counter() - t0:.3f} s, "
+                  f"steps per scale {state['steps']}, amps {amps2}",
+                  flush=True)
+            if state["steps"] != {SCALE: 2} or len(amps2) != SCALE + 1:
+                fail("the --netG resume did not retrain scale 9 alone with "
+                     "the amps kept")
+
+            netG = str(exp / "netG")
+            scfg = Config(netG=netG, pconv_all=True)
+            apply_snapshot(scfg, netG, explicit=set(),
+                           user_chose_source=False)
+            scfg.adjust_scales()
+            session = SamplerSession(scfg, batch_size=BATCH,
+                                     manual_seed=seed, device=dev)
+            before = all_counts()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = session.sample_batch()
+            e1.record()
+            e1.synchronize()
+            now = all_counts()
+            launched = {k: now[k] - before[k] for k in now}
+            print(f"request from the CLI run: {e0.elapsed_time(e1):.3f} ms, "
+                  f"shape {out.shape}, range [{out.min():.4f}, "
+                  f"{out.max():.4f}], launches "
+                  f"{ {k: v for k, v in launched.items() if v} }",
+                  flush=True)
+            if out.shape != (BATCH, *TOP_SHAPE[1:4], 3) or \
+                    not np.all(np.isfinite(out)) or np.abs(out).max() > 1.0:
+                fail("the request from the CLI run is wrong")
+            if launched != {**{k: 0 for k in launched},
+                            "conv3d64_fwd": 5 * SCALE}:
+                fail(f"the request from the CLI run launched {launched}")
+            del session
+            print(f"the CLI runs logged {console.getvalue().count(chr(10))} "
+                  f"console lines (as in their logbook.txt)", flush=True)
+    finally:
+        for h in list(root.handlers):
+            root.removeHandler(h)
+            h.close()
+        for h in handlers:
+            root.addHandler(h)
+    torch.cuda.empty_cache()
+    return all_counts()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -956,7 +1213,7 @@ def main() -> None:
     from hpvaegan_tpu_torch.ops.kernels import _build
     from hpvaegan_tpu_torch.ops.kernels import conv3d_fuse as cf
     from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
-    sources = ["conv3d_pack", "conv3d_dw", "conv3d_fuse"]
+    sources = ["conv3d_pack", "conv3d_dw", "conv3d_fuse", "conv3d_lrelu"]
     t0 = time.perf_counter()
     _build.build_all(sources)
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -972,6 +1229,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows += check_k1_bf16(dev) + [check_k2_bf16(dev)]        # phase 3b
     torch.cuda.empty_cache()
+    k3_row = check_k3(dev)                                   # phase 3c
+    torch.cuda.empty_cache()
     # the main paths: each reads the launches of its own run
     paths = {}
     for bf16 in (False, True):                               # phases 4, 4b
@@ -986,12 +1245,14 @@ def main() -> None:
         check_train_card_against_cpu(dev, args.seed, bf16)
         paths[f"training {dtype_name(bf16)}"] = train_main_path(
             dev, args.seed, args.profile, bf16)
+    paths["training CLI f32"] = train_cli_main_path(dev, args.seed)  # 6
     for name, launched in paths.items():
         print(f"launches, {name} path: {launched}", flush=True)
     for row in rows:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on the main path")
+    rows.append(k3_row)   # routed nowhere: its own phase's launches
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -182,6 +182,17 @@ class ConvND(nn.Module):
         torch_kernel_init(self.weight, fan_in, generator)
         torch_bias_init(fan_in)(self.bias, generator)
 
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        """A checkpoint written under the other route (``--pconv-all`` on
+        or off) holds the other layout; it loads either way."""
+        key = prefix + "weight"
+        w = state_dict.get(key)
+        if w is not None and w.dim() == 5 and \
+                tuple(w.shape) != tuple(self.weight.shape):
+            state_dict[key] = (to_thwio(w) if self.kernel_route
+                               else w.permute(4, 3, 0, 1, 2))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernel_route:
             y = conv3d64(_to_nthwc(_cast(x, self.dtype)), self.weight,

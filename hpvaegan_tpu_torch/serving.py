@@ -19,9 +19,11 @@ A snapshot with ``bf16: true`` samples in bf16 (the generator reads
 array, and numpy has no bf16, so the port returns the same values as
 float32.
 
-This slice serves 3D ``GeneratorHPVAEGAN`` checkpoints in the port's own
-format (``utils/saver.py``); the 2D image path, the baselines and
-extrapolated (``h/w/t_factor``) sampling are ROADMAP items.
+It serves 3D ``GeneratorHPVAEGAN`` checkpoints in the port's own format
+and the JAX package's flax-msgpack ``netG`` (``utils/saver.py``
+``restore_generator`` tells them apart by their first byte); the 2D image
+path, the baselines and extrapolated (``h/w/t_factor``) sampling are
+ROADMAP items.
 """
 from __future__ import annotations
 

@@ -97,8 +97,11 @@ def load_conv_stack(m, v: Mapping[str, Any]) -> None:
 
 def load_generator(G, gvars: Mapping[str, Any]) -> None:
     """Fill a port ``GeneratorHPVAEGAN`` from JAX ``gvars``; grows ``G``'s
-    body (stage copies) to the number of JAX stages first."""
-    body = list(gvars["body"])
+    body (stage copies) to the number of JAX stages first.  The body may
+    be a list or, as read from a flax-msgpack file, a ``{"0": ...}`` map."""
+    body = gvars["body"]
+    body = ([body[k] for k in sorted(body, key=int)]
+            if isinstance(body, Mapping) else list(body))
     if len(G.body) > len(body):
         raise ValueError(f"port generator has {len(G.body)} stages, the "
                          f"JAX variables {len(body)}")

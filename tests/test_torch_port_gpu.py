@@ -354,3 +354,119 @@ def _gan_step_gives_every_kernel_weight_a_gradient(cuda_device, bf16):
         assert w.grad is not None and w.grad.dtype == torch.float32
         assert bool(torch.isfinite(w.grad).all())
         assert float(w.grad.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused conv3d + bias + LeakyReLU for any channel count
+# ---------------------------------------------------------------------------
+
+# (shape of x, C_out): the encoder head's 3 -> 64, the body's 64 -> 64, the
+# tail's 64 -> 3 at a stage shape with ragged tiles, and ragged channels at
+# T = 1, 2 and 4 (the Pallas function's XLA branch below T = 3)
+K3_CASES = [((2, 5, 45, 81, 3), 64), ((1, 4, 19, 37, 64), 64),
+            ((2, 5, 45, 81, 64), 3), ((1, 1, 9, 7, 5), 7),
+            ((1, 2, 9, 7, 5), 7), ((1, 4, 9, 7, 5), 7)]
+
+
+def _k3_inputs(g, dev, shape, c_out):
+    x = _randn(g, dev, *shape)
+    w = _randn(g, dev, 3, 3, 3, shape[-1], c_out,
+               scale=(27 * shape[-1]) ** -0.5)
+    return x, w, _randn(g, dev, c_out, scale=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,c_out", K3_CASES)
+def test_k3_kernel_matches_plain_on_card(cuda_device, shape, c_out):
+    from hpvaegan_tpu_torch.ops.kernels import conv3d as k3
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    x, w, b = _k3_inputs(g, cuda_device, shape, c_out)
+    k3.counts.reset()
+    y = k3.conv3d_lrelu(x, w, b)
+    torch.cuda.synchronize()
+    assert (k3.counts.launches, k3.counts.plain_calls) == (1, 0)
+    assert y.shape == (*shape[:4], c_out) and y.dtype == torch.float32
+    _close_to_plain(y, k3.conv3d_lrelu_plain(x, w, b))
+    # a bf16 x is widened to f32 first
+    yb = k3.conv3d_lrelu(x.to(torch.bfloat16), w, b)
+    _close_to_plain(yb, k3.conv3d_lrelu_plain(x.to(torch.bfloat16).float(),
+                                              w, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,c_out", [K3_CASES[0], K3_CASES[3]])
+def test_k3_gradients_match_autograd_through_plain_on_card(cuda_device,
+                                                           shape, c_out):
+    from hpvaegan_tpu_torch.ops.kernels import conv3d as k3
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    inputs = _k3_inputs(g, cuda_device, shape, c_out)
+    dy = _randn(g, cuda_device, *shape[:4], c_out)
+    got_leaves = [t.clone().requires_grad_(True) for t in inputs]
+    ref_leaves = [t.clone().requires_grad_(True) for t in inputs]
+    y = k3.conv3d_lrelu(*got_leaves)
+    got = torch.autograd.grad(y, got_leaves, dy)
+    # the mask from the kernel's own y: one from the plain forward would
+    # flip wherever an output rounds to the other side of zero
+    d_pre = torch.where(y.detach() >= 0, dy, k3.NEG_SLOPE * dy)
+    ref = torch.autograd.grad(
+        k3.conv3d_lrelu_plain(*ref_leaves, neg_slope=1.0), ref_leaves, d_pre)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_k3_failed_launch_raises(cuda_device, monkeypatch):
+    from hpvaegan_tpu_torch.ops.kernels import conv3d as k3
+
+    class FailingLib:
+        def __getattr__(self, name):
+            return lambda *args: 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(k3, "_lib", lambda: FailingLib())
+    x = torch.zeros((1, 3, 8, 8, 3), device=cuda_device)
+    w = torch.zeros((3, 3, 3, 3, 64), device=cuda_device)
+    b = torch.zeros(64, device=cuda_device)
+    k3.counts.reset()
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        k3.conv3d_lrelu(x, w, b)
+    assert k3.counts == k3.LReLUCounts()
+
+
+@pytest.mark.gpu
+def test_training_cli_runs_on_card(cuda_device, tmp_path):
+    """The training entry point on the card at full width on a tiny
+    pyramid of the in-repo clip (its frames file is committed): the K1
+    and K2 kernels launch, the plain versions never run, and the JAX
+    package's file set is written."""
+    import logging
+    import os
+
+    from hpvaegan_tpu_torch.cli import train_video
+    root = logging.getLogger()
+    handlers = list(root.handlers)
+    cp.counts.reset()
+    cf.counts.reset()
+    try:
+        cfg = train_video.main([
+            "--video-path", os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "data", "vids", "wingsuit.avi"),
+            "--img-size", "24",
+            "--min-size", "12", "--max-size", "24", "--niter", "1",
+            "--vae-levels", "2", "--latent-dim", "8", "--enc-blocks", "1",
+            "--num-layer", "3", "--manualSeed", "3", "--pconv", "--pconv-all",
+            "--pfuse", "--run-dir", str(tmp_path)])
+    finally:
+        for h in list(root.handlers):
+            root.removeHandler(h)
+            h.close()
+        for h in handlers:
+            root.addHandler(h)
+    torch.cuda.synchronize()
+    assert cp.counts.plain_calls == cf.counts.plain_calls == 0
+    assert cp.counts.fwd_launches > 0 and cp.counts.dw_launches > 0
+    assert cf.counts.launches > 0
+    exp = os.path.join(str(tmp_path), "wingsuit", "DEBUG", "experiment_0")
+    for name in ["netG", "Noise_Amps", "Noise_Amps.json", "config.json"] + [
+            f"netD_{s}" for s in range(2, cfg.stop_scale + 1)]:
+        assert os.path.exists(os.path.join(exp, name)), name

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package, and none of its sources imports them."""
+package, nor any package the card's machine lacks (flax, msgpack, tqdm,
+tensorboardX, OpenCV), and none of its sources imports them; only the
+frames tool imports OpenCV, which no other module imports."""
 import pathlib
 import re
 import subprocess
@@ -7,18 +9,28 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "hpvaegan_tpu_torch"
+FRAMES_TOOL = PORT / "tools" / "decode_frames.py"
 
 _PROBE = r"""
 import sys
+import torch  # may load tqdm itself where tqdm is installed
+before = set(sys.modules)
 import hpvaegan_tpu_torch
 import hpvaegan_tpu_torch.serving
+import hpvaegan_tpu_torch.ops.kernels.conv3d
 import hpvaegan_tpu_torch.ops.kernels.conv3d_pack
 import hpvaegan_tpu_torch.ops.kernels.conv3d_fuse
 import hpvaegan_tpu_torch.losses
 import hpvaegan_tpu_torch.train.trainer
 import hpvaegan_tpu_torch.utils.convert
-banned = {"jax", "flax", "optax", "cv2", "msgpack", "imageio", "tensorboardX"}
-loaded = sorted(m for m in sys.modules
+import hpvaegan_tpu_torch.utils.saver
+import hpvaegan_tpu_torch.data.video
+import hpvaegan_tpu_torch.data.loader
+import hpvaegan_tpu_torch.cli.train_video
+import hpvaegan_tpu_torch.tools.decode_frames
+banned = {"jax", "flax", "optax", "cv2", "msgpack", "imageio", "tensorboardX",
+          "tqdm"}
+loaded = sorted(m for m in set(sys.modules) - before
                 if m.split(".")[0] in banned
                 or m == "hpvaegan_tpu" or m.startswith("hpvaegan_tpu."))
 print("LOADED", loaded)
@@ -32,10 +44,13 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _importing(names):
+    return re.compile(r"^\s*(import|from)\s+(" + names + r")(\.|\s|$)", re.M)
+
+
 def test_sources_import_no_jax_and_no_jax_package():
-    pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|cv2|msgpack|"
-        r"hpvaegan_tpu(\.|\s|$))", re.M)
+    pattern = _importing(r"jax|flax|optax|msgpack|tqdm|tensorboardX|imageio"
+                         r"|hpvaegan_tpu")
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10
     offenders = [str(p.relative_to(REPO)) for p in sources
@@ -43,9 +58,16 @@ def test_sources_import_no_jax_and_no_jax_package():
     assert not offenders, offenders
 
 
+def test_only_the_frames_tool_imports_opencv():
+    pattern = _importing("cv2")
+    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    importers = [p for p in sources if pattern.search(p.read_text())]
+    assert importers == [FRAMES_TOOL]
+
+
 def test_kernel_sources_ship_with_the_package():
     """The CUDA sources live in the package (pyproject ships ``csrc``)."""
-    for name in ("conv3d_pack", "conv3d_dw", "conv3d_fuse"):
+    for name in ("conv3d_pack", "conv3d_dw", "conv3d_fuse", "conv3d_lrelu"):
         assert (PORT / "csrc" / f"{name}.cu").is_file()
     text = (REPO / "pyproject.toml").read_text()
     assert "csrc/*.cu" in text
