@@ -10,16 +10,22 @@ Phases; any failure exits non-zero and prints no result:
 1. the card: name, power limit, device count;
 2. the build: every kernel of the path compiled from ``csrc/`` with nvcc
    (one process per source, all started together), with ptxas's registers,
-   shared memory and spills;
+   shared memory and spills; the launch configuration of K1-dw and K2 in
+   both dtypes (threads, shared memory, blocks an SM from the occupancy
+   API, ptxas registers and spills);
 3. each kernel against its plain PyTorch version at the main paths'
    shapes (f32, TF32 off), with its time, the plain version's time, the
    time of one library call computing the same function, and the bound:
    K1's forward, input gradient and weight gradient, and K2 (with and
-   without its intermediate, and its backward);
+   without its intermediate, and its backward; also at shapes on every
+   edge of its tiling: W 1-256, H 1-144, T 1-13, B 1-3), timed against the
+   unfused cuDNN pair (``unfused_ms`` in its row: no one call computes
+   the pair);
 3b. the same for the bf16 kernels (``--bf16``) at the top stage's shape
    (2,13,144,256,64) and the critic's (4,13,144,256,64), against cuDNN's
    bf16 conv, its bf16 gradients and the unfused bf16 pair, with the bound
-   at the bf16 tensor-core rate;
+   at the bf16 tensor-core rate; K1-dw also at the edge shapes, each
+   result equal from run to run;
 3c. K3, the fused conv3d + bias + LeakyReLU for any channel count,
    against its plain version at the top stage's shape with 3 -> 64, 64 ->
    64 and 64 -> 3 channels and at a ragged 5 -> 7 shape with T = 1, 2, 4,
@@ -113,6 +119,11 @@ SCALE, BATCH, REQUESTS = 9, 2, 3
 TOP_SHAPE = (BATCH, 13, 144, 256, 64)
 CRITIC_SHAPE = (2 * BATCH, 13, 144, 256, 64)   # the critic on [real, fake]
 SMALL_SHAPE = (1, 3, 9, 7, 64)                 # ragged in every tile
+# every edge of the tilings of K1-dw bf16 (128-pixel row tiles) and K2 f32
+# (8 x 16 output tiles): W 1, 63, 65, 129, 256; H 1, 7, 144; T 1, 2, 13;
+# B 1, 3
+EDGE_SHAPES = [(1, 1, 1, 1, 64), (3, 2, 7, 63, 64), (1, 13, 7, 65, 64),
+               (1, 2, 144, 129, 64), (3, 1, 1, 256, 64), (1, 13, 144, 1, 64)]
 TRAIN_FLAGS = dict(pconv=True, pconv_all=True, pfuse=True)
 VAE_SCALE, VAE_ITERS, GAN_ITERS = 2, 2, 3
 # launches of one scale-9 GAN step under --pconv --pconv-all --pfuse
@@ -241,6 +252,49 @@ def oi(w):
     import torch
     return w.permute(4, 3, 0, 1, 2).contiguous(
         memory_format=torch.channels_last_3d)
+
+
+def print_kernel_share(tracer) -> None:
+    """Device time of each port kernel in a profile, and its share of the
+    device time of the whole window."""
+    from torch.autograd import DeviceType
+    # kernels only: an op's own row counts the kernels it launched again
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)), e.count)
+            for e in tracer.key_averages()
+            if e.device_type != DeviceType.CPU]
+    total = sum(t for _, t, _ in rows)
+    for key, t, n in sorted(rows, key=lambda r: -r[1]):
+        if "conv3d" in key and t > 0:
+            name = key.replace("(anonymous namespace)::", "").split("(")[0]
+            print(f"  port kernel {name}: {t / 1e3:.3f} ms device time over "
+                  f"{n} launches, {100 * t / total:.2f}% of {total / 1e3:.3f} "
+                  f"ms", flush=True)
+
+
+def ptxas_kernels(report: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from nvcc's
+    ``-Xptxas -v`` lines; a kernel with setmaxnreg reports its launch
+    count (warpgroups then trade registers)."""
+    import re
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the length-prefixed name inside the mangled one
+            short = re.search(r"\d+(conv3d\w+?)E", m.group(1))
+            cur = short.group(1) if short else m.group(1)
+            out[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, bound_ms_by,
@@ -383,7 +437,7 @@ def check_k2(dev):
 
     g = torch.Generator(device=dev).manual_seed(1237)
     worst = 0.0
-    for shape in (CRITIC_SHAPE, SMALL_SHAPE, (1, 1, 8, 14, 64)):
+    for shape in [CRITIC_SHAPE, SMALL_SHAPE, (1, 1, 8, 14, 64)] + EDGE_SHAPES:
         x, w1, b1 = conv_inputs(dev, g, shape)
         _, w2, b2 = conv_inputs(dev, g, shape)
         y_ref, z_ref = cf.conv3d64_pair_plain(x, w1, b1, w2, b2,
@@ -435,8 +489,10 @@ def check_k2(dev):
     print(f"K2 unfused pair (two F.conv3d + LeakyReLU, cuDNN, TF32 off) at "
           f"{CRITIC_SHAPE}: {unfused_ms:.4f} ms (agrees to "
           f"{unfused_err:.3e})", flush=True)
-    return kernel_row("conv3d64_pair", cf.SOURCE, cf.REPLACES, worst, ms,
-                      plain_ms, b, None)
+    # no single library call computes the pair: the unfused cuDNN pair is
+    # its yardstick, beside library_ms
+    return {**kernel_row("conv3d64_pair", cf.SOURCE, cf.REPLACES, worst, ms,
+                         plain_ms, b, None), "unfused_ms": unfused_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -479,6 +535,14 @@ def check_k1_bf16(dev):
         if not torch.equal(dw, cp.conv3d64_dw(x, dy)):
             fail(f"K1-dw bf16 {shape} differs from run to run")
         data[shape] = (x, w, b, dy)
+    for shape in EDGE_SHAPES:   # the edges of the wgmma kernel's row walk
+        x, _, _ = bf16_inputs(dev, g, shape)
+        dy = torch.randn(shape, device=dev, generator=g).to(bf)
+        dw = cp.conv3d64_dw(x, dy)
+        worst["dw"] = max(worst["dw"], check_close(
+            f"K1-dw bf16 {shape}", dw, cp.conv3d64_dw_plain(x, dy)))
+        if not torch.equal(dw, cp.conv3d64_dw(x, dy)):
+            fail(f"K1-dw bf16 {shape} differs from run to run")
 
     rows = []
     x, w, b, dy = data[TOP_SHAPE]
@@ -590,8 +654,8 @@ def check_k2_bf16(dev):
           f"({bd[1]}), {bd[0] / ms:.3f} of the bound", flush=True)
     print(f"K2 bf16 unfused pair (two F.conv3d bf16 + LeakyReLU, cuDNN) at "
           f"{CRITIC_SHAPE}: {unfused_ms:.4f} ms", flush=True)
-    return kernel_row("conv3d64_pair_bf16", cf.SOURCE, cf.REPLACES, worst,
-                      ms, plain_ms, bd, None)
+    return {**kernel_row("conv3d64_pair_bf16", cf.SOURCE, cf.REPLACES, worst,
+                         ms, plain_ms, bd, None), "unfused_ms": unfused_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1034,6 +1098,7 @@ def train_main_path(dev, seed: int, profile: bool, bf16: bool = False):
                   flush=True)
             print(tracer.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=25), flush=True)
+            print_kernel_share(tracer)
             print("the same by input shapes:", flush=True)
             print(tracer.key_averages(group_by_input_shape=True).table(
                 sort_by="cuda_time_total", row_limit=25), flush=True)
@@ -1220,9 +1285,20 @@ def main() -> None:
     for name in sources:
         print(_build.ptxas_report(name), flush=True)
     print(f"conv3d64_fwd launch config: f32 {cp.kernel_config()}, bf16 "
-          f"{cp.kernel_config(torch.bfloat16)}; conv3d64_pair launch "
-          f"config: f32 {cf.kernel_config()}, bf16 "
-          f"{cf.kernel_config(torch.bfloat16)}", flush=True)
+          f"{cp.kernel_config(torch.bfloat16)}", flush=True)
+    regs = {}
+    for name in sources:
+        regs.update(ptxas_kernels(_build.ptxas_report(name)))
+    # the two kernels redesigned for Hopper (and their other-dtype twins)
+    for what, cfg, entry in (
+            ("conv3d64_dw bf16", cp.dw_kernel_config(torch.bfloat16),
+             "conv3d64_dw_bf16_partial"),
+            ("conv3d64_dw f32", cp.dw_kernel_config(), "conv3d64_dw_partial"),
+            ("conv3d64_pair f32", cf.kernel_config(), "conv3d64_pair_kernel"),
+            ("conv3d64_pair bf16", cf.kernel_config(torch.bfloat16),
+             "conv3d64_pair_bf16_kernel")):
+        print(f"{what} launch config: {cfg}; ptxas {regs.get(entry)}",
+              flush=True)
 
     rows = [check_k1(dev), check_k1_dx(dev), check_k1_dw(dev),
             check_k2(dev)]                                   # phase 3

@@ -13,39 +13,87 @@
 // The TPU kernel walks its grid in order and carries the whole sum in a
 // VMEM block with a constant index map.  Blocks of a CUDA grid run in
 // parallel and in no order, so the sum is split in two passes instead:
-//   1. conv3d64_dw_partial: block (p, c) owns one (dt, dh) tap pair p and
-//      one chunk c of the (b, t, h, W-tile) row tiles.  Its 256 threads
-//      hold the pair's 3 x 64 x 64 sums in registers (each thread a
-//      4 ci x 4 co tile for all three W taps: 48 accumulators).  Per row
-//      tile the block stages the x row (TILE_W + 2 pixels, zero outside
-//      the input) and the dy row (TILE_W pixels) in shared memory; per
-//      pixel a thread reads four float4 (one dy, three x) for 48 FMAs.
-//      Rows whose shifted x row lies outside the input add nothing and
-//      are skipped.  Each block writes its sums to its own slice of the
-//      scratch buffer `partial` (nchunk, 27*64*64).
+//   1. a partial kernel: block (p, c) owns one group p of taps and one
+//      chunk c of the rows, and writes its taps' sums to its own slice of
+//      the scratch buffer `partial` (nchunk, 27*64*64);
 //   2. conv3d64_dw_reduce sums the chunks in a fixed order.  No atomics:
 //      the result is the same from run to run.
-// Bound: the same 2*27*64*64 FLOP per voxel as the forward against two
-// reads of 256 bytes per voxel, so it is bound by f32 operations (the
-// non-tensor-core FMA rate), not by device memory.
+// conv3d64_dw_{f32,bf16}_config report each instance's block, shared
+// memory, blocks an SM (the occupancy API) and grid blocks a chunk, from
+// which the wrapper plans the chunks and the scratch.
+//
+// The f32 instance (conv3d64_dw_partial): block (p, c) owns one (dt, dh)
+// tap pair p and one chunk c of the (b, t, h, W-tile) row tiles.  Its 256
+// threads hold the pair's 3 x 64 x 64 sums in registers (each thread a
+// 4 ci x 4 co tile for all three W taps: 48 accumulators).  Per row tile
+// the block stages the x row (TILE_W + 2 pixels, zero outside the input)
+// and the dy row (TILE_W pixels) in shared memory; per pixel a thread
+// reads four float4 (one dy, three x) for 48 FMAs.  Rows whose shifted x
+// row lies outside the input add nothing and are skipped.  Bound: the
+// same 2*27*64*64 FLOP per voxel as the forward against two reads of 256
+// bytes per voxel, so it is bound by f32 operations (the non-tensor-core
+// FMA rate), not by device memory.
 //
 // The bf16 instance (conv3d64_dw_pallas with bf16 x and dy,
-// conv3d_pack.py:315-320: bf16 operands, f32 sums, f32 dw) keeps the same
-// two passes and the same (tap pair, chunk) grid, with the products on the
-// tensor cores (conv3d64_dw_bf16_partial): per row tile the block stages
-// the bf16 x row (TILE_W + 2 pixels) and dy row (TILE_W pixels) in shared
-// memory, XOR-swizzled by pixel, with cp.async into two stages so that the
-// next tile's rows arrive while this one's are multiplied; each W tap's
-// 64 x 64 sums are a GEMM
-// dw[ci][co] += x_shift^T[ci][pixel] * dy[pixel][co] with K = the row's
-// pixels, on mma.sync m16n8k16 with both operands read by ldmatrix.trans.
-// Six warps: (W tap, half of the input channels), 32 ci x 64 co each (64
-// f32 accumulators a thread).  Bound by the tensor-core rate as the
-// forward; the chunk partials and the fixed-order reduce are unchanged.
+// conv3d_pack.py:315-320: bf16 operands, f32 sums, f32 dw) is
+// conv3d64_dw_bf16_partial, designed for Hopper:
+//   * Bound: 2*27*64*64 FLOP per voxel at the bf16 tensor-core rate
+//     (989 TFLOP/s) against 256 bytes per voxel read once (3.35 TB/s):
+//     operations, by 3x.
+//   * Products: wgmma.mma_async m64n64k16, bf16 in, f32 accumulate.  For
+//     each tap dw[ci][co] += x_shift^T[ci][pixel] * dy[pixel][co]: M = the
+//     64 input channels, N = the 64 output channels, K = pixels of a row.
+//     A (x_shift^T) comes from registers, loaded by ldmatrix.trans at the
+//     tap's one-pixel shift (warp i of a warpgroup: input channels
+//     16i..16i+15, mma.sync's A-fragment layout); a shift inside a
+//     128-byte swizzle atom would need a descriptor's base-offset field.
+//     B (dy) is read by the tensor cores from shared memory through a
+//     matrix descriptor: MN-major (transposed), 128-byte swizzle, 8-row
+//     groups 1024 bytes apart.
+//   * Reuse: block (dt, c) owns one temporal tap dt and all nine (dh, dw)
+//     taps.  Three consumer warpgroups, one per dh, each hold their three
+//     W taps' 3 x 64 x 64 f32 sums (96 accumulator registers a thread).
+//     The block walks its chunk's rows along H: each dy row is loaded
+//     once and multiplied by all nine taps, each x row is loaded once and
+//     serves the three dh of three consecutive dy rows from a ring.  So
+//     the input passes through shared memory 3 times (once per dt), where
+//     the mma.sync design (one block per (dt, dh) pair) read it 9 times;
+//     and a staged A fragment feeds 1 wgmma, a staged dy tile 9, where the
+//     mma.sync design read both from shared memory for every product.
+//   * Loads: one producer thread issues TMA loads (cp.async.bulk.tensor,
+//     5-D tensor maps over NTHWC encoded on the host for each call and
+//     passed as __grid_constant__ parameters) into a ring of BW_STAGES = 5
+//     stages with full/empty mbarriers.  A stage holds one dy row tile
+//     (128 pixels, 16 KB) and one x row tile (130 pixels with the W halo,
+//     16.25 KB).  TMA zero-fills coordinates outside the volume: that is
+//     the SAME padding in W (and past the ragged W edge), so there are no
+//     masks; x rows outside H are neither loaded nor multiplied.
+//     The stage of tick g holds dy row h and x row h + 1; warpgroup dh
+//     multiplies dy of tick g by x of tick g - (2 - dh) and then releases
+//     that x tick.  Each run of rows inside one (b, t, W tile) column
+//     starts with two ticks that load only x rows h - 1 and h.
+//   * Warp specialisation: 3 consumer warpgroups + 1 producer warpgroup
+//     (512 threads, 1 block an SM by registers); setmaxnreg gives the
+//     producer 40 registers and each consumer thread 152 (one if/else, no
+//     block barrier after the split); ptxas: 128 registers at launch, no
+//     spills.  Shared memory: 5 x 33,792 bytes of stages + barriers + 1 KB
+//     to align the ring to 1024 bytes = 171,008.  Ring depths 4 to 6 time
+//     within the noise (tools/kernel_variants.py dw-ring), so the loads
+//     are not what bounds it: per k16 step a consumer warpgroup reads 6 KB
+//     of A fragments and its 3 wgmmas 6 KB of B, as many shared-memory
+//     cycles as the tensor cores spend on them.
+//   * Within a row a warpgroup double-buffers its A fragments: the loads
+//     of k-step k + 1 run while the wgmmas of step k are in flight
+//     (wgmma.wait_group 1).
+//   * The partials stay: 3 blocks (one per dt) a chunk, nchunk from the
+//     card's SMs; the fixed-order reduce is the f32 instance's.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream
-// and returns cudaGetLastError().
+// and returns cudaGetLastError() (or 1000 + the driver's error when a
+// tensor map cannot be encoded).
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda link: the
+                   // encoder is looked up through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -162,163 +210,312 @@ __global__ void conv3d64_dw_reduce(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on the tensor cores: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int BF_THREADS = 192;       // 6 warps: (W tap, ci half)
-constexpr int XROW_BYTES = (TILE_W + 2) * ROW_BYTES;  // one staged x row
-constexpr int DROW_BYTES = TILE_W * ROW_BYTES;        // one staged dy row
+constexpr int BW_TILE_W = 128;                 // dy pixels per row tile
+constexpr int BW_XPIX = BW_TILE_W + 2;         // x pixels with the W halo
+constexpr int BW_STAGES = 5;
+constexpr int BW_DY_BYTES = BW_TILE_W * ROW_BYTES;   // 16,384
+constexpr int BW_X_LOAD = BW_XPIX * ROW_BYTES;       // 16,640
+constexpr int BW_X_BYTES = 17 * 1024;                // x tile, 1024-aligned
+constexpr int BW_STAGE_BYTES = BW_DY_BYTES + BW_X_BYTES;  // 33,792
+constexpr int BW_CONSUMERS = 3;                // warpgroups, one per dh
+constexpr int BW_THREADS = (BW_CONSUMERS + 1) * 128;
+constexpr int BW_PRODUCER_REGS = 40;
+constexpr int BW_CONSUMER_REGS = 152;
+constexpr size_t BW_SMEM_BYTES =
+    (size_t)BW_STAGES * BW_STAGE_BYTES + 1024 /* barriers */ + 1024 /* align */;
+static_assert(BW_STAGE_BYTES % 1024 == 0, "stages keep the 128-byte swizzle atoms aligned");
+static_assert(BW_X_LOAD <= BW_X_BYTES, "x tile");
+static_assert(BW_PRODUCER_REGS * 128 + BW_CONSUMER_REGS * 128 * BW_CONSUMERS <= 65536,
+              "register budget of one block");
 
-// One row tile of a (dt, dh) tap pair: the dy row (t, h) from w0 on and the
-// x row (t + dt - 1, h + dh - 1) from w0 - 1 on; `valid` false when the x
-// row lies outside the input (the tile adds nothing).
-struct DwTile {
-  bool valid;
-  const __nv_bfloat16* xrow;
-  const __nv_bfloat16* dyrow;
-  int w0, n;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// one box of a 5-D tensor map (c, w, h, t, b) into shared memory
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int w, int h, int t,
+                                            int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(w), "r"(h), "r"(t), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+// matrix descriptor of a dy tile at `addr` (1024-aligned atoms): B is
+// K (pixel) x N (64 co), N contiguous in 128-byte rows, 128-byte swizzle;
+// 8-row K groups 1024 bytes apart (SBO); one 64-wide N atom (LBO unused)
+__device__ __forceinline__ uint64_t dy_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 64 f32) += a (64 x 16 bf16, registers) * B (16 x 64 bf16, desc)
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The rows of dt's chunk c: the (b, t, W tile) columns whose x slice
+// t + dt - 1 lies inside [0, T), each of H rows, split evenly.
+struct DwRows {
+  long long begin, end;
+  int t_lo, nt, H, tiles_w;
+  __device__ DwRows(int dt, int chunk, int nchunk, int B, int T, int H_,
+                    int tiles_w_) {
+    t_lo = dt == 0 ? 1 : 0;
+    nt = T - (dt != 1);
+    H = H_;
+    tiles_w = tiles_w_;
+    const long long rows = nt > 0 ? (long long)B * nt * H * tiles_w : 0;
+    begin = rows * chunk / nchunk;
+    end = rows * (chunk + 1) / nchunk;
+  }
+  // the column of row r: its b, t, W tile; and its h
+  __device__ void locate(long long r, int& b, int& t, int& wt, int& h) const {
+    h = (int)(r % H);
+    const long long col = r / H;
+    wt = (int)(col % tiles_w);
+    const long long bt = col / tiles_w;
+    t = t_lo + (int)(bt % nt);
+    b = (int)(bt / nt);
+  }
 };
 
-__device__ __forceinline__ DwTile dw_tile(
-    const __nv_bfloat16* x, const __nv_bfloat16* dy, long long tile, int dt,
-    int dh, int T, int H, int W, int tiles_w) {
-  DwTile d;
-  const int wt = (int)(tile % tiles_w);
-  const long long row = tile / tiles_w;  // ((b * T) + t) * H + h
-  const int h = (int)(row % H);
-  const long long bt = row / H;
-  const int t = (int)(bt % T);
-  const long long b = bt / T;
-  const int tt = t + dt - 1;
-  const int hh = h + dh - 1;
-  d.valid = tt >= 0 && tt < T && hh >= 0 && hh < H;
-  d.xrow = d.valid ? x + ((b * T + tt) * H + hh) * (size_t)W * C : x;
-  d.dyrow = dy + ((b * T + t) * H + h) * (size_t)W * C;
-  d.w0 = wt * TILE_W;
-  d.n = min(TILE_W, W - d.w0);
-  return d;
-}
+__global__ void __launch_bounds__(BW_THREADS, 1)
+conv3d64_dw_bf16_partial(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap dy_map,
+                         float* __restrict__ partial, int B, int T, int H, int W,
+                         int tiles_w, int nchunk) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // stage s at ring + s * STAGE
+  const uint32_t bars = ring + BW_STAGES * BW_STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (BW_STAGES + s); };
 
-// start the copies of a tile's x and dy rows into one stage (zeros outside
-// the input), as one commit group
-__device__ __forceinline__ void dw_load_async(const DwTile& d, int W,
-                                              uint32_t xs_s, uint32_t ds_s) {
-  for (int i = threadIdx.x; i < (TILE_W + 2) * 8; i += BF_THREADS) {
-    const int pix = i >> 3;
-    const int ww = d.w0 - 1 + pix;
-    const bool in = ww >= 0 && ww < W;
-    cp_async16(xs_s + swz(pix, i & 7),
-               reinterpret_cast<const uint4*>(d.xrow + (size_t)(in ? ww : 0) * C)
-                   + (i & 7), in);
-  }
-  for (int i = threadIdx.x; i < TILE_W * 8; i += BF_THREADS) {
-    const int pix = i >> 3;
-    const bool in = pix < d.n;
-    cp_async16(ds_s + swz(pix, i & 7),
-               reinterpret_cast<const uint4*>(
-                   d.dyrow + (size_t)(d.w0 + (in ? pix : 0)) * C) + (i & 7),
-               in);
-  }
-}
-
-__global__ void __launch_bounds__(BF_THREADS, 3)
-conv3d64_dw_bf16_partial(const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ dy,
-                         float* __restrict__ partial, int T, int H, int W,
-                         int tiles_w, long long n_tiles, int nchunk) {
-  // two stages: the next tile's rows arrive while this one is multiplied
-  __shared__ __align__(128) unsigned char xs[2][XROW_BYTES];
-  __shared__ __align__(128) unsigned char ds[2][DROW_BYTES];
-
-  const int pair = blockIdx.x;  // dt * 3 + dh
-  const int dt = pair / 3;
-  const int dh = pair % 3;
+  const int dt = blockIdx.x;
   const int chunk = blockIdx.y;
-  const long long begin = n_tiles * chunk / nchunk;
-  const long long end = n_tiles * (chunk + 1) / nchunk;
+  const int wg = threadIdx.x >> 7;  // 0..2 consumers (dh), 3 producer
+  const DwRows rows(dt, chunk, nchunk, B, T, H, tiles_w);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tap = warp >> 1;        // W tap of this warp's sums
-  const int ci0 = (warp & 1) * 32;  // its 32 input channels
-  // ldmatrix.trans rows of this lane: pixel ((lane >> 3) & 1) * 8 +
-  // (lane & 7) of the k16 step (A: (lane >> 4) picks the k half instead)
-  const int a_k = (lane >> 4) * 8 + (lane & 7);
-  const int a_half = (lane >> 3) & 1;
-  const int b_k = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int b_half = lane >> 4;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[m][n][k] = 0.f;
-
-  // the tiles of this chunk whose x row lies inside the input, in order
-  auto next_valid = [&](long long tile) {
-    while (tile < end && !dw_tile(x, dy, tile, dt, dh, T, H, W, tiles_w).valid)
-      ++tile;
-    return tile;
-  };
-  long long cur = next_valid(begin);
-  if (cur < end)
-    dw_load_async(dw_tile(x, dy, cur, dt, dh, T, H, W, tiles_w), W,
-             smem_u32(xs[0]), smem_u32(ds[0]));
-  cp_async_commit();
-  for (int s = 0; cur < end; s ^= 1) {
-    const long long nxt = next_valid(cur + 1);
-    if (nxt < end)
-      dw_load_async(dw_tile(x, dy, nxt, dt, dh, T, H, W, tiles_w), W,
-               smem_u32(xs[s ^ 1]), smem_u32(ds[s ^ 1]));
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's rows have landed (ours)
-    __syncthreads();     // ... and every thread's
-
-    const uint32_t xs_s = smem_u32(xs[s]);
-    const uint32_t ds_s = smem_u32(ds[s]);
-    const int n = dw_tile(x, dy, cur, dt, dh, T, H, W, tiles_w).n;
-    // K = the tile's pixels, 16 at a time; dy is zero past n
-    for (int k0 = 0; k0 < n; k0 += 16) {
-      uint32_t a[2][4];
-      // A[m = ci][k = pixel] = x[pixel + tap][ci]: stored pixel-major, so
-      // ldmatrix.trans; matrices (ci 0-7, px 0-7), (ci 8-15, px 0-7),
-      // (ci 0-7, px 8-15), (ci 8-15, px 8-15)
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        ldsm_x4_t(a[m], xs_s + swz(k0 + a_k + tap, (ci0 + m * 16) / 8 + a_half));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bq[4];
-        ldsm_x4_t(bq, ds_s + swz(k0 + b_k, np * 2 + b_half));
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          mma(acc[m][2 * np], a[m], bq[0], bq[1]);
-          mma(acc[m][2 * np + 1], a[m], bq[2], bq[3]);
-        }
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(full(s), 1);                      // the producer's arrive
+      mbar_init(empty(s), BW_CONSUMERS * 4);      // one arrive per consumer warp
     }
-    __syncthreads();  // every warp is done with stage s before it refills
-    cur = nxt;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // accumulator (m, n, j): ci = ci0 + m*16 + lane/4 (+8 for j >= 2),
-  // co = n*8 + 2*(lane%4) + (j & 1); THWIO: tap (pair * 3 + tap)
-  float* out = partial + (size_t)chunk * TAPS + (size_t)(pair * 3 + tap) * C * C;
-  const int g = lane >> 2;
-  const int q = lane & 3;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int ci = ci0 + m * 16 + g + half * 8;
-        *reinterpret_cast<float2*>(out + ci * C + n * 8 + 2 * q) =
-            make_float2(acc[m][n][2 * half], acc[m][n][2 * half + 1]);
+  if (wg == BW_CONSUMERS) {
+    // ---------------------------- producer ----------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(BW_PRODUCER_REGS));
+    if (threadIdx.x != BW_CONSUMERS * 128) return;
+    int g = 0;
+    for (long long r = rows.begin; r < rows.end;) {
+      int b, t, wt, ha;
+      rows.locate(r, b, t, wt, ha);
+      const int n = (int)min((long long)(H - ha), rows.end - r);
+      const int tx = t + dt - 1;
+      const int w0 = wt * BW_TILE_W;
+      for (int k = -2; k < n; ++k, ++g) {
+        const int s = g % BW_STAGES;
+        mbar_wait(empty(s), ((g / BW_STAGES) & 1) ^ 1);
+        // tick k < 0: x row ha + k + 1 alone; else dy row ha + k and x row ha + k + 1
+        const int xh = ha + k + 1;
+        const bool has_x = xh >= 0 && xh < H;
+        const bool has_dy = k >= 0;
+        mbar_arrive_tx(full(s), (has_x ? BW_X_LOAD : 0) + (has_dy ? BW_DY_BYTES : 0));
+        const uint32_t st = ring + (uint32_t)s * BW_STAGE_BYTES;
+        if (has_dy) tma_load_5d(st, &dy_map, full(s), w0, ha + k, t, b);
+        if (has_x) tma_load_5d(st + BW_DY_BYTES, &x_map, full(s), w0 - 1, xh, tx, b);
       }
+      r += n;
+    }
+  } else {
+    // ---------------------------- consumers ---------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(BW_CONSUMER_REGS));
+    const int dh = wg;
+    const int lane = threadIdx.x & 31;
+    const int wi = (threadIdx.x >> 5) & 3;  // warp in the warpgroup: ci 16wi..
+    // ldmatrix.trans rows of this lane (as in mma.sync's A fragment):
+    // pixel (lane >> 4) * 8 + (lane & 7) of the k16 step, ci chunk
+    // 2 wi + ((lane >> 3) & 1)
+    const int a_k = (lane >> 4) * 8 + (lane & 7);
+    const int a_chunk = 2 * wi + ((lane >> 3) & 1);
+
+    float acc[3][32];
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[d][i] = 0.f;
+
+    int g = 0;
+    for (long long r = rows.begin; r < rows.end;) {
+      int b, t, wt, ha;
+      rows.locate(r, b, t, wt, ha);
+      const int n = (int)min((long long)(H - ha), rows.end - r);
+      const int ksteps = (min(BW_TILE_W, W - wt * BW_TILE_W) + 15) / 16;
+      for (int k = -2; k < n; ++k, ++g) {
+        const int s = g % BW_STAGES;
+        mbar_wait(full(s), (g / BW_STAGES) & 1);
+        const int gx = g - (2 - dh);  // the tick whose x row this warpgroup takes
+        const int xh = ha + k + dh - 1;
+        if (k >= 0 && xh >= 0 && xh < H) {
+          const uint32_t dys = ring + (uint32_t)s * BW_STAGE_BYTES;
+          const uint32_t xs =
+              ring + (uint32_t)(gx % BW_STAGES) * BW_STAGE_BYTES + BW_DY_BYTES;
+          uint32_t a[2][3][4];
+#pragma unroll 1
+          for (int kk = 0; kk < ksteps; kk += 2) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int step = kk + half;
+              if (step < ksteps) {
+                wgmma_wait<1>();  // step - 2, the last reader of a[half], is done
+#pragma unroll
+                for (int tap = 0; tap < 3; ++tap)
+                  ldsm_x4_t(a[half][tap], xs + swz(step * 16 + a_k + tap, a_chunk));
+                wgmma_fence();
+                const uint64_t desc = dy_desc(dys + (uint32_t)step * 2048u);
+#pragma unroll
+                for (int tap = 0; tap < 3; ++tap) wgmma_64x64(acc[tap], a[half][tap], desc);
+                wgmma_commit();
+              }
+            }
+          }
+          wgmma_wait<0>();
+        }
+        // this warp is done with tick gx: release it to the producer
+        __syncwarp();
+        if (gx >= 0 && lane == 0) mbar_arrive(empty(gx % BW_STAGES));
+      }
+      r += n;
+    }
+
+    // accumulator (tap, 4j + e): ci = 16 wi + lane/4 (+8 for e >= 2),
+    // co = 8j + 2 (lane % 4) + (e & 1); THWIO tap (dt * 3 + dh) * 3 + dw
+    const int gq = lane >> 2;
+    const int q = lane & 3;
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) {
+      float* out = partial + (size_t)chunk * TAPS +
+                   (size_t)((dt * 3 + dh) * 3 + tap) * C * C;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int ci = 16 * wi + gq + 8 * e2;
+          *reinterpret_cast<float2*>(out + ci * C + 8 * j + 2 * q) =
+              make_float2(acc[tap][4 * j + 2 * e2], acc[tap][4 * j + 2 * e2 + 1]);
+        }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (the
+// library is not linked against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 5-D map (c, w, h, t, b) of a bf16 NTHWC tensor with boxes of
+// (64, box_w, 1, 1, 1), 128-byte swizzle, zero fill outside
+int encode_rows(CUtensorMap* map, const void* base, int B, int T, int H, int W,
+                int box_w) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)C * 2;
+  const cuuint64_t strides[4] = {row, row * W, row * W * H, row * W * H * T};
+  const cuuint32_t box[5] = {(cuuint32_t)C, (cuuint32_t)box_w, 1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult res =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
+         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 1000 + (int)res;
+}
+
+int occupancy(const void* kernel, int threads, size_t smem, int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads,
+                                                            smem);
 }
 
 }  // namespace
@@ -348,17 +545,50 @@ int conv3d64_dw_bf16(const void* x, const void* dy, float* partial,
                      float* dw, int B, int T, int H, int W, int nchunk,
                      void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int tiles_w = (W + TILE_W - 1) / TILE_W;
-  const long long n_tiles = (long long)B * T * H * tiles_w;
-  conv3d64_dw_bf16_partial<<<dim3(9, (unsigned)nchunk), BF_THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), partial, T, H, W, tiles_w,
-      n_tiles, nchunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  CUtensorMap x_map, dy_map;
+  int err = encode_rows(&x_map, x, B, T, H, W, BW_XPIX);
+  if (err != 0) return err;
+  err = encode_rows(&dy_map, dy, B, T, H, W, BW_TILE_W);
+  if (err != 0) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(conv3d64_dw_bf16_partial,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)BW_SMEM_BYTES);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const int tiles_w = (W + BW_TILE_W - 1) / BW_TILE_W;
+  conv3d64_dw_bf16_partial<<<dim3(3, (unsigned)nchunk), BW_THREADS, BW_SMEM_BYTES, s>>>(
+      x_map, dy_map, partial, B, T, H, W, tiles_w, nchunk);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return (int)cerr;
   conv3d64_dw_reduce<<<(TAPS + REDUCE_THREADS - 1) / REDUCE_THREADS,
                        REDUCE_THREADS, 0, s>>>(partial, dw, nchunk);
   return (int)cudaGetLastError();
+}
+
+// The launch plan of each instance, for the wrapper and for reports:
+// threads and dynamic shared memory of one block, blocks an SM on the
+// current device (occupancy API), grid blocks a chunk (tap groups) and
+// W pixels a row tile.  Returns the CUDA error code (0 on success).
+int conv3d64_dw_f32_config(int* threads, int* smem_bytes, int* blocks_per_sm,
+                           int* blocks_per_chunk, int* tile_w) {
+  *threads = THREADS;
+  *smem_bytes = 0;
+  *blocks_per_chunk = 9;
+  *tile_w = TILE_W;
+  return occupancy((const void*)conv3d64_dw_partial, THREADS, 0, blocks_per_sm);
+}
+
+int conv3d64_dw_bf16_config(int* threads, int* smem_bytes, int* blocks_per_sm,
+                            int* blocks_per_chunk, int* tile_w) {
+  *threads = BW_THREADS;
+  *smem_bytes = (int)BW_SMEM_BYTES;
+  *blocks_per_chunk = 3;
+  *tile_w = BW_TILE_W;
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3d64_dw_bf16_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BW_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  return occupancy((const void*)conv3d64_dw_bf16_partial, BW_THREADS, BW_SMEM_BYTES,
+                   blocks_per_sm);
 }
 
 }  // extern "C"

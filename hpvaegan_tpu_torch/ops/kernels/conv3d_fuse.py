@@ -88,18 +88,21 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         cfg = getattr(lib, f"conv3d64_pair_{sfx}_config")
-        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         cfg.restype = ctypes.c_int
     return lib
 
 
 def kernel_config(dtype: torch.dtype = torch.float32) -> dict:
-    """Dynamic shared memory and threads of one block in ``dtype``
-    (builds the kernel if needed)."""
-    smem, threads = ctypes.c_int(), ctypes.c_int()
-    getattr(_lib(), f"conv3d64_pair_{cp._suffix(dtype)}_config")(
-        ctypes.byref(smem), ctypes.byref(threads))
-    return {"smem_bytes": smem.value, "threads": threads.value}
+    """Dynamic shared memory and threads of one block in ``dtype``, and
+    blocks an SM on the current device (CUDA's occupancy API); builds the
+    kernel if needed."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = getattr(_lib(), f"conv3d64_pair_{cp._suffix(dtype)}_config")(
+        *(ctypes.byref(v) for v in vals))
+    cp._raise_on(err, "conv3d64_pair config")
+    return dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def _check(x, w1, b1, w2, b2) -> None:

@@ -31,9 +31,14 @@ Two compute dtypes, as in the JAX package (``conv3d_pack.py:190-197,
 * bf16 (``--bf16``): x bf16, w and b cast to bf16 here (the parameters
   stay f32), f32 accumulation, bias and LeakyReLU in f32, y rounded to
   bf16; dw takes bf16 x and dy (cast to x's dtype) and returns f32.  The
-  forward and dw kernels run on the tensor cores (``mma.sync`` bf16, f32
-  accumulate), bound by the 989 TFLOP/s bf16 rate.  A bf16 tensor
-  launches a bf16 kernel: nothing is cast to f32 to reuse the f32 ones.
+  forward and dw kernels run on the tensor cores (the forward on
+  ``mma.sync`` bf16, dw on ``wgmma`` fed by TMA loads; f32 accumulate),
+  bound by the 989 TFLOP/s bf16 rate.  A bf16 tensor launches a bf16
+  kernel: nothing is cast to f32 to reuse the f32 ones.
+
+The dw launch is planned from the kernel's own report
+(``dw_kernel_config``: blocks an SM from CUDA's occupancy API, grid
+blocks a chunk, row-tile width) by the pure ``dw_plan``.
 
 Launches are counted per kernel and dtype (``counts``).
 
@@ -60,7 +65,8 @@ from torch.autograd.function import once_differentiable
 __all__ = ["conv3d64", "conv3d64_plain", "conv3d64_dw", "conv3d64_dw_plain",
            "conv3d64_dx", "flip_swap", "as_compute", "scalar_as",
            "Conv3d64Function",
-           "counts", "KernelCounts", "kernel_config", "SOURCE", "DW_SOURCE",
+           "counts", "KernelCounts", "kernel_config", "dw_kernel_config",
+           "DwPlan", "dw_plan", "SOURCE", "DW_SOURCE",
            "REPLACES", "DX_REPLACES", "DW_REPLACES"]
 
 SOURCE = "hpvaegan_tpu_torch/csrc/conv3d_pack.cu"
@@ -69,8 +75,9 @@ REPLACES = "hpvaegan_tpu/ops/pallas/conv3d_pack.py:182"
 DX_REPLACES = "hpvaegan_tpu/ops/pallas/conv3d_pack.py:430"
 DW_REPLACES = "hpvaegan_tpu/ops/pallas/conv3d_pack.py:307"
 _GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y (T) and gridDim.z (B)
-_DW_TILE_W = 64       # W pixels per row tile of the dw kernel (conv3d_dw.cu)
-_DW_BLOCKS_PER_SM = 3  # its __launch_bounds__ minimum
+_DW_TAPS = 27 * 64 * 64  # floats of one full dw (a chunk's partial sums)
+_DW_CONFIG = ("threads", "smem_bytes", "blocks_per_sm", "blocks_per_chunk",
+              "tile_w")
 
 
 @dataclasses.dataclass
@@ -232,6 +239,9 @@ def _dw_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        cfg = getattr(lib, f"conv3d64_dw_{sfx}_config")
+        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(_DW_CONFIG)
+        cfg.restype = ctypes.c_int
     return lib
 
 
@@ -280,13 +290,53 @@ def conv3d64_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _forward(dy, flip_swap(w), None, None, "dx")
 
 
-def _dw_chunks(B: int, T: int, H: int, W: int, device) -> int:
-    """Voxel chunks of the dw kernel (either dtype: both take 3 blocks an
-    SM): one wave of 9 tap-pair blocks per chunk across the card's SMs,
-    never more chunks than row tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = B * T * H * -(-W // _DW_TILE_W)
-    return max(1, min(tiles, _DW_BLOCKS_PER_SM * sms // 9))
+def dw_kernel_config(dtype: torch.dtype = torch.float32,
+                     device: Optional[int] = None) -> dict:
+    """The dw kernel's launch plan in ``dtype`` on ``device`` (the current
+    one by default): threads and dynamic shared memory of a block, blocks
+    an SM (CUDA's occupancy API), grid blocks a chunk and W pixels a row
+    tile.  Builds the kernel if needed."""
+    if device is None:
+        device = torch.cuda.current_device()
+    return _dw_config(_suffix(dtype), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_config(sfx: str, device: int) -> dict:
+    vals = [ctypes.c_int() for _ in _DW_CONFIG]
+    with torch.cuda.device(device):
+        err = getattr(_dw_lib(), f"conv3d64_dw_{sfx}_config")(
+            *(ctypes.byref(v) for v in vals))
+    _raise_on(err, "conv3d64_dw config")
+    cfg = dict(zip(_DW_CONFIG, (v.value for v in vals)))
+    if cfg["blocks_per_sm"] < 1:
+        raise RuntimeError(f"the {sfx} dw kernel fits no block on an SM: "
+                           f"{cfg}")
+    return cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """A dw launch: ``nchunk`` chunks of rows, a grid of
+    ``(blocks_per_chunk, nchunk)`` blocks, and the scratch of one 27x64x64
+    partial sum per chunk."""
+
+    nchunk: int
+    grid: tuple
+    scratch_floats: int
+
+
+def dw_plan(sms: int, blocks_per_sm: int, blocks_per_chunk: int,
+            tile_w: int, shape) -> DwPlan:
+    """The chunks of a dw launch on a card of ``sms`` SMs for ``shape``
+    ``(B, T, H, W)``: one wave of ``blocks_per_chunk`` blocks a chunk, at
+    least one chunk, never more chunks than row tiles of ``tile_w``
+    pixels (nor than gridDim.y allows)."""
+    B, T, H, W = shape
+    tiles = B * T * H * -(-W // tile_w)
+    nchunk = max(1, min(tiles, sms * blocks_per_sm // blocks_per_chunk,
+                        _GRID_YZ_MAX))
+    return DwPlan(nchunk, (blocks_per_chunk, nchunk), nchunk * _DW_TAPS)
 
 
 def conv3d64_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -309,17 +359,20 @@ def conv3d64_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     dw = torch.empty((3, 3, 3, 64, 64), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return dw.zero_()
-    nchunk = _dw_chunks(B, T, H, W, x.device)
+    cfg = dw_kernel_config(x.dtype, x.device.index)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = dw_plan(sms, cfg["blocks_per_sm"], cfg["blocks_per_chunk"],
+                   cfg["tile_w"], (B, T, H, W))
     # freed on return while the kernel may still run: safe, the caching
     # allocator hands it out again only to work queued after it on this
     # stream (the same holds for the flip_swap(w) copy behind dx)
-    partial = torch.empty((nchunk, dw.numel()), dtype=torch.float32,
+    partial = torch.empty(plan.scratch_floats, dtype=torch.float32,
                           device=x.device)
     _check_launch((x, dy, partial, dw), 1, 1)
     with torch.cuda.device(x.device):
         err = getattr(_dw_lib(), f"conv3d64_dw_{_suffix(x.dtype)}")(
             x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            B, T, H, W, nchunk, _stream(x.device))
+            B, T, H, W, plan.nchunk, _stream(x.device))
     _raise_on(err, "conv3d64_dw")
     counts.add("dw", x.dtype)
     return dw

@@ -69,6 +69,12 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, neg_slope):
 # same bf16 products: the f32 bar.
 BF16_TOL, BF16_PAIR_TOL = 2.0 ** -7, 2.0 ** -6
 BF16_SHAPES = [(1, 3, 9, 7, 64), (2, 5, 45, 81, 64)]
+# every edge of the K1-dw bf16 tiling (128-pixel row tiles, x rows outside
+# H, T steps without a temporal neighbour) and of the K2 f32 one (8 x 16
+# output tiles): W in {1, 63, 65, 129, 256}, H in {1, 7, 144}, T in
+# {1, 2, 13}, B in {1, 3}
+EDGE_SHAPES = [(1, 1, 1, 1, 64), (3, 2, 7, 63, 64), (1, 13, 7, 65, 64),
+               (1, 2, 144, 129, 64), (3, 1, 1, 256, 64), (1, 13, 144, 1, 64)]
 
 
 def _bf16(g, dev, *shape, scale=1.0):
@@ -83,7 +89,7 @@ def _close_bf16(got, ref, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("shape", BF16_SHAPES + EDGE_SHAPES)
 def test_bf16_k1_kernels_match_plain_on_card(cuda_device, shape):
     """K1's forward (with and without LeakyReLU), dx and dw in bf16: f32
     weights and bias are rounded to bf16 by the wrapper, and only the bf16
@@ -183,6 +189,31 @@ def test_bf16_failed_launch_raises(cuda_device, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_f32_failed_launch_raises(cuda_device, monkeypatch):
+    """No fallback in f32 either (K2's f32 kernel and K1's): a launch that
+    reports a CUDA error raises, and nothing is counted."""
+    class FailingLib:
+        def __getattr__(self, name):
+            return lambda *args: 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(cp, "_lib", lambda: FailingLib())
+    monkeypatch.setattr(cp, "_dw_lib", lambda: FailingLib())
+    monkeypatch.setattr(cf, "_lib", lambda: FailingLib())
+    x = torch.zeros((1, 3, 8, 8, 64), device=cuda_device)
+    w = torch.zeros((3, 3, 3, 64, 64), device=cuda_device)
+    b = torch.zeros(64, device=cuda_device)
+    cp.counts.reset()
+    cf.counts.reset()
+    for call in (lambda: cf.conv3d64_pair_forward(x, w, b, w, b),
+                 lambda: cf.conv3d64_pair_forward(x, w, b, w, b,
+                                                  with_mid=True),
+                 lambda: cp.conv3d64(x, w, b), lambda: cp.conv3d64_dw(x, x)):
+        with pytest.raises(RuntimeError, match="CUDA error 98"):
+            call()
+    assert cp.counts == cp.KernelCounts() and cf.counts == cf.PairCounts()
+
+
+@pytest.mark.gpu
 def test_generator_on_card_matches_cpu_path(cuda_device):
     """The tiny nfc-64 generator under pconv_all on the card (K1 + cuDNN)
     and on the CPU (plain versions), same weights and draws."""
@@ -219,7 +250,8 @@ def _randn(g, dev, *shape, scale=1.0):
     return torch.randn(shape, device=dev, generator=g) * scale
 
 
-# W 7 and 81 leave ragged tiles of every kernel (K1 32, K1-dw 64, K2 14)
+# W 7 and 81 leave ragged tiles of every kernel (K1 32, K1-dw f32 64 and bf16
+# 128, K2 f32 16 and bf16 14)
 GRAD_SHAPES = [(1, 3, 9, 7, 64), (2, 5, 45, 81, 64)]
 
 
@@ -243,7 +275,8 @@ def test_dx_and_dw_kernels_match_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", GRAD_SHAPES + [(1, 1, 8, 14, 64)])
+@pytest.mark.parametrize("shape", GRAD_SHAPES + [(1, 1, 8, 14, 64)]
+                         + EDGE_SHAPES)
 def test_pair_kernel_matches_plain_on_card(cuda_device, shape):
     """T=1: both temporal neighbours of z lie outside the volume."""
     g = torch.Generator(device=cuda_device).manual_seed(12)
@@ -259,17 +292,18 @@ def test_pair_kernel_matches_plain_on_card(cuda_device, shape):
     y_ref, z_ref = cf.conv3d64_pair_plain(x, w1, b1, w2, b2, with_mid=True)
     _close_to_plain(z, z_ref)
     _close_to_plain(y, y_ref)
+    _close_to_plain(y_only, y_ref)
     assert torch.equal(y, y_only)
 
 
 @pytest.mark.gpu
-def test_pair_backward_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("shape", [GRAD_SHAPES[1], EDGE_SHAPES[2]])
+def test_pair_backward_matches_plain_on_card(cuda_device, shape):
     """The kernels' backward (K1-dx, K1-dw through both masks) against the
     plain versions on the same x, z, y: with masks from another forward a
     pre-activation that rounds to the other side of zero flips one
     neighbourhood of the gradient."""
     g = torch.Generator(device=cuda_device).manual_seed(13)
-    shape = GRAD_SHAPES[1]
     leaves = [_randn(g, cuda_device, *shape),
               _randn(g, cuda_device, 3, 3, 3, 64, 64, scale=0.05),
               _randn(g, cuda_device, 64, scale=0.1),
