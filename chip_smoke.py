@@ -10,9 +10,9 @@ Phases; any failure exits non-zero and prints no result:
 1. the card: name, power limit, device count;
 2. the build: every kernel of the path compiled from ``csrc/`` with nvcc
    (one process per source, all started together), with ptxas's registers,
-   shared memory and spills; the launch configuration of K1-dw and K2 in
-   both dtypes (threads, shared memory, blocks an SM from the occupancy
-   API, ptxas registers and spills);
+   shared memory and spills; the launch configuration of K1's forward,
+   K1-dw and K2 in both dtypes (threads, shared memory, blocks an SM from
+   the occupancy API, ptxas registers and spills);
 3. each kernel against its plain PyTorch version at the main paths'
    shapes (f32, TF32 off), with its time, the plain version's time, the
    time of one library call computing the same function, and the bound:
@@ -24,8 +24,11 @@ Phases; any failure exits non-zero and prints no result:
 3b. the same for the bf16 kernels (``--bf16``) at the top stage's shape
    (2,13,144,256,64) and the critic's (4,13,144,256,64), against cuDNN's
    bf16 conv, its bf16 gradients and the unfused bf16 pair, with the bound
-   at the bf16 tensor-core rate; K1-dw also at the edge shapes, each
-   result equal from run to run;
+   at the bf16 tensor-core rate; K1 (forward, dx, dw) and K2 also at the
+   edge shapes of their tilings (dw's result equal from run to run), and
+   K1's forward at each of the ten stage shapes at batch 2, timed through
+   its wrapper (CUDA events) and alone (the profiler's device time)
+   beside its bound;
 3c. K3, the fused conv3d + bias + LeakyReLU for any channel count,
    against its plain version at the top stage's shape with 3 -> 64, 64 ->
    64 and 64 -> 3 channels and at a ragged 5 -> 7 shape with T = 1, 2, 4,
@@ -119,11 +122,14 @@ SCALE, BATCH, REQUESTS = 9, 2, 3
 TOP_SHAPE = (BATCH, 13, 144, 256, 64)
 CRITIC_SHAPE = (2 * BATCH, 13, 144, 256, 64)   # the critic on [real, fake]
 SMALL_SHAPE = (1, 3, 9, 7, 64)                 # ragged in every tile
-# every edge of the tilings of K1-dw bf16 (128-pixel row tiles) and K2 f32
-# (8 x 16 output tiles): W 1, 63, 65, 129, 256; H 1, 7, 144; T 1, 2, 13;
-# B 1, 3
+# every edge of the tilings of K1-dw bf16 (128-pixel row tiles), K2 f32
+# (8 x 16 output tiles), K1-fwd bf16 (8 x 64) and K2 bf16 (6 x 28): W 1,
+# 28, 29, 57, 63, 64, 65, 129, 256; H 1, 6, 7, 8, 9, 13, 144; T 1, 2, 3,
+# 13; B 1, 2, 3
 EDGE_SHAPES = [(1, 1, 1, 1, 64), (3, 2, 7, 63, 64), (1, 13, 7, 65, 64),
-               (1, 2, 144, 129, 64), (3, 1, 1, 256, 64), (1, 13, 144, 1, 64)]
+               (1, 2, 144, 129, 64), (3, 1, 1, 256, 64), (1, 13, 144, 1, 64),
+               (1, 2, 8, 64, 64), (2, 3, 9, 28, 64), (1, 2, 6, 29, 64),
+               (3, 1, 13, 57, 64)]
 TRAIN_FLAGS = dict(pconv=True, pconv_all=True, pfuse=True)
 VAE_SCALE, VAE_ITERS, GAN_ITERS = 2, 2, 3
 # launches of one scale-9 GAN step under --pconv --pconv-all --pfuse
@@ -174,6 +180,28 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def kernel_device_ms(fn, kernel: str, iters: int):
+    """Mean device time of the CUDA kernel named ``kernel`` over ``iters``
+    calls of ``fn``, from torch.profiler (no host time in it); None when
+    the profiler records no device time for it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    for e in p.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if e.device_type != DeviceType.CPU and kernel in e.key and t > 0:
+            return t / 1e3 / e.count
+    return None
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -535,14 +563,41 @@ def check_k1_bf16(dev):
         if not torch.equal(dw, cp.conv3d64_dw(x, dy)):
             fail(f"K1-dw bf16 {shape} differs from run to run")
         data[shape] = (x, w, b, dy)
-    for shape in EDGE_SHAPES:   # the edges of the wgmma kernel's row walk
-        x, _, _ = bf16_inputs(dev, g, shape)
+    for shape in EDGE_SHAPES:   # the edges of the wgmma kernels' tilings
+        x, w, b = bf16_inputs(dev, g, shape)
         dy = torch.randn(shape, device=dev, generator=g).to(bf)
+        for slope in (None, 0.2):
+            worst["fwd"] = max(worst["fwd"], check_close(
+                f"K1 bf16 {shape} lrelu={slope}",
+                cp.conv3d64(x, w, b, neg_slope=slope),
+                cp.conv3d64_plain(x, w, b, neg_slope=slope), BF16_TOL))
+        worst["dx"] = max(worst["dx"], check_close(
+            f"K1-dx bf16 {shape}", cp.conv3d64_dx(dy, w),
+            cp.conv3d64_plain(dy, cp.flip_swap(w)), BF16_TOL))
         dw = cp.conv3d64_dw(x, dy)
         worst["dw"] = max(worst["dw"], check_close(
             f"K1-dw bf16 {shape}", dw, cp.conv3d64_dw_plain(x, dy)))
         if not torch.equal(dw, cp.conv3d64_dw(x, dy)):
             fail(f"K1-dw bf16 {shape} differs from run to run")
+
+    # the forward at the serving path's ten stage shapes, batch 2
+    for idx, stage in enumerate(main_config().pyramid().all_shapes3d()):
+        shape = (BATCH, *stage, 64)
+        x, w, b = bf16_inputs(dev, g, shape)
+        worst["fwd"] = max(worst["fwd"], check_close(
+            f"K1 bf16 stage {idx} {shape}", cp.conv3d64(x, w, b, 0.2),
+            cp.conv3d64_plain(x, w, b, 0.2), BF16_TOL))
+        call = lambda: cp.conv3d64(x, w, b, 0.2)  # noqa: E731
+        ms = time_ms(call, iters=20)
+        dev_ms = kernel_device_ms(call, "conv3d64_fwd_bf16_kernel", iters=20)
+        bd = k1_bound(shape, bf16=True)
+        kernel = ("not measured (the profiler saw no device time)"
+                  if dev_ms is None else
+                  f"{dev_ms:.4f} ms, {bd[0] / dev_ms:.3f} of the bound")
+        print(f"K1 bf16 timing at stage {idx} {shape}: wrapper {ms:.4f} ms "
+              f"(CUDA events; host-bound where the card waits for the "
+              f"call), kernel alone {kernel} (profiler device time), bound "
+              f"{bd[0]:.4f} ms ({bd[1]})", flush=True)
 
     rows = []
     x, w, b, dy = data[TOP_SHAPE]
@@ -601,7 +656,7 @@ def check_k2_bf16(dev):
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(2237)
     worst = 0.0
-    for shape in (CRITIC_SHAPE, SMALL_SHAPE, (1, 1, 8, 14, 64)):
+    for shape in [CRITIC_SHAPE, SMALL_SHAPE, (1, 1, 8, 14, 64)] + EDGE_SHAPES:
         x, w1, b1 = bf16_inputs(dev, g, shape)
         _, w2, b2 = conv_inputs(dev, g, shape)
         y_ref, z_ref = cf.conv3d64_pair_plain(x, w1, b1, w2, b2,
@@ -1284,13 +1339,14 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
     for name in sources:
         print(_build.ptxas_report(name), flush=True)
-    print(f"conv3d64_fwd launch config: f32 {cp.kernel_config()}, bf16 "
-          f"{cp.kernel_config(torch.bfloat16)}", flush=True)
     regs = {}
     for name in sources:
         regs.update(ptxas_kernels(_build.ptxas_report(name)))
-    # the two kernels redesigned for Hopper (and their other-dtype twins)
+    # the kernels redesigned for Hopper (and their other-dtype twins)
     for what, cfg, entry in (
+            ("conv3d64_fwd bf16", cp.kernel_config(torch.bfloat16),
+             "conv3d64_fwd_bf16_kernel"),
+            ("conv3d64_fwd f32", cp.kernel_config(), "conv3d64_fwd_kernel"),
             ("conv3d64_dw bf16", cp.dw_kernel_config(torch.bfloat16),
              "conv3d64_dw_bf16_partial"),
             ("conv3d64_dw f32", cp.dw_kernel_config(), "conv3d64_dw_partial"),

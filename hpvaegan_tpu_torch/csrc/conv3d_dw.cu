@@ -92,18 +92,18 @@
 // and returns cudaGetLastError() (or 1000 + the driver's error when a
 // tensor map cannot be encoded).
 
-#include <cuda.h>  // CUtensorMap and its enums; no libcuda link: the
-                   // encoder is looked up through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace bf16_mma;
+using namespace hopper;
 
 constexpr int C = 64;
 constexpr int TILE_W = 64;        // dy pixels per row tile
@@ -231,84 +231,6 @@ static_assert(BW_X_LOAD <= BW_X_BYTES, "x tile");
 static_assert(BW_PRODUCER_REGS * 128 + BW_CONSUMER_REGS * 128 * BW_CONSUMERS <= 65536,
               "register budget of one block");
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// one box of a 5-D tensor map (c, w, h, t, b) into shared memory
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int w, int h, int t,
-                                            int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(w), "r"(h), "r"(t), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-// matrix descriptor of a dy tile at `addr` (1024-aligned atoms): B is
-// K (pixel) x N (64 co), N contiguous in 128-byte rows, 128-byte swizzle;
-// 8-row K groups 1024 bytes apart (SBO); one 64-wide N atom (LBO unused)
-__device__ __forceinline__ uint64_t dy_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d (64 x 64 f32) += a (64 x 16 bf16, registers) * B (16 x 64 bf16, desc)
-__device__ __forceinline__ void wgmma_64x64(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
-      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 // The rows of dt's chunk c: the (b, t, W tile) columns whose x slice
 // t + dt - 1 lies inside [0, T), each of H rows, split evenly.
 struct DwRows {
@@ -431,7 +353,7 @@ conv3d64_dw_bf16_partial(const __grid_constant__ CUtensorMap x_map,
                 for (int tap = 0; tap < 3; ++tap)
                   ldsm_x4_t(a[half][tap], xs + swz(step * 16 + a_k + tap, a_chunk));
                 wgmma_fence();
-                const uint64_t desc = dy_desc(dys + (uint32_t)step * 2048u);
+                const uint64_t desc = mn_desc(dys + (uint32_t)step * 2048u);
 #pragma unroll
                 for (int tap = 0; tap < 3; ++tap) wgmma_64x64(acc[tap], a[half][tap], desc);
                 wgmma_commit();
@@ -467,52 +389,6 @@ conv3d64_dw_bf16_partial(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (the
-// library is not linked against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 5-D map (c, w, h, t, b) of a bf16 NTHWC tensor with boxes of
-// (64, box_w, 1, 1, 1), 128-byte swizzle, zero fill outside
-int encode_rows(CUtensorMap* map, const void* base, int B, int T, int H, int W,
-                int box_w) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  const cuuint64_t dims[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)C * 2;
-  const cuuint64_t strides[4] = {row, row * W, row * W * H, row * W * H * T};
-  const cuuint32_t box[5] = {(cuuint32_t)C, (cuuint32_t)box_w, 1, 1, 1};
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult res =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
-         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : 1000 + (int)res;
-}
-
 int occupancy(const void* kernel, int threads, size_t smem, int* blocks) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads,
                                                             smem);
@@ -546,9 +422,9 @@ int conv3d64_dw_bf16(const void* x, const void* dy, float* partial,
                      void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   CUtensorMap x_map, dy_map;
-  int err = encode_rows(&x_map, x, B, T, H, W, BW_XPIX);
+  int err = hopper::encode_nthwc(&x_map, x, B, T, H, W, BW_XPIX);
   if (err != 0) return err;
-  err = encode_rows(&dy_map, dy, B, T, H, W, BW_TILE_W);
+  err = hopper::encode_nthwc(&dy_map, dy, B, T, H, W, BW_TILE_W);
   if (err != 0) return err;
   cudaError_t cerr = cudaFuncSetAttribute(conv3d64_dw_bf16_partial,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize,

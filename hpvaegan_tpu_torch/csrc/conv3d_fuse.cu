@@ -58,21 +58,55 @@
 //     cluster's distributed shared memory; not done here.
 //
 // The bf16 instance (conv3d64_pair_pallas with bf16 x, conv3d_fuse.py:
-// 225-233, z ring in x's dtype :173, 282) is conv3d64_pair_bf16_kernel, on
-// the tensor cores, with a 6 x 14 output tile:
-//   * bf16 x, weights and biases; f32 accumulation on mma.sync m16n8k16;
-//     each z value is rounded to bf16 as it enters the ring, so conv2
-//     reads the rounded z; y and z are stored rounded to nearest even;
-//   * the ring, the x slab and the weights are bf16 pixel (or input
-//     channel) rows of 128 bytes, XOR-swizzled (bf16_mma.cuh): 3 x 128 z
-//     pixels + 180 x pixels + 3 x 64 weight rows = 96,768 bytes, two
-//     256-thread blocks an SM;
-//   * conv1: the z slice's 8 x 16 pixels are 8 m16 tiles, one row a warp;
-//     conv2: the 6 x 14 output pixels are 6 m16 tiles (the last 12 rows
-//     padding), warps 0-5; each warp all 64 output channels.
-// Bound by the bf16 tensor-core rate; every H tap's weights are staged
-// again from L2 for each z slice and each output slice, which the next
-// design should stream as the f32 instance does.
+// 225-233, z ring in x's dtype :173, 282) is conv3d64_pair_bf16_kernel,
+// designed for Hopper:
+//   * bf16 x, weights and biases; f32 accumulation; each z value is
+//     rounded to bf16 as it enters the ring, so conv2 reads the rounded z;
+//     y and z are stored rounded to nearest even.
+//   * Bound: 2 x 2*27*64*64 FLOP per output voxel at the bf16 tensor-core
+//     rate against x read and y (and z) written once: operations.  The
+//     previous design (mma.sync, a 6 x 14 tile, synchronous copies)
+//     reached 0.17 of it: it staged 12.1 GB of weights and x a launch at
+//     (4,13,144,256), each weight stage serving 84 output pixels.
+//   * Products: wgmma m64n64k16 for both convs, both operands by
+//     descriptor from shared memory, as in K1's forward: A (x or z
+//     shifted by the tap) K-major from the TMA buffer or the z slot, B
+//     (the tap's weights) MN-major, 128-byte swizzle.
+//   * Flattened tiles: x, z and y tiles share a row stride of 32 pixels,
+//     so the tap (dh, dw) of a pixel is the pixel 32 dh + dw further on
+//     and every product is a run of 64 consecutive pixels; the 2 (z) or
+//     4 (y) columns past a row's valid ones are computed and dropped.  An
+//     output tile of 6 x 28 needs a z slice of 8 x 30 (4 m64 tiles) and
+//     an x slab of 10 x 32: 1.33x the work of the two convs' outputs
+//     (the previous 6 x 14 tile: 1.26x in conv1 alone, with 2 of 8 warps
+//     idle in conv2).  A weight stage holds the three H taps, so each
+//     stage wait covers 12 (conv1) or 9 (conv2) wgmmas of the block.
+//   * z stays on chip: a 3-slot ring of bf16 z slices (33,792 bytes
+//     each); a block walks all of T for its tile column, computing one new
+//     z slice (conv1 over three x slabs) and one output slice (conv2 over
+//     three z slices) a step.  z outside the volume, and in the dropped
+//     columns, is written as zero.
+//   * Copies off the critical path: one producer thread issues TMA loads
+//     of x slabs (2 slots, box 64 x 32 x 10, zero fill = the SAME padding)
+//     and of weight stages (3 H taps x 32 input channels, 12 KB, a ring of
+//     3) with full/empty mbarriers; 2 consumer warpgroups (setmaxnreg
+//     40/232) split the m64 tiles (conv1 2 + 2, conv2 2 + 1) and meet at a
+//     named barrier around each z slice's epilogue.
+//   * Persistent: one block an SM (224,256 bytes) walks the (b, tile row,
+//     tile column) columns round-robin.
+//   * What bounds it now (tools/kernel_variants.py k2b-parts, PERF.md):
+//     the products, 1.33x the outputs' work; cutting the wgmmas halves
+//     the time, cutting the weight or x loads saves 0-3%.  Cutting the y
+//     epilogue saves a quarter: both warpgroups run it at the same point
+//     of the stream, while no products are in flight.  Holding y until
+//     the next conv1's first products are issued was slower (k2b-store),
+//     and so were 3 consumer warpgroups (k2b-warps) and 2 weight stages
+//     (k2b-ring).  Unlike two K1 launches, it cannot skip the halo: at
+//     K1's rate its products alone take longer than K1 twice, while the
+//     z round trip it saves is a few per cent of that.
+//   * ptxas (sm_90a, CUDA 12.8): 168 registers at launch (setmaxnreg then
+//     gives the consumers 232), no spills, no stack; 224,256 bytes of
+//     dynamic shared memory, one block an SM.  chip_smoke.py prints both.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream
 // and returns cudaGetLastError().
@@ -83,6 +117,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -348,208 +383,387 @@ conv3d64_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-// the bf16 instance's tiles
-constexpr int TILE_H = 6;
-constexpr int TILE_W = 14;
-constexpr int ZH = TILE_H + 2;   // z slice with its halo: 8 x 16
-constexpr int ZW = TILE_W + 2;
-constexpr int XH = TILE_H + 4;   // x slab feeding it: 10 x 18
-constexpr int XW = TILE_W + 4;
-
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on the tensor cores: wgmma fed by TMA rings
 // ---------------------------------------------------------------------------
 
-constexpr int BF_THREADS = 256;               // 8 warps
-constexpr int Z_PIX = ZH * ZW;                // 128: one z slice with its halo
-constexpr int X_PIX = XH * XW;                // 180: the x slab feeding it
-constexpr int OUT_PIX = TILE_H * TILE_W;      // 84
-constexpr int OUT_MTILES = (OUT_PIX + 15) / 16;  // 6
-static_assert(Z_PIX == 16 * BF_THREADS / 32, "conv1: one z row of 16 a warp");
-static_assert(ZW == 16, "conv1: one z row is one m16 tile");
+// Pixels of a tile are flattened row by row with a row stride of PB_S = 32
+// pixels, the width of the x slab: x pixel p + 32 dh + dw is z pixel p's
+// tap (dh, dw), and z pixel p + 32 dh + dw output pixel p's.  So every
+// product is a run of 64 consecutive flattened pixels (wgmma's M), and
+// the columns past a row's valid ones are computed and dropped.
 constexpr int RB = bf16_mma::ROW_BYTES;
-constexpr size_t BF_SMEM_Z = (size_t)3 * Z_PIX * RB;   // 49,152
-constexpr size_t BF_SMEM_X = (size_t)X_PIX * RB;       // 23,040
-constexpr size_t BF_SMEM_W = (size_t)3 * C * RB;       // 24,576
-constexpr size_t BF_SMEM_BYTES = BF_SMEM_Z + BF_SMEM_X + BF_SMEM_W;
+constexpr int PB_S = 32;                     // row stride of x, z and y tiles
+constexpr int PB_OH = 6;                     // output tile: 6 x 28
+constexpr int PB_OW = PB_S - 4;
+constexpr int PB_ZH = PB_OH + 2;             // z slice with its halo: 8 x 30
+constexpr int PB_XH = PB_OH + 4;             // x slab: 10 x 32
+constexpr int PB_ZMT = PB_ZH * PB_S / 64;    // conv1 m64 tiles: 4
+constexpr int PB_YMT = PB_OH * PB_S / 64;    // conv2 m64 tiles: 3
+static_assert(PB_ZH * PB_S % 64 == 0 && PB_OH * PB_S % 64 == 0, "m64 tiles");
+// a tap reads 2 pixels past the x slab (conv1) or the z slice (conv2)
+constexpr int PB_TAIL = 2;
+static_assert(PB_ZMT * 64 + 2 * PB_S + 2 == PB_XH * PB_S + PB_TAIL &&
+              PB_YMT * 64 + 2 * PB_S + 2 == PB_ZH * PB_S + PB_TAIL, "reads past a tile");
+constexpr int PB_Z_BYTES = (PB_ZH * PB_S * RB + PB_TAIL * RB + 1023) / 1024 * 1024;
+constexpr int PB_X_LOAD = PB_XH * PB_S * RB;                          // 40,960
+constexpr int PB_X_BYTES = (PB_X_LOAD + PB_TAIL * RB + 1023) / 1024 * 1024;
+constexpr int PB_X_STAGES = 2;
+static_assert(PB_X_STAGES >= 2, "x ring: a slab is released after the next one's first products");
+constexpr int PB_Z_TAIL = PB_Z_BYTES - PB_ZH * PB_S * RB;  // never written
+constexpr int PB_X_TAIL = PB_X_BYTES - PB_X_LOAD;
+static_assert(PB_Z_TAIL >= PB_TAIL * RB && PB_X_TAIL >= PB_TAIL * RB, "tails");
+constexpr int PB_QCI = 32;                   // input channels a weight stage
+constexpr int PB_W_BYTES = 3 * PB_QCI * RB;  // the three dh taps: 12,288
+constexpr int PB_W_STAGES = 3;
+constexpr int PB_CONSUMERS = 2;
+constexpr int PB_THREADS = (PB_CONSUMERS + 1) * 128;
+constexpr int PB_PRODUCER_REGS = 40;
+constexpr int PB_CONSUMER_REGS = 232;
+constexpr size_t PB_SMEM_BYTES = 3 * (size_t)PB_Z_BYTES +
+                                 (size_t)PB_X_STAGES * PB_X_BYTES +
+                                 (size_t)PB_W_STAGES * PB_W_BYTES + 1024 + 1024;
+static_assert(PB_W_BYTES % 1024 == 0, "weight stages keep the swizzle atoms aligned");
+static_assert(PB_QCI == 32, "A fragments are double-buffered by k16 step");
+static_assert(PB_PRODUCER_REGS * 128 + PB_CONSUMER_REGS * 128 * PB_CONSUMERS <= 65536,
+              "register budget of one block");
 
-// the three W taps of weight tap (dt, dh) into `ws`: 3 x 64 rows of 64
-__device__ __forceinline__ void stage_weights_bf16(unsigned char* ws,
-                                                   const __nv_bfloat16* w,
-                                                   int dt, int dh) {
-  const uint4* src = reinterpret_cast<const uint4*>(
-      w + (size_t)(dt * 3 + dh) * 3 * C * C);
-  for (int i = threadIdx.x; i < 3 * C * 8; i += BF_THREADS)
-    *reinterpret_cast<uint4*>(ws + bf16_mma::swz(i >> 3, i & 7)) = __ldg(src + i);
+// a column of the persistent walk: (b, tile row, tile column), all of T
+struct PairColumn {
+  int b, h0, w0;
+  __device__ PairColumn(int col, int tiles_h, int tiles_w) {
+    w0 = (col % tiles_w) * PB_OW;
+    const int r = col / tiles_w;
+    h0 = (r % tiles_h) * PB_OH;
+    b = r / tiles_h;
+  }
+};
+
+// The stream both roles walk for one column: step -1 computes z[0]; step
+// s >= 0 computes z[s + 1] (if s + 1 < T), then y[s].  conv1 of z[f] takes
+// x slices f - 1 .. f + 1, conv2 of y[s] z slices s - 1 .. s + 1, each
+// only inside [0, T); per slice, weight stages (dw, q) for q the input
+// channel halves, each holding the three H taps.
+
+// d[m] += sum_dh A(m, dh, dw) W(dh) over one weight stage's two k16 steps,
+// for this warpgroup's NT m64 tiles from tile m0: one wgmma group.  A is
+// read by the tensor cores straight from `src` (the x slab or a z slice):
+// the 64 flattened pixels from 64 (m0 + m) + 32 dh + dw, input channels
+// 16 (2 q + kk) on.
+template <int NT>
+__device__ __forceinline__ void pair_stage(float (&d)[NT][32], uint32_t src, int m0,
+                                           int dw, int q, uint32_t wst) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int m = 0; m < NT; ++m)
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+        hopper::wgmma_64x64_ss(
+            d[m],
+            hopper::k_desc(src + (uint32_t)((64 * (m0 + m) + PB_S * dh + dw) * RB +
+                                            (2 * q + kk) * 32)),
+            hopper::mn_desc(wst + (uint32_t)(dh * PB_QCI * RB + kk * 16 * RB)));
+  hopper::wgmma_commit();
 }
 
-// z[tz] over rows h0-1 .. h0+TILE_H, columns w0-1 .. w0+TILE_W into ring
-// slot `zslot`: zero outside the volume, bf16 rounded.  Warp w computes z
-// row w (16 pixels) for all 64 channels.
-__device__ void conv1_slice_bf16(const __nv_bfloat16* __restrict__ x,
-                                 const __nv_bfloat16* __restrict__ w1,
-                                 const __nv_bfloat16* __restrict__ b1,
-                                 float slope, const Geometry& g, int tz,
-                                 unsigned char* zslot, unsigned char* xs,
-                                 unsigned char* ws) {
-  using namespace bf16_mma;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const uint32_t xs_s = smem_u32(xs);
-  const uint32_t ws_s = smem_u32(ws);
+// consumer-side ring positions and the block's shared memory
+struct PairRings {
+  uint32_t zring, xring, wring, bars;
+  int xg = 0, wgn = 0;
+  __device__ uint32_t x_full(int s) const { return bars + 8u * s; }
+  __device__ uint32_t x_empty(int s) const { return bars + 8u * (PB_X_STAGES + s); }
+  __device__ uint32_t w_full(int s) const { return bars + 8u * (2 * PB_X_STAGES + s); }
+  __device__ uint32_t w_empty(int s) const {
+    return bars + 8u * (2 * PB_X_STAGES + PB_W_STAGES + s);
+  }
+  __device__ uint32_t zslot(int f) const { return zring + (uint32_t)(f % 3) * PB_Z_BYTES; }
+  // the slots of the last stage issued, released once its products are
+  // done: after the next stage's products are issued, or at a conv's end
+  int done_w = -1, done_x = -1;
+  __device__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      if (done_w >= 0) hopper::mbar_arrive(w_empty(done_w));
+      if (done_x >= 0) hopper::mbar_arrive(x_empty(done_x));
+    }
+    done_w = done_x = -1;
+  }
+};
 
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[n][k] = 0.f;
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(PB_CONSUMERS * 128) : "memory");
+}
 
+// One conv of the stream for this warpgroup's NT tiles starting at tile
+// m0: conv1 (x slices through the x ring) or conv2 (z slices of the ring).
+template <int NT>
+__device__ __forceinline__ void pair_conv(float (&d)[NT][32], PairRings& r, bool conv1,
+                                          int f, int T, int m0) {
+#pragma unroll
+  for (int m = 0; m < NT; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[m][i] = 0.f;
   for (int kt = 0; kt < 3; ++kt) {
-    const int tx = tz + kt - 1;
-    if (tx < 0 || tx >= g.T) continue;  // uniform across the block
-    const __nv_bfloat16* xt = x + g.batch_off + (size_t)tx * g.frame;
-    __syncthreads();  // the previous slab and weights are consumed
-    for (int i = tid; i < X_PIX * 8; i += BF_THREADS) {
-      const int pix = i >> 3;
-      const int ch = i & 7;
-      const int sr = pix / XW;
-      const int sc = pix - sr * XW;
-      const int hh = g.h0 - 2 + sr;
-      const int ww = g.w0 - 2 + sc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (hh >= 0 && hh < g.H && ww >= 0 && ww < g.W)
-        v = __ldg(reinterpret_cast<const uint4*>(
-                      xt + ((size_t)hh * g.W + ww) * C) + ch);
-      *reinterpret_cast<uint4*>(xs + swz(pix, ch)) = v;
+    const int src_f = f + kt - 1;
+    if (src_f < 0 || src_f >= T) continue;
+    uint32_t src;
+    int xs = -1;
+    if (conv1) {
+      xs = r.xg % PB_X_STAGES;
+      hopper::mbar_wait(r.x_full(xs), (r.xg / PB_X_STAGES) & 1);
+      src = r.xring + (uint32_t)xs * PB_X_BYTES;
+      ++r.xg;
+    } else {
+      src = r.zslot(src_f);
     }
-    for (int dh = 0; dh < 3; ++dh) {
-      if (dh > 0) __syncthreads();
-      stage_weights_bf16(ws, w1, kt, dh);
-      __syncthreads();
 #pragma unroll 1
-      for (int dw = 0; dw < 3; ++dw)
-        tap_16x64(acc, xs_s, (warp + dh) * XW + (lane & 15) + dw,
-                  ws_s + (uint32_t)(dw * C * RB), lane);
-    }
-  }
-
-  // accumulator (n, j): z pixel (warp, lane/4 (+8 for j >= 2)), channels
-  // n*8 + 2*(lane%4) + (j & 1)
-  const int hz = g.h0 - 1 + warp;
-  const int q = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int zc = (lane >> 2) + half * 8;
-    const int wz = g.w0 - 1 + zc;
-    const bool inside = hz >= 0 && hz < g.H && wz >= 0 && wz < g.W;
-    const int zp = warp * ZW + zc;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int co = n * 8 + 2 * q;
-      float v0 = 0.f, v1 = 0.f;
-      if (inside) {
-        v0 = lrelu(acc[n][2 * half] + __bfloat162float(b1[co]), slope);
-        v1 = lrelu(acc[n][2 * half + 1] + __bfloat162float(b1[co + 1]), slope);
+    for (int dw = 0; dw < 3; ++dw)
+#pragma unroll 1
+      for (int q = 0; q < C / PB_QCI; ++q, ++r.wgn) {
+        const int s = r.wgn % PB_W_STAGES;
+        hopper::mbar_wait(r.w_full(s), (r.wgn / PB_W_STAGES) & 1);
+        pair_stage<NT>(d, src, m0, dw, q, r.wring + (uint32_t)s * PB_W_BYTES);
+        hopper::wgmma_wait<1>();  // the previous stage's products are done
+        r.release();
+        r.done_w = s;
+        if (dw == 2 && q == C / PB_QCI - 1) r.done_x = xs;
       }
-      *reinterpret_cast<__nv_bfloat162*>(zslot + swz_pair(zp, co)) =
-          __floats2bfloat162_rn(v0, v1);
-    }
   }
+  hopper::wgmma_wait<0>();
+  r.release();
 }
 
-__global__ void __launch_bounds__(BF_THREADS, 2)
-conv3d64_pair_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                          const __nv_bfloat16* __restrict__ w1,
-                          const __nv_bfloat16* __restrict__ b1,
-                          const __nv_bfloat16* __restrict__ w2,
-                          const __nv_bfloat16* __restrict__ b2,
-                          __nv_bfloat16* __restrict__ y,
-                          __nv_bfloat16* __restrict__ mid, int T, int H, int W,
-                          int tiles_w, float slope) {
-  using namespace bf16_mma;
-  extern __shared__ __align__(128) unsigned char smem_bf[];
-  unsigned char* zr = smem_bf;                          // [3][128 px] rows
-  unsigned char* xs = smem_bf + BF_SMEM_Z;              // [180 px] rows
-  unsigned char* ws = smem_bf + BF_SMEM_Z + BF_SMEM_X;  // [3 * 64 ci] rows
-  const uint32_t zr_s = smem_u32(zr);
-  const uint32_t ws_s = smem_u32(ws);
-
-  Geometry g;
-  g.T = T;
-  g.H = H;
-  g.W = W;
-  g.h0 = (blockIdx.x / tiles_w) * TILE_H;
-  g.w0 = (blockIdx.x % tiles_w) * TILE_W;
-  g.frame = (size_t)H * W * C;
-  g.batch_off = (size_t)blockIdx.y * T * g.frame;
-
+// z[f] = lrelu(conv1 + b1), bf16, into its ring slot: zero outside the
+// volume and in the columns past the z tile
+template <int NT>
+__device__ __forceinline__ void pair_store_z(const float (&d)[NT][32], const PairRings& r,
+                                             int f, int m0, const PairColumn& cl, int H,
+                                             int W, const float (&b1v)[16], float slope) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool active = warp < OUT_MTILES;
-  // this lane's ldmatrix row in conv2: output pixel warp*16 + lane%16
-  // (rows past the tile read pixel OUT_PIX - 1 and are never stored)
-  const int a_p = min(warp * 16 + (lane & 15), OUT_PIX - 1);
-  const int a_zp = (a_p / TILE_W) * ZW + a_p % TILE_W;  // its z pixel at tap (0, 0)
-
-  conv1_slice_bf16(x, w1, b1, slope, g, 0, zr, xs, ws);
-  for (int t = 0; t < T; ++t) {
-    if (t + 1 < T)
-      conv1_slice_bf16(x, w1, b1, slope, g, t + 1,
-                       zr + (size_t)((t + 1) % 3) * Z_PIX * RB, xs, ws);
-
-    float acc[8][4];
+  const int wi = (threadIdx.x >> 5) & 3;
+  const uint32_t slot = r.zslot(f);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+  for (int m = 0; m < NT; ++m)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[n][k] = 0.f;
-    for (int kt = 0; kt < 3; ++kt) {
-      const int tz = t + kt - 1;
-      if (tz < 0 || tz >= T) continue;  // z outside [0, T) is zero
-      const uint32_t zslot = zr_s + (uint32_t)((tz % 3) * Z_PIX * RB);
-      for (int dh = 0; dh < 3; ++dh) {
-        __syncthreads();  // z writes visible; previous weights consumed
-        stage_weights_bf16(ws, w2, kt, dh);
-        __syncthreads();
-        if (active) {
-#pragma unroll 1
-          for (int dw = 0; dw < 3; ++dw)
-            tap_16x64(acc, zslot, a_zp + dh * ZW + dw,
-                      ws_s + (uint32_t)(dw * C * RB), lane);
+    for (int half = 0; half < 2; ++half) {
+      const int p = 64 * (m0 + m) + 16 * wi + (lane >> 2) + 8 * half;
+      const int zr = p / PB_S, zc = p % PB_S;
+      const int hz = cl.h0 - 1 + zr, wz = cl.w0 - 1 + zc;
+      const bool inside = zc < PB_OW + 2 && hz >= 0 && hz < H && wz >= 0 && wz < W;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int co = 8 * j + 2 * (lane & 3);
+        float v0 = 0.f, v1 = 0.f;
+        if (inside) {
+          v0 = lrelu(d[m][4 * j + 2 * half] + b1v[2 * j], slope);
+          v1 = lrelu(d[m][4 * j + 2 * half + 1] + b1v[2 * j + 1], slope);
+        }
+        const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(slot + bf16_mma::swz_pair(p, co)),
+                     "r"(*reinterpret_cast<const uint32_t*>(&v))
+                     : "memory");
+      }
+    }
+  // the tensor cores read z through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// y[t] = lrelu(conv2 + b2) (and z[t] with mid) for the valid pixels
+template <int NT>
+__device__ __forceinline__ void pair_store_y(const float (&d)[NT][32], const PairRings& r,
+                                             int t, int m0, const PairColumn& cl, int T,
+                                             int H, int W, const float (&b2v)[16],
+                                             float slope, __nv_bfloat16* __restrict__ y,
+                                             __nv_bfloat16* __restrict__ mid) {
+  const int lane = threadIdx.x & 31;
+  const int wi = (threadIdx.x >> 5) & 3;
+  const uint32_t slot = r.zslot(t);
+#pragma unroll
+  for (int m = 0; m < NT; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = 64 * (m0 + m) + 16 * wi + (lane >> 2) + 8 * half;
+      const int oy = p / PB_S, ox = p % PB_S;
+      const int h = cl.h0 + oy, w = cl.w0 + ox;
+      const bool valid = ox < PB_OW && h < H && w < W;
+      const size_t at = ((((size_t)cl.b * T + t) * H + h) * W + w) * C;
+      uint32_t pk[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(lrelu(d[m][4 * j + 2 * half] + b2v[2 * j], slope),
+                                  lrelu(d[m][4 * j + 2 * half + 1] + b2v[2 * j + 1], slope));
+        pk[j] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+      hopper::store_pixel_bf16(valid ? y + at : nullptr, pk, lane);
+      if (mid != nullptr && valid) {
+        // z[t] at this pixel, 8 bytes of a chunk pair, as store_pixel_bf16
+        const int zp = p + PB_S + 1;
+        const int odd = lane & 1;
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int co = 8 * (2 * rr + odd) + 2 * (lane & 2);
+          uint2 v;
+          asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+                       : "=r"(v.x), "=r"(v.y)
+                       : "r"(slot + bf16_mma::swz_pair(zp, co)));
+          *reinterpret_cast<uint2*>(mid + at + co) = v;
         }
       }
     }
-    if (!active) continue;
+}
 
-    // accumulator (n, j): output pixel warp*16 + lane/4 (+8 for j >= 2),
-    // channels n*8 + 2*(lane%4) + (j & 1)
-    const unsigned char* zmid = zr + (size_t)(t % 3) * Z_PIX * RB;
-    const int q = lane & 3;
+// The consumer warpgroup's walk over its columns: NT1 conv1 tiles from
+// tile m1, NT2 conv2 tiles from tile m2.
+template <int NT1, int NT2>
+__device__ __forceinline__ void pair_consumer(PairRings& r, int m1, int m2, int T, int H,
+                                              int W, int tiles_h, int tiles_w, int ncols,
+                                              const __nv_bfloat16* __restrict__ b1,
+                                              const __nv_bfloat16* __restrict__ b2,
+                                              float slope, __nv_bfloat16* __restrict__ y,
+                                              __nv_bfloat16* __restrict__ mid) {
+  const int lane = threadIdx.x & 31;
+  float b1v[16], b2v[16];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = warp * 16 + (lane >> 2) + half * 8;
-      if (p >= OUT_PIX) continue;
-      const int r = p / TILE_W;
-      const int c = p % TILE_W;
-      const int h = g.h0 + r;
-      const int ww = g.w0 + c;
-      if (h >= H || ww >= W) continue;
-      const size_t at = g.batch_off + (size_t)t * g.frame
-                        + ((size_t)h * W + ww) * C;
-      const int zp = (r + 1) * ZW + c + 1;
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int co = n * 8 + 2 * q;
-        const float v0 = lrelu(acc[n][2 * half] + __bfloat162float(b2[co]), slope);
-        const float v1 = lrelu(acc[n][2 * half + 1] + __bfloat162float(b2[co + 1]),
-                               slope);
-        *reinterpret_cast<__nv_bfloat162*>(y + at + co) =
-            __floats2bfloat162_rn(v0, v1);
-        if (mid != nullptr)
-          *reinterpret_cast<__nv_bfloat162*>(mid + at + co) =
-              *reinterpret_cast<const __nv_bfloat162*>(zmid + swz_pair(zp, co));
+    for (int e = 0; e < 2; ++e) {
+      b1v[2 * j + e] = __bfloat162float(b1[8 * j + 2 * (lane & 3) + e]);
+      b2v[2 * j + e] = __bfloat162float(b2[8 * j + 2 * (lane & 3) + e]);
+    }
+  for (int col = blockIdx.x; col < ncols; col += gridDim.x) {
+    const PairColumn cl(col, tiles_h, tiles_w);
+    for (int s = -1; s < T; ++s) {
+      if (s + 1 < T) {
+        float d[NT1][32];
+        pair_conv<NT1>(d, r, true, s + 1, T, m1);
+        consumers_sync();  // every warp is done reading z[s - 2]'s slot
+        pair_store_z<NT1>(d, r, s + 1, m1, cl, H, W, b1v, slope);
+      }
+      consumers_sync();    // z[s + 1] is in its slot
+      if (s < 0) continue;
+      float d[NT2][32];
+      pair_conv<NT2>(d, r, false, s, T, m2);
+      pair_store_y<NT2>(d, r, s, m2, cl, T, H, W, b2v, slope, y, mid);
+    }
+  }
+}
+
+// the m64 tiles of warpgroup w among mt: a share each, the first mt % n
+// warpgroups one more
+__host__ __device__ constexpr int pb_tiles(int mt, int w) {
+  return mt / PB_CONSUMERS + (w < mt % PB_CONSUMERS ? 1 : 0);
+}
+__host__ __device__ constexpr int pb_first(int mt, int w) {
+  return w * (mt / PB_CONSUMERS) + (w < mt % PB_CONSUMERS ? w : mt % PB_CONSUMERS);
+}
+static_assert(PB_YMT >= PB_CONSUMERS && PB_ZMT >= PB_CONSUMERS, "a tile a warpgroup");
+
+// consumer warpgroup wg's walk, its tile counts fixed at compile time
+template <int WG>
+__device__ __forceinline__ void pair_dispatch(int wg, PairRings& r, int T, int H, int W,
+                                              int tiles_h, int tiles_w, int ncols,
+                                              const __nv_bfloat16* __restrict__ b1,
+                                              const __nv_bfloat16* __restrict__ b2,
+                                              float slope, __nv_bfloat16* __restrict__ y,
+                                              __nv_bfloat16* __restrict__ mid) {
+  if constexpr (WG < PB_CONSUMERS) {
+    if (wg == WG)
+      pair_consumer<pb_tiles(PB_ZMT, WG), pb_tiles(PB_YMT, WG)>(
+          r, pb_first(PB_ZMT, WG), pb_first(PB_YMT, WG), T, H, W, tiles_h, tiles_w,
+          ncols, b1, b2, slope, y, mid);
+    else
+      pair_dispatch<WG + 1>(wg, r, T, H, W, tiles_h, tiles_w, ncols, b1, b2, slope, y,
+                            mid);
+  }
+}
+
+__global__ void __launch_bounds__(PB_THREADS, 1)
+conv3d64_pair_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap w1_map,
+                          const __grid_constant__ CUtensorMap w2_map,
+                          const __nv_bfloat16* __restrict__ b1,
+                          const __nv_bfloat16* __restrict__ b2,
+                          __nv_bfloat16* __restrict__ y,
+                          __nv_bfloat16* __restrict__ mid, int T, int H, int W,
+                          int tiles_h, int tiles_w, int ncols, float slope) {
+  extern __shared__ unsigned char smem_raw[];
+  PairRings r;
+  r.zring = (bf16_mma::smem_u32(smem_raw) + 1023u) & ~1023u;
+  r.xring = r.zring + 3 * PB_Z_BYTES;
+  r.wring = r.xring + PB_X_STAGES * PB_X_BYTES;
+  r.bars = r.wring + PB_W_STAGES * PB_W_BYTES;
+  const int wg = threadIdx.x >> 7;  // consumers, then the producer
+
+  // the pixels a tap reads past each z and x tile are never loaded or
+  // stored: zero the slots' tails once
+  for (int i = threadIdx.x; i < 3 * PB_Z_TAIL / 16 + PB_X_STAGES * PB_X_TAIL / 16;
+       i += PB_THREADS) {
+    const int zi = i - 3 * PB_Z_TAIL / 16;
+    const uint32_t at =
+        zi < 0 ? r.zring + (i / (PB_Z_TAIL / 16) + 1) * PB_Z_BYTES - PB_Z_TAIL +
+                     (i % (PB_Z_TAIL / 16)) * 16
+               : r.xring + (zi / (PB_X_TAIL / 16) + 1) * PB_X_BYTES - PB_X_TAIL +
+                     (zi % (PB_X_TAIL / 16)) * 16;
+    asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(at), "r"(0)
+                 : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PB_X_STAGES; ++s) {
+      hopper::mbar_init(r.x_full(s), 1);
+      hopper::mbar_init(r.x_empty(s), PB_CONSUMERS * 4);  // one arrive per warp
+    }
+    for (int s = 0; s < PB_W_STAGES; ++s) {
+      hopper::mbar_init(r.w_full(s), 1);
+      hopper::mbar_init(r.w_empty(s), PB_CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == PB_CONSUMERS) {
+    // ---------------------------- producer ----------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PB_PRODUCER_REGS));
+    if (threadIdx.x != PB_CONSUMERS * 128) return;
+    auto weights = [&](const CUtensorMap* map, int kt) {
+      for (int dw = 0; dw < 3; ++dw)
+        for (int q = 0; q < C / PB_QCI; ++q, ++r.wgn) {
+          const int s = r.wgn % PB_W_STAGES;
+          hopper::mbar_wait(r.w_empty(s), ((r.wgn / PB_W_STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_tx(r.w_full(s), PB_W_BYTES);
+          const uint32_t st = r.wring + (uint32_t)s * PB_W_BYTES;
+          for (int dh = 0; dh < 3; ++dh)
+            hopper::tma_load_2d(st + (uint32_t)(dh * PB_QCI * RB), map, r.w_full(s),
+                                ((kt * 3 + dh) * 3 + dw) * C + q * PB_QCI);
+        }
+    };
+    for (int col = blockIdx.x; col < ncols; col += gridDim.x) {
+      const PairColumn cl(col, tiles_h, tiles_w);
+      for (int s = -1; s < T; ++s) {
+        for (int kt = 0; kt < 3 && s + 1 < T; ++kt) {  // conv1 of z[s + 1]
+          const int tx = s + kt;
+          if (tx < 0 || tx >= T) continue;
+          const int xs = r.xg % PB_X_STAGES;
+          hopper::mbar_wait(r.x_empty(xs), ((r.xg / PB_X_STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_tx(r.x_full(xs), PB_X_LOAD);
+          hopper::tma_load_5d(r.xring + (uint32_t)xs * PB_X_BYTES, &x_map, r.x_full(xs),
+                              cl.w0 - 2, cl.h0 - 2, tx, cl.b);
+          ++r.xg;
+          weights(&w1_map, kt);
+        }
+        for (int kt = 0; kt < 3 && s >= 0; ++kt) {     // conv2 of y[s]
+          const int tz = s + kt - 1;
+          if (tz >= 0 && tz < T) weights(&w2_map, kt);
+        }
       }
     }
+  } else {
+    // ---------------------------- consumers ---------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(PB_CONSUMER_REGS));
+    pair_dispatch<0>(wg, r, T, H, W, tiles_h, tiles_w, ncols, b1, b2, slope, y, mid);
   }
 }
 
@@ -581,24 +795,31 @@ int conv3d64_pair_f32(const float* x, const float* w1, const float* b1,
 }
 
 // The bf16 instance: every tensor bf16 (f32 accumulation, z rounded to
-// bf16 before conv2, y and z rounded to nearest even).
+// bf16 before conv2, y and z rounded to nearest even).  `grid` persistent
+// blocks walk the (B, H / 6, W / 28) columns of output tiles round-robin
+// (conv3d_fuse.py's pair_plan), each through all of T.  Returns the CUDA
+// error code (or 1000 + the driver's error when a tensor map cannot be
+// encoded).
 int conv3d64_pair_bf16(const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* y, void* mid,
-                       int B, int T, int H, int W, float slope, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+                       int B, int T, int H, int W, float slope, int grid,
+                       void* stream) {
+  CUtensorMap x_map, w1_map, w2_map;
+  int err = hopper::encode_nthwc(&x_map, x, B, T, H, W, PB_S, PB_XH);
+  if (err == 0) err = hopper::encode_weights(&w1_map, w1, PB_QCI);
+  if (err == 0) err = hopper::encode_weights(&w2_map, w2, PB_QCI);
+  if (err != 0) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(
       conv3d64_pair_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BF_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+      (int)PB_SMEM_BYTES);
+  if (cerr != cudaSuccess) return (int)cerr;
   using E = __nv_bfloat16;
-  const int tiles_w = (W + TILE_W - 1) / TILE_W;
-  const int tiles_h = (H + TILE_H - 1) / TILE_H;
-  const dim3 grid((unsigned)(tiles_w * tiles_h), (unsigned)B);
-  conv3d64_pair_bf16_kernel<<<grid, BF_THREADS, BF_SMEM_BYTES,
-                              (cudaStream_t)stream>>>(
-      static_cast<const E*>(x), static_cast<const E*>(w1),
-      static_cast<const E*>(b1), static_cast<const E*>(w2),
-      static_cast<const E*>(b2), static_cast<E*>(y), static_cast<E*>(mid), T,
-      H, W, tiles_w, slope);
+  const int tiles_w = (W + PB_OW - 1) / PB_OW;
+  const int tiles_h = (H + PB_OH - 1) / PB_OH;
+  conv3d64_pair_bf16_kernel<<<grid, PB_THREADS, PB_SMEM_BYTES, (cudaStream_t)stream>>>(
+      x_map, w1_map, w2_map, static_cast<const E*>(b1), static_cast<const E*>(b2),
+      static_cast<E*>(y), static_cast<E*>(mid), T, H, W, tiles_h, tiles_w,
+      B * tiles_h * tiles_w, slope);
   return (int)cudaGetLastError();
 }
 
@@ -615,15 +836,20 @@ int conv3d64_pair_f32_config(int* smem_bytes, int* threads, int* blocks_per_sm) 
                    blocks_per_sm);
 }
 
-int conv3d64_pair_bf16_config(int* smem_bytes, int* threads, int* blocks_per_sm) {
-  *smem_bytes = (int)BF_SMEM_BYTES;
-  *threads = BF_THREADS;
+// The bf16 instance's also gives its output tile (rows, columns), for the
+// launch plan.
+int conv3d64_pair_bf16_config(int* smem_bytes, int* threads, int* blocks_per_sm,
+                              int* tile_h, int* tile_w) {
+  *smem_bytes = (int)PB_SMEM_BYTES;
+  *threads = PB_THREADS;
+  *tile_h = PB_OH;
+  *tile_w = PB_OW;
   const cudaError_t err = cudaFuncSetAttribute(
       conv3d64_pair_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BF_SMEM_BYTES);
+      (int)PB_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  return occupancy((const void*)conv3d64_pair_bf16_kernel, BF_THREADS,
-                   BF_SMEM_BYTES, blocks_per_sm);
+  return occupancy((const void*)conv3d64_pair_bf16_kernel, PB_THREADS,
+                   PB_SMEM_BYTES, blocks_per_sm);
 }
 
 }  // extern "C"

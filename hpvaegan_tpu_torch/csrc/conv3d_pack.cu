@@ -32,25 +32,53 @@
 //
 // The bf16 instance (conv3d64_pallas with bf16 x, conv3d_pack.py:190-197:
 // x, w and the bias in bf16, f32 accumulation, bias and LeakyReLU in f32,
-// the output rounded to bf16 once) is conv3d64_fwd_bf16_kernel below, on
-// the tensor cores:
-//   * an implicit GEMM: M = output pixels, N = 64 output channels,
-//     K = 27 taps x 64 input channels, on mma.sync m16n8k16 (bf16 in, f32
-//     accumulate);
-//   * one block per (b, t, 8 x 32 output tile), 8 warps, one output row of
-//     32 pixels each (two m16 tiles x eight n8 tiles: 64 f32 accumulators
-//     a thread);
-//   * per temporal tap the 10 x 34 x 64 bf16 input slab, per H tap the
-//     three W taps' 64 x 64 bf16 weights in shared memory (68,096 bytes),
-//     both 16-byte chunks XOR-swizzled by row so that ldmatrix reads 8
-//     consecutive pixels (A, the shifted slab rows) or 8 consecutive input
-//     channels (B, ldmatrix.trans of the ci-major weights) without bank
-//     conflicts;
-//   * epilogue: bias + LeakyReLU in f32, round to nearest even, bf16x2
-//     stores.
-// Bound: 2*27*64*64 FLOP per voxel against 256 bytes moved, so the
-// tensor-core rate (989 TFLOP/s dense bf16) bounds it, not the 3.35 TB/s
-// of device memory.  wgmma/TMA and a pipelined load are later work.
+// the output rounded to bf16 once) is conv3d64_fwd_bf16_kernel below,
+// designed for Hopper.  The input gradient is the same kernel on
+// flip_swap(w).
+//   * Bound: 2*27*64*64 FLOP per voxel at the bf16 tensor-core rate
+//     (989 TFLOP/s) against 256 bytes per voxel moved (3.35 TB/s):
+//     operations, by 3x.  The previous design (mma.sync, one warp per
+//     output row of an 8 x 32 tile, synchronous copies) reached 0.36 of
+//     it: it staged 1.32 GB a launch at (2,13,144,256), 63% of it weights
+//     that served 256 output pixels each, with no copy overlapped, and
+//     mma.sync is not the card's full tensor-core rate.
+//   * Products: wgmma.mma_async m64n64k16, bf16 in, f32 accumulate.  M = 64
+//     output pixels of a row, N = the 64 output channels, K = 16 input
+//     channels of one tap.  Both operands are read by the tensor cores
+//     from shared memory: B (the tap's ci x co weights) through an
+//     MN-major 128-byte-swizzle descriptor, A (x shifted by the tap's dw)
+//     through a K-major one that starts at the shifted pixel of the TMA
+//     buffer.  The tensor cores apply the swizzle to the address bits, so
+//     a one-pixel shift inside a swizzle atom needs no base offset; A by
+//     descriptor was 3-8% faster than A from registers by ldmatrix
+//     (tools/kernel_variants.py k1-a, PERF.md).
+//   * Reuse: a consumer warpgroup owns 4 output rows of 64 pixels (4
+//     accumulators of 64 x 64, 128 registers a thread).  A weight stage
+//     holds the three H taps (dt, 0..2, dw) for 32 input channels, so x
+//     row j shifted by dw feeds the wgmmas of output rows j, j - 1 and
+//     j - 2 from one stage: 12 wgmmas a k16 step behind one stage wait.
+//   * Weights amortised: a block is 2 consumer warpgroups, an 8 x 64 output
+//     tile (512 pixels, from 256), and each 12 KB weight stage serves it
+//     all.  Per output frame a block stages 3 x 84,480 bytes of x slab and
+//     216 KB of weights, 0.9 KB an output pixel (1.37 KB before).
+//   * Copies off the critical path: one producer thread issues TMA loads
+//     (5-D NTHWC map for x, boxes of 64 x 66 x 10 with the halo; 2-D map
+//     over the 27 * 64 weight rows) into an x ring of 2 slabs and a weight
+//     ring of 4 stages with full/empty mbarriers.  TMA's zero fill is the
+//     SAME padding in H and W and the ragged edge; frames outside [0, T)
+//     are skipped.  setmaxnreg gives the producer warpgroup 40 registers
+//     and each consumer thread 232.
+//   * Persistent: one block an SM (221,184 bytes of shared memory) walks
+//     the (b, t, 8-row, 64-column) tiles round-robin, so the producer
+//     loads the next tile while the consumers store this one.
+//   * Epilogue: bias + LeakyReLU in f32, round to nearest even, bf16x2
+//     stores straight from the accumulators.
+//   * What bounds it now (kernel_variants k1-parts, PERF.md): the
+//     products.  Cutting the weight loads, the x loads or the stores
+//     saves 1-9% each; cutting the wgmmas saves half the time.
+//   * ptxas (sm_90a, CUDA 12.8): 168 registers at launch (setmaxnreg then
+//     gives the consumers 232), no spills, no stack; 221,184 bytes of
+//     dynamic shared memory, one block an SM.  chip_smoke.py prints both.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream
 // and returns cudaGetLastError().
@@ -61,10 +89,12 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace bf16_mma;
+using namespace hopper;
 
 constexpr int C = 64;
 constexpr int TILE_H = 4;
@@ -195,137 +225,209 @@ conv3d64_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on the tensor cores: wgmma fed by TMA rings
 // ---------------------------------------------------------------------------
 
-constexpr int BF_TILE_H = 8;
-constexpr int BF_TILE_W = 32;
-constexpr int BF_THREADS = 32 * BF_TILE_H;     // one warp per output row
-constexpr int BF_SLAB_W = BF_TILE_W + 2;
-constexpr int BF_SLAB_PIX = (BF_TILE_H + 2) * BF_SLAB_W;  // 340
-constexpr size_t BF_SMEM_X = (size_t)BF_SLAB_PIX * ROW_BYTES;  // 43,520
-constexpr size_t BF_SMEM_W = (size_t)3 * C * ROW_BYTES;        // 24,576
-constexpr size_t BF_SMEM_BYTES = BF_SMEM_X + BF_SMEM_W;
+constexpr int HK_TILE_W = 64;                   // output pixels of a row: wgmma's M
+constexpr int HK_ROWS = 4;                      // output rows a consumer warpgroup
+constexpr int HK_CONSUMERS = 2;                 // warpgroups
+constexpr int HK_TILE_H = HK_ROWS * HK_CONSUMERS;  // 8
+constexpr int HK_SLAB_W = HK_TILE_W + 2;        // 66
+constexpr int HK_SLAB_H = HK_TILE_H + 2;        // 10
+constexpr int HK_X_LOAD = HK_SLAB_W * HK_SLAB_H * ROW_BYTES;  // 84,480
+constexpr int HK_X_BYTES = (HK_X_LOAD + 1023) / 1024 * 1024;  // 84,992
+constexpr int HK_X_STAGES = 2;
+static_assert(HK_X_STAGES >= 2, "x ring: a slab is released after the next one's first products");
+constexpr int HK_QCI = 32;                      // input channels a weight stage
+constexpr int HK_KSTEPS = HK_QCI / 16;          // k16 steps a weight stage
+constexpr int HK_W_BYTES = 3 * HK_QCI * ROW_BYTES;  // the three dh taps: 12,288
+constexpr int HK_W_STAGES = 4;
+constexpr int HK_THREADS = (HK_CONSUMERS + 1) * 128;
+constexpr int HK_PRODUCER_REGS = 40;
+constexpr int HK_CONSUMER_REGS = 232;
+constexpr size_t HK_SMEM_BYTES = (size_t)HK_X_STAGES * HK_X_BYTES +
+                                 (size_t)HK_W_STAGES * HK_W_BYTES +
+                                 1024 /* barriers */ + 1024 /* align */;
+static_assert(HK_W_BYTES % 1024 == 0 && HK_X_BYTES % 1024 == 0,
+              "stages keep the 128-byte swizzle atoms aligned");
+static_assert(HK_KSTEPS == 2, "A fragments are double-buffered by k16 step");
+static_assert(HK_PRODUCER_REGS * 128 + HK_CONSUMER_REGS * 128 * HK_CONSUMERS <= 65536,
+              "register budget of one block");
 
-__global__ void __launch_bounds__(BF_THREADS, 2)
-conv3d64_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ w,
+// the output tile `tile` of the persistent walk: (b, t, tile row, tile column)
+struct FwdTile {
+  int b, t, h0, w0;
+  __device__ FwdTile(int tile, int T, int tiles_h, int tiles_w) {
+    w0 = (tile % tiles_w) * HK_TILE_W;
+    int r = tile / tiles_w;
+    h0 = (r % tiles_h) * HK_TILE_H;
+    r /= tiles_h;
+    t = r % T;
+    b = r / T;
+  }
+};
+
+__global__ void __launch_bounds__(HK_THREADS, 1)
+conv3d64_fwd_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap w_map,
                          const __nv_bfloat16* __restrict__ bias,
                          __nv_bfloat16* __restrict__ y, int T, int H, int W,
-                         int tiles_w, int has_act, float slope) {
-  extern __shared__ __align__(128) unsigned char smem_bf[];
-  unsigned char* xs = smem_bf;              // [340 pixels][64 ci], swizzled
-  unsigned char* ws = smem_bf + BF_SMEM_X;  // [3 W taps * 64 ci][64 co], swizzled
-  const uint32_t xs_s = smem_u32(xs);
-  const uint32_t ws_s = smem_u32(ws);
+                         int tiles_h, int tiles_w, int ntiles, int has_act,
+                         float slope) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t xring = (raw + 1023u) & ~1023u;
+  const uint32_t wring = xring + HK_X_STAGES * HK_X_BYTES;
+  const uint32_t bars = wring + HK_W_STAGES * HK_W_BYTES;
+  auto x_full = [&](int s) { return bars + 8u * s; };
+  auto x_empty = [&](int s) { return bars + 8u * (HK_X_STAGES + s); };
+  auto w_full = [&](int s) { return bars + 8u * (2 * HK_X_STAGES + s); };
+  auto w_empty = [&](int s) { return bars + 8u * (2 * HK_X_STAGES + HK_W_STAGES + s); };
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;  // output row of the tile
-  const int h0 = (blockIdx.x / tiles_w) * BF_TILE_H;
-  const int w0 = (blockIdx.x % tiles_w) * BF_TILE_W;
-  const int t = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t frame = (size_t)H * W * C;
-
-  // ldmatrix row of this lane: A = pixel (lane & 15) of an m16 tile, input
-  // channels 8 * (lane >> 4) on of the k16 step; B = input channel
-  // ((lane >> 3) & 1) * 8 + (lane & 7) of the k16 step, n8 tile lane >> 4
-  // of the pair
-  const int a_pix = lane & 15;
-  const int a_half = lane >> 4;
-  const int b_k = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int b_half = lane >> 4;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[m][n][k] = 0.f;
-
-  for (int dt = 0; dt < 3; ++dt) {
-    const int tt = t + dt - 1;
-    if (tt < 0 || tt >= T) continue;  // uniform across the block
-    const __nv_bfloat16* xt = x + ((size_t)b * T + tt) * frame;
-
-    __syncthreads();  // every warp is done with the previous slab/weights
-    for (int i = tid; i < BF_SLAB_PIX * 8; i += BF_THREADS) {
-      const int pix = i >> 3;
-      const int ch = i & 7;
-      const int sr = pix / BF_SLAB_W;
-      const int sc = pix - sr * BF_SLAB_W;
-      const int hh = h0 - 1 + sr;
-      const int ww = w0 - 1 + sc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = __ldg(reinterpret_cast<const uint4*>(
-                      xt + ((size_t)hh * W + ww) * C) + ch);
-      *reinterpret_cast<uint4*>(xs + swz(pix, ch)) = v;
+  const int wg = threadIdx.x >> 7;  // 0..1 consumers, 2 producer
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HK_X_STAGES; ++s) {
+      mbar_init(x_full(s), 1);
+      mbar_init(x_empty(s), HK_CONSUMERS * 4);  // one arrive per consumer warp
     }
-
-    for (int dh = 0; dh < 3; ++dh) {
-      if (dh > 0) __syncthreads();  // the previous H tap's weights are consumed
-      const uint4* wsrc = reinterpret_cast<const uint4*>(
-          w + (size_t)(dt * 3 + dh) * 3 * C * C);
-      for (int i = tid; i < 3 * C * 8; i += BF_THREADS)
-        *reinterpret_cast<uint4*>(ws + swz(i >> 3, i & 7)) = __ldg(wsrc + i);
-      __syncthreads();
-
-#pragma unroll 1
-      for (int dw = 0; dw < 3; ++dw) {
-        const int pix0 = (warp + dh) * BF_SLAB_W + dw + a_pix;
-        const uint32_t wtap = ws_s + (uint32_t)(dw * C * ROW_BYTES);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t a[2][4];
-#pragma unroll
-          for (int m = 0; m < 2; ++m)
-            ldsm_x4(a[m], xs_s + swz(pix0 + m * 16, kk * 2 + a_half));
-          const int k = kk * 16 + b_k;
-#pragma unroll
-          for (int np = 0; np < 4; ++np) {
-            uint32_t bq[4];
-            ldsm_x4_t(bq, wtap + swz(k, np * 2 + b_half));
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              mma(acc[m][2 * np], a[m], bq[0], bq[1]);
-              mma(acc[m][2 * np + 1], a[m], bq[2], bq[3]);
-            }
-          }
-        }
-      }
+    for (int s = 0; s < HK_W_STAGES; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), HK_CONSUMERS * 4);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // accumulator (m, n, j): pixel m*16 + lane/4 (+8 for j >= 2), output
-  // channels n*8 + 2*(lane%4) + (j & 1)
-  const int h = h0 + warp;
-  if (h >= H) return;
-  const int g = lane >> 2;
-  const int q = lane & 3;
-  __nv_bfloat16* yrow = y + (((size_t)b * T + t) * H + h) * (size_t)W * C;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int co = n * 8 + 2 * q;
-    const float b0 = bias != nullptr ? __bfloat162float(bias[co]) : 0.f;
-    const float b1 = bias != nullptr ? __bfloat162float(bias[co + 1]) : 0.f;
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int ww = w0 + m * 16 + g + half * 8;
-        if (ww >= W) continue;
-        float v0 = acc[m][n][2 * half] + b0;
-        float v1 = acc[m][n][2 * half + 1] + b1;
-        if (has_act) {
-          v0 = v0 < 0.f ? v0 * slope : v0;
-          v1 = v1 < 0.f ? v1 * slope : v1;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(yrow + (size_t)ww * C + co) =
-            __floats2bfloat162_rn(v0, v1);
+  if (wg == HK_CONSUMERS) {
+    // ---------------------------- producer ----------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(HK_PRODUCER_REGS));
+    if (threadIdx.x != HK_CONSUMERS * 128) return;
+    int xg = 0, wgn = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const FwdTile tl(tile, T, tiles_h, tiles_w);
+      for (int dt = 0; dt < 3; ++dt) {
+        const int tt = tl.t + dt - 1;
+        if (tt < 0 || tt >= T) continue;
+        const int xs = xg % HK_X_STAGES;
+        mbar_wait(x_empty(xs), ((xg / HK_X_STAGES) & 1) ^ 1);
+        mbar_arrive_tx(x_full(xs), HK_X_LOAD);
+        tma_load_5d(xring + (uint32_t)xs * HK_X_BYTES, &x_map, x_full(xs), tl.w0 - 1,
+                    tl.h0 - 1, tt, tl.b);
+        ++xg;
+        for (int dw = 0; dw < 3; ++dw)
+          for (int q = 0; q < C / HK_QCI; ++q, ++wgn) {
+            const int s = wgn % HK_W_STAGES;
+            mbar_wait(w_empty(s), ((wgn / HK_W_STAGES) & 1) ^ 1);
+            mbar_arrive_tx(w_full(s), HK_W_BYTES);
+            const uint32_t st = wring + (uint32_t)s * HK_W_BYTES;
+            for (int dh = 0; dh < 3; ++dh)
+              tma_load_2d(st + (uint32_t)(dh * HK_QCI * ROW_BYTES), &w_map, w_full(s),
+                          ((dt * 3 + dh) * 3 + dw) * C + q * HK_QCI);
+          }
       }
+    }
+  } else {
+    // ---------------------------- consumers ---------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(HK_CONSUMER_REGS));
+    const int lane = threadIdx.x & 31;
+    const int wi = (threadIdx.x >> 5) & 3;  // warp: output pixels 16wi..16wi+15
+    const int gq = lane >> 2;
+    const int q4 = lane & 3;
+    float bv[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bv[2 * j + e] = bias != nullptr ? __bfloat162float(bias[8 * j + 2 * q4 + e]) : 0.f;
+
+    // a stage's slots are released once its products are done: after the
+    // next stage's products are issued (wgmma_wait<1>), or at a tile's end
+    int xg = 0, wgn = 0, done_w = -1, done_x = -1;
+    auto release = [&]() {
+      __syncwarp();
+      if (lane == 0) {
+        if (done_w >= 0) mbar_arrive(w_empty(done_w));
+        if (done_x >= 0) mbar_arrive(x_empty(done_x));
+      }
+      done_w = done_x = -1;
+    };
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const FwdTile tl(tile, T, tiles_h, tiles_w);
+      float acc[HK_ROWS][32];
+#pragma unroll
+      for (int o = 0; o < HK_ROWS; ++o)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[o][i] = 0.f;
+
+      for (int dt = 0; dt < 3; ++dt) {
+        const int tt = tl.t + dt - 1;
+        if (tt < 0 || tt >= T) continue;
+        const int xs = xg++ % HK_X_STAGES;
+        mbar_wait(x_full(xs), ((xg - 1) / HK_X_STAGES) & 1);
+        // this warpgroup's first slab row
+        const uint32_t xrow0 =
+            xring + (uint32_t)xs * HK_X_BYTES + wg * HK_ROWS * HK_SLAB_W * ROW_BYTES;
+#pragma unroll 1
+        for (int dw = 0; dw < 3; ++dw)
+#pragma unroll 1
+          for (int q = 0; q < C / HK_QCI; ++q, ++wgn) {
+            const int s = wgn % HK_W_STAGES;
+            mbar_wait(w_full(s), (wgn / HK_W_STAGES) & 1);
+            const uint32_t st = wring + (uint32_t)s * HK_W_BYTES;
+            wgmma_fence();
+            // x row j of this warpgroup's slab rows, shifted by dw, feeds
+            // output row j - dh with the weights of tap (dt, dh, dw)
+#pragma unroll
+            for (int kk = 0; kk < HK_KSTEPS; ++kk)
+#pragma unroll
+              for (int j = 0; j < HK_ROWS + 2; ++j)
+#pragma unroll
+                for (int dh = 0; dh < 3; ++dh) {
+                  const int o = j - dh;
+                  if (o >= 0 && o < HK_ROWS)
+                    wgmma_64x64_ss(
+                        acc[o],
+                        k_desc(xrow0 + (uint32_t)((j * HK_SLAB_W + dw) * ROW_BYTES +
+                                                  (q * HK_KSTEPS + kk) * 32)),
+                        mn_desc(st + (uint32_t)(dh * HK_QCI * ROW_BYTES +
+                                                kk * 16 * ROW_BYTES)));
+                }
+            wgmma_commit();
+            wgmma_wait<1>();  // the previous stage's products are done
+            release();
+            done_w = s;
+            if (dw == 2 && q == C / HK_QCI - 1) done_x = xs;
+          }
+      }
+      wgmma_wait<0>();
+      release();
+
+      // accumulator (o, 4j + e): output row o of the warpgroup, pixel
+      // 16wi + lane/4 (+8 for e >= 2), channels 8j + 2(lane%4) + (e & 1)
+#pragma unroll
+      for (int o = 0; o < HK_ROWS; ++o) {
+        const int h = tl.h0 + wg * HK_ROWS + o;
+        if (h >= H) break;
+        __nv_bfloat16* yrow = y + (((size_t)tl.b * T + tl.t) * H + h) * (size_t)W * C;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ww = tl.w0 + 16 * wi + gq + 8 * half;
+          uint32_t pk[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float v0 = acc[o][4 * j + 2 * half] + bv[2 * j];
+            float v1 = acc[o][4 * j + 2 * half + 1] + bv[2 * j + 1];
+            if (has_act) {
+              v0 = v0 < 0.f ? v0 * slope : v0;
+              v1 = v1 < 0.f ? v1 * slope : v1;
+            }
+            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+            pk[j] = *reinterpret_cast<const uint32_t*>(&v);
+          }
+          store_pixel_bf16(ww < W ? yrow + (size_t)ww * C : nullptr, pk, lane);
+        }
+      }
+    }
   }
 }
 
@@ -360,30 +462,47 @@ int conv3d64_fwd_f32_config(int* smem_bytes, int* threads) {
 
 // The bf16 instance: x, y (B,T,H,W,64) bf16; w (3,3,3,64,64) bf16 THWIO;
 // bias (64,) bf16 or NULL; f32 accumulation, y rounded to nearest even.
-// All contiguous and 16-byte aligned.  Returns the CUDA error code.
+// All contiguous and 16-byte aligned.  `grid` persistent blocks walk the
+// (B, T, H / 8, W / 64) output tiles round-robin (conv3d_pack.py's
+// fwd_plan).  Returns the CUDA error code (or 1000 + the driver's error
+// when a tensor map cannot be encoded).
 int conv3d64_fwd_bf16(const void* x, const void* w, const void* bias, void* y,
                       int B, int T, int H, int W, int has_act, float slope,
-                      void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+                      int grid, void* stream) {
+  CUtensorMap x_map, w_map;
+  int err = hopper::encode_nthwc(&x_map, x, B, T, H, W, HK_SLAB_W, HK_SLAB_H);
+  if (err != 0) return err;
+  err = hopper::encode_weights(&w_map, w, HK_QCI);
+  if (err != 0) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(
       conv3d64_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BF_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_w = (W + BF_TILE_W - 1) / BF_TILE_W;
-  const int tiles_h = (H + BF_TILE_H - 1) / BF_TILE_H;
-  const dim3 grid((unsigned)(tiles_w * tiles_h), (unsigned)T, (unsigned)B);
-  conv3d64_fwd_bf16_kernel<<<grid, BF_THREADS, BF_SMEM_BYTES,
-                             (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(y), T, H, W, tiles_w, has_act, slope);
+      (int)HK_SMEM_BYTES);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const int tiles_w = (W + HK_TILE_W - 1) / HK_TILE_W;
+  const int tiles_h = (H + HK_TILE_H - 1) / HK_TILE_H;
+  const int ntiles = B * T * tiles_h * tiles_w;
+  conv3d64_fwd_bf16_kernel<<<grid, HK_THREADS, HK_SMEM_BYTES, (cudaStream_t)stream>>>(
+      x_map, w_map, static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(y), T, H, W, tiles_h, tiles_w, ntiles, has_act,
+      slope);
   return (int)cudaGetLastError();
 }
 
-int conv3d64_fwd_bf16_config(int* smem_bytes, int* threads) {
-  *smem_bytes = (int)BF_SMEM_BYTES;
-  *threads = BF_THREADS;
-  return 0;
+// Dynamic shared memory and threads of one block, blocks an SM (the
+// occupancy API on the current device) and the output tile (rows,
+// columns), for the launch plan and reports.  Returns the CUDA error code.
+int conv3d64_fwd_bf16_config(int* smem_bytes, int* threads, int* blocks_per_sm,
+                             int* tile_h, int* tile_w) {
+  *smem_bytes = (int)HK_SMEM_BYTES;
+  *threads = HK_THREADS;
+  *tile_h = HK_TILE_H;
+  *tile_w = HK_TILE_W;
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3d64_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)HK_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, conv3d64_fwd_bf16_kernel, HK_THREADS, HK_SMEM_BYTES);
 }
 
 }  // extern "C"

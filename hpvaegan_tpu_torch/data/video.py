@@ -8,16 +8,17 @@ wrote beside the clip once (every frame, RGB uint8, native size, and the
 clip's fps), and resizes per scale in numpy.
 
 ``resize_linear`` reproduces ``cv2.resize(..., INTER_LINEAR)`` on uint8
-bit for bit at every downscale, so the per-scale frames equal the JAX
-dataset's: half-pixel source coordinates in float32 clamped at the edges,
-coefficients rounded to 11-bit integers, an integer horizontal pass, then
-OpenCV's vectorised vertical pass
-``((((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16) + 2) >> 2``.  An
-exact 2x downscale in both axes is OpenCV's INTER_AREA average, as
-``cv2.resize`` switches to it.  An upscale (a clip smaller than the
-pyramid's top) uses the same formula; OpenCV's upscale path rounds some
-pixels of its edge rows one level apart, so there the frames may differ by
-1/255 at a few pixels.
+bit for bit, downscale or upscale, so the per-scale frames equal the JAX
+dataset's: half-pixel source coordinates in float32, coefficients rounded
+to 11-bit integers, an integer horizontal pass, then OpenCV's vectorised
+vertical pass
+``((((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16) + 2) >> 2``.
+OpenCV clamps the two axes differently at the edges: a column outside the
+source takes the edge column with weights (1, 0), while a row outside it
+keeps its fractional weights and reads the clamped edge row twice (which
+an upscale's first and last rows do, rounding some pixels one level
+lower).  An exact 2x downscale in both axes is OpenCV's INTER_AREA
+average, as ``cv2.resize`` switches to it.
 
 Pair semantics are kept (datasets/video.py:44-66): for ``scale_idx > 0``
 each sample is (current-scale clip, zero-scale clip at
@@ -40,20 +41,23 @@ _COEF_BITS = 11           # OpenCV's INTER_RESIZE_COEF_BITS
 _COEF_SCALE = 1 << _COEF_BITS
 
 
-def _linear_taps(src: int, dst: int):
+def _linear_taps(src: int, dst: int, clamp_weights: bool):
     """(i0, i1, a0, a1): source indices and 11-bit weights per output
-    index, as OpenCV's resize computes them for INTER_LINEAR."""
+    index, as OpenCV's resize computes them for INTER_LINEAR.  Indices
+    are clamped to the source; with ``clamp_weights`` (OpenCV's columns,
+    not its rows) an index outside it also gets the weights (1, 0)."""
     f = ((np.arange(dst, dtype=np.float64) + 0.5) * (src / dst)
          - 0.5).astype(np.float32)
     i0 = np.floor(f).astype(np.int64)
     f = f - i0.astype(np.float32)
-    clamp = (i0 < 0) | (i0 >= src - 1)
-    f[clamp] = 0.0
+    if clamp_weights:
+        f[(i0 < 0) | (i0 >= src - 1)] = 0.0
+    i1 = np.clip(i0 + 1, 0, src - 1)
     i0 = np.clip(i0, 0, src - 1)
     a1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int64)
     a0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE)).astype(
         np.int64)
-    return i0, np.minimum(i0 + 1, src - 1), a0, a1
+    return i0, i1, a0, a1
 
 
 def resize_linear(frames: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -67,8 +71,8 @@ def resize_linear(frames: np.ndarray, h: int, w: int) -> np.ndarray:
         s = (x[:, 0::2, 0::2] + x[:, 0::2, 1::2] + x[:, 1::2, 0::2]
              + x[:, 1::2, 1::2])
         return ((s + 2) >> 2).astype(np.uint8)
-    x0, x1, a0, a1 = _linear_taps(W, w)
-    y0, y1, b0, b1 = _linear_taps(H, h)
+    x0, x1, a0, a1 = _linear_taps(W, w, clamp_weights=True)
+    y0, y1, b0, b1 = _linear_taps(H, h, clamp_weights=False)
     rows = x[:, :, x0] * a0[:, None] + x[:, :, x1] * a1[:, None]
     b0, b1 = b0[:, None, None], b1[:, None, None]
     out = ((((rows[:, y0] >> 4) * b0) >> 16)

@@ -13,9 +13,11 @@ computed in x's dtype: f32, or bf16 (``--bf16``) with the weights and
 biases rounded to bf16, f32 accumulation, and z rounded to bf16 before
 conv2 (the TPU kernel's z ring has x's dtype, ``conv3d_fuse.py:173,
 282``).  The kernels (``csrc/conv3d_fuse.cu``: f32 on the CUDA cores,
-bf16 on the tensor cores) keep z in shared memory and stream T inside
-each block through a 3-slot ring of z slices; with ``with_mid`` they also
-write z out, the backward's residual.
+bf16 on the tensor cores with ``wgmma`` fed by TMA) keep z in shared
+memory and stream T inside each block through a 3-slot ring of z slices;
+with ``with_mid`` they also write z out, the backward's residual.  The
+bf16 kernel is persistent: ``pair_plan`` sizes its grid from the
+kernel's own report (``kernel_config``).
 
 The backward follows ``conv3d_fuse.py:315-345``: the cotangent is rounded
 to x's dtype, the LeakyReLU masks come from the signs of y and z
@@ -46,11 +48,15 @@ from . import conv3d_pack as cp
 
 __all__ = ["conv3d64_pair", "conv3d64_pair_plain", "conv3d64_pair_forward",
            "conv3d64_pair_backward", "Conv3d64PairFunction", "counts",
-           "PairCounts", "kernel_config", "SLOPE", "SOURCE", "REPLACES"]
+           "PairCounts", "kernel_config", "pair_plan", "SLOPE", "SOURCE",
+           "REPLACES"]
 
 SOURCE = "hpvaegan_tpu_torch/csrc/conv3d_fuse.cu"
 REPLACES = "hpvaegan_tpu/ops/pallas/conv3d_fuse.py:215"
 SLOPE = 0.2  # LeakyReLU slope of the critic body (networks_3d.py:18-26)
+_CONFIG = {"f32": ("smem_bytes", "threads", "blocks_per_sm"),
+           "bf16": ("smem_bytes", "threads", "blocks_per_sm", "tile_h",
+                    "tile_w")}
 
 
 @dataclasses.dataclass
@@ -84,25 +90,49 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("conv3d_fuse")
     for sfx in ("f32", "bf16"):
         fn = getattr(lib, f"conv3d64_pair_{sfx}")
+        # the bf16 instance also takes its persistent grid
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * (sfx == "bf16")
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         cfg = getattr(lib, f"conv3d64_pair_{sfx}_config")
-        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(_CONFIG[sfx])
         cfg.restype = ctypes.c_int
     return lib
 
 
-def kernel_config(dtype: torch.dtype = torch.float32) -> dict:
+def kernel_config(dtype: torch.dtype = torch.float32,
+                  device=None) -> dict:
     """Dynamic shared memory and threads of one block in ``dtype``, and
-    blocks an SM on the current device (CUDA's occupancy API); builds the
-    kernel if needed."""
-    vals = [ctypes.c_int() for _ in range(3)]
-    err = getattr(_lib(), f"conv3d64_pair_{cp._suffix(dtype)}_config")(
-        *(ctypes.byref(v) for v in vals))
+    blocks an SM on ``device`` (CUDA's occupancy API; the current device
+    by default); for bf16 also the output tile (rows, columns).  Builds
+    the kernel if needed."""
+    if device is None:
+        device = torch.cuda.current_device()
+    return _config(cp._suffix(dtype), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _config(sfx: str, device: int) -> dict:
+    vals = [ctypes.c_int() for _ in _CONFIG[sfx]]
+    with torch.cuda.device(device):
+        err = getattr(_lib(), f"conv3d64_pair_{sfx}_config")(
+            *(ctypes.byref(v) for v in vals))
     cp._raise_on(err, "conv3d64_pair config")
-    return dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
-                    (v.value for v in vals)))
+    cfg = dict(zip(_CONFIG[sfx], (v.value for v in vals)))
+    if cfg["blocks_per_sm"] < 1:
+        raise RuntimeError(f"the {sfx} pair kernel fits no block on an SM: "
+                           f"{cfg}")
+    return cfg
+
+
+def pair_plan(sms: int, blocks_per_sm: int, tile_h: int, tile_w: int,
+              shape) -> cp.FwdPlan:
+    """The persistent grid of a bf16 pair launch for ``shape`` ``(B, T,
+    H, W)``: its tiles are the ``(b, tile row, tile column)`` columns, each
+    walked through all of T by one block (``ntiles`` counts columns)."""
+    B, _, H, W = shape
+    return cp.fwd_plan(sms, blocks_per_sm, tile_h, tile_w, (B, 1, H, W))
 
 
 def _check(x, w1, b1, w2, b2) -> None:
@@ -128,11 +158,21 @@ def conv3d64_pair_forward(x, w1, b1, w2, b2, slope: float = SLOPE,
         return (y, z) if with_mid else y
     cp._check_launch([x, w1, b1, w2, b2, y] + ([z] if with_mid else []),
                      B, 1)
+    grid = ()
+    if x.dtype == torch.bfloat16:
+        cfg = kernel_config(x.dtype, x.device.index)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = pair_plan(sms, cfg["blocks_per_sm"], cfg["tile_h"],
+                         cfg["tile_w"], (B, T, H, W))
+        if plan.ntiles >= 2 ** 31:
+            raise ValueError(f"too many tile columns for one launch: "
+                             f"{plan.ntiles}")
+        grid = (plan.grid,)
     with torch.cuda.device(x.device):
         err = getattr(_lib(), f"conv3d64_pair_{cp._suffix(x.dtype)}")(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), y.data_ptr(), z.data_ptr() if with_mid else None,
-            B, T, H, W, float(slope), cp._stream(x.device))
+            B, T, H, W, float(slope), *grid, cp._stream(x.device))
     cp._raise_on(err, "conv3d64_pair")
     if x.dtype == torch.bfloat16:
         counts.bf16_launches += 1

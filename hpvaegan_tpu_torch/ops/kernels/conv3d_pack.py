@@ -31,14 +31,14 @@ Two compute dtypes, as in the JAX package (``conv3d_pack.py:190-197,
 * bf16 (``--bf16``): x bf16, w and b cast to bf16 here (the parameters
   stay f32), f32 accumulation, bias and LeakyReLU in f32, y rounded to
   bf16; dw takes bf16 x and dy (cast to x's dtype) and returns f32.  The
-  forward and dw kernels run on the tensor cores (the forward on
-  ``mma.sync`` bf16, dw on ``wgmma`` fed by TMA loads; f32 accumulate),
-  bound by the 989 TFLOP/s bf16 rate.  A bf16 tensor launches a bf16
+  forward and dw kernels run on the tensor cores (``wgmma`` fed by TMA
+  loads, f32 accumulate), bound by the 989 TFLOP/s bf16 rate.  A bf16 tensor launches a bf16
   kernel: nothing is cast to f32 to reuse the f32 ones.
 
 The dw launch is planned from the kernel's own report
 (``dw_kernel_config``: blocks an SM from CUDA's occupancy API, grid
-blocks a chunk, row-tile width) by the pure ``dw_plan``.
+blocks a chunk, row-tile width) by the pure ``dw_plan``; the bf16
+forward's persistent grid likewise (``kernel_config``, ``fwd_plan``).
 
 Launches are counted per kernel and dtype (``counts``).
 
@@ -66,7 +66,7 @@ __all__ = ["conv3d64", "conv3d64_plain", "conv3d64_dw", "conv3d64_dw_plain",
            "conv3d64_dx", "flip_swap", "as_compute", "scalar_as",
            "Conv3d64Function",
            "counts", "KernelCounts", "kernel_config", "dw_kernel_config",
-           "DwPlan", "dw_plan", "SOURCE", "DW_SOURCE",
+           "DwPlan", "dw_plan", "FwdPlan", "fwd_plan", "SOURCE", "DW_SOURCE",
            "REPLACES", "DX_REPLACES", "DW_REPLACES"]
 
 SOURCE = "hpvaegan_tpu_torch/csrc/conv3d_pack.cu"
@@ -78,6 +78,9 @@ _GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y (T) and gridDim.z (B)
 _DW_TAPS = 27 * 64 * 64  # floats of one full dw (a chunk's partial sums)
 _DW_CONFIG = ("threads", "smem_bytes", "blocks_per_sm", "blocks_per_chunk",
               "tile_w")
+_FWD_CONFIG = {"f32": ("smem_bytes", "threads"),
+               "bf16": ("smem_bytes", "threads", "blocks_per_sm", "tile_h",
+                        "tile_w")}
 
 
 @dataclasses.dataclass
@@ -221,11 +224,13 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("conv3d_pack")
     for sfx in ("f32", "bf16"):
         fn = getattr(lib, f"conv3d64_fwd_{sfx}")
+        # the bf16 instance also takes its persistent grid
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * (sfx == "bf16")
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         cfg = getattr(lib, f"conv3d64_fwd_{sfx}_config")
-        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(_FWD_CONFIG[sfx])
         cfg.restype = ctypes.c_int
     return lib
 
@@ -245,13 +250,53 @@ def _dw_lib() -> ctypes.CDLL:
     return lib
 
 
-def kernel_config(dtype: torch.dtype = torch.float32) -> dict:
-    """Dynamic shared memory and threads of one forward block in ``dtype``
-    (builds the kernel if needed)."""
-    smem, threads = ctypes.c_int(), ctypes.c_int()
-    getattr(_lib(), f"conv3d64_fwd_{_suffix(dtype)}_config")(
-        ctypes.byref(smem), ctypes.byref(threads))
-    return {"smem_bytes": smem.value, "threads": threads.value}
+def kernel_config(dtype: torch.dtype = torch.float32,
+                  device: Optional[int] = None) -> dict:
+    """Dynamic shared memory and threads of one forward block in
+    ``dtype``; for bf16 also blocks an SM on ``device`` (CUDA's occupancy
+    API; the current device by default) and the output tile (rows,
+    columns) of the persistent walk.  Builds the kernel if needed."""
+    if device is None:
+        device = torch.cuda.current_device()
+    return _fwd_config(_suffix(dtype), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_config(sfx: str, device: int) -> dict:
+    vals = [ctypes.c_int() for _ in _FWD_CONFIG[sfx]]
+    with torch.cuda.device(device):
+        err = getattr(_lib(), f"conv3d64_fwd_{sfx}_config")(
+            *(ctypes.byref(v) for v in vals))
+    _raise_on(err, "conv3d64_fwd config")
+    cfg = dict(zip(_FWD_CONFIG[sfx], (v.value for v in vals)))
+    if cfg.get("blocks_per_sm", 1) < 1:
+        raise RuntimeError(f"the {sfx} forward kernel fits no block on an "
+                           f"SM: {cfg}")
+    return cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """A persistent bf16 forward launch: ``grid`` blocks walk the
+    ``ntiles`` output tiles round-robin (block i takes tiles i, i + grid,
+    ...), tile index ``((b * T + t) * tiles_h + row) * tiles_w + col``."""
+
+    ntiles: int
+    tiles_h: int
+    tiles_w: int
+    grid: int
+
+
+def fwd_plan(sms: int, blocks_per_sm: int, tile_h: int, tile_w: int,
+             shape) -> FwdPlan:
+    """The persistent grid of a bf16 forward on a card of ``sms`` SMs for
+    ``shape`` ``(B, T, H, W)``: one wave of resident blocks, never more
+    blocks than tiles, at least one."""
+    B, T, H, W = shape
+    tiles_h, tiles_w = -(-H // tile_h), -(-W // tile_w)
+    ntiles = B * T * tiles_h * tiles_w
+    grid = max(1, min(ntiles, sms * blocks_per_sm))
+    return FwdPlan(ntiles, tiles_h, tiles_w, grid)
 
 
 def _stream(device) -> int:
@@ -271,12 +316,22 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if y.numel() == 0:
         return y
     _check_launch((x, w, y) + ((b,) if b is not None else ()), B, T)
+    grid = ()
+    if x.dtype == torch.bfloat16:
+        cfg = kernel_config(x.dtype, x.device.index)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = fwd_plan(sms, cfg["blocks_per_sm"], cfg["tile_h"],
+                        cfg["tile_w"], (B, T, H, W))
+        if plan.ntiles >= 2 ** 31:
+            raise ValueError(f"too many output tiles for one launch: "
+                             f"{plan.ntiles}")
+        grid = (plan.grid,)
     with torch.cuda.device(x.device):
         err = getattr(_lib(), f"conv3d64_fwd_{_suffix(x.dtype)}")(
             x.data_ptr(), w.data_ptr(),
             b.data_ptr() if b is not None else None, y.data_ptr(),
             B, T, H, W, int(neg_slope is not None), float(neg_slope or 0.0),
-            _stream(x.device))
+            *grid, _stream(x.device))
     _raise_on(err, "conv3d64")
     counts.add(kind, x.dtype)
     return y

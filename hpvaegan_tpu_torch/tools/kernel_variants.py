@@ -4,9 +4,10 @@
 
 Each variant is the source in ``csrc/`` with some text replaced, built by
 nvcc with the package's flags into ``build/kernels/variants/``, loaded
-with ctypes and called directly at the critic's shape (4,13,144,256,64):
-all variants in one process, in turns, two rounds, CUDA events around 5
-(K2) or 20 (K1-dw) launches after 2 warm-up ones.  Each line gives the
+with ctypes and called directly at the critic's shape (4,13,144,256,64)
+(K1-fwd: the top stage's, (2,13,144,256,64)): all variants in one
+process, in turns, two rounds, CUDA events around 5 (K2 f32), 10 (K2
+bf16) or 20 (K1) launches after 2 warm-up ones.  Each line gives the
 round, the variant, its max |result - plain version| on a small ragged
 shape and its ms.  Variants marked "(wrong)" cut work out to see what a
 part of the kernel costs; their results are not meant to agree.
@@ -19,7 +20,25 @@ Experiments:
   staging, or the per-stage barriers cut out (wrong);
 * ``k2-loads``: K2 f32 with each thread's weight or activation loads made
   one broadcast address (wrong): is shared memory the limit?
-* ``dw-ring``: K1-dw bf16 with 4, 5 (the source) or 6 ring stages.
+* ``dw-ring``: K1-dw bf16 with 4, 5 (the source) or 6 ring stages;
+* ``k1-parts``: K1-fwd bf16 with the weight loads, the x loads, the
+  wgmmas or the stores cut out (wrong);
+* ``k1-ring``: K1-fwd bf16 with 4 (the source), 3 or 2 weight stages
+  beside its 2 x slabs;
+* ``k1-a``: K1-fwd bf16 with A straight from the TMA buffer by a K-major
+  descriptor (the source), the same with the start's row inside its
+  swizzle atom in the descriptor's base-offset field (wrong: the tensor
+  cores swizzle the address bits themselves), or A from registers by
+  ldmatrix;
+* ``k2b-parts``: K2 bf16 with the weight loads, the x loads, the wgmmas
+  or the y stores cut out (wrong);
+* ``k2b-store``: K2 bf16 with each y frame stored right after its conv2
+  (the source) or held in registers, packed, and stored while the next
+  conv1's first products run;
+* ``k2b-ring``: K2 bf16 with 3 (the source) or 2 weight stages;
+* ``k2b-warps``: K2 bf16 with 2 (the source) or 3 consumer warpgroups
+  sharing the m64 tiles (conv1 2 + 2 or 2 + 1 + 1, conv2 2 + 1 or
+  1 + 1 + 1).
 """
 from __future__ import annotations
 
@@ -45,6 +64,159 @@ _K2_C2 = ("      stage_fma<PX2, CO2, F_ZSTRIDE>(",
           "      if (T < 0) stage_fma<PX2, CO2, F_ZSTRIDE>(")
 _K2_LOOP = "#pragma unroll\n  for (int ci = 0; ci < F_QCI; ++ci) {"
 _DW_RING = "constexpr int BW_STAGES = 5;"
+
+_K1_W = ("mbar_arrive_tx(w_full(s), HK_W_BYTES);",
+         "mbar_arrive_tx(w_full(s), 0);")
+_K1_W2 = ("for (int dh = 0; dh < 3; ++dh)\n              tma_load_2d(",
+          "for (int dh = 0; dh < 3 * (T < 0); ++dh)\n              tma_load_2d(")
+_K1_X = ("mbar_arrive_tx(x_full(xs), HK_X_LOAD);\n        tma_load_5d(",
+         "mbar_arrive_tx(x_full(xs), 0);\n        if (T < 0) tma_load_5d(")
+_K1_RING = ("constexpr int HK_X_STAGES = 2;", "constexpr int HK_W_STAGES = 4;")
+_K1_A_DESC = """            wgmma_fence();
+            // x row j of this warpgroup's slab rows, shifted by dw, feeds
+            // output row j - dh with the weights of tap (dt, dh, dw)
+#pragma unroll
+            for (int kk = 0; kk < HK_KSTEPS; ++kk)
+#pragma unroll
+              for (int j = 0; j < HK_ROWS + 2; ++j)
+#pragma unroll
+                for (int dh = 0; dh < 3; ++dh) {
+                  const int o = j - dh;
+                  if (o >= 0 && o < HK_ROWS)
+                    wgmma_64x64_ss(
+                        acc[o],
+                        k_desc(xrow0 + (uint32_t)((j * HK_SLAB_W + dw) * ROW_BYTES +
+                                                  (q * HK_KSTEPS + kk) * 32)),"""
+# A from registers: ldmatrix rows (mma.sync's A fragment) from the slab;
+# the registers are rewritten only after the previous stage's products
+_K1_A_REGS = """            wgmma_wait<0>();
+            uint32_t a[HK_KSTEPS][HK_ROWS + 2][4];
+#pragma unroll
+            for (int kk = 0; kk < HK_KSTEPS; ++kk)
+#pragma unroll
+              for (int j = 0; j < HK_ROWS + 2; ++j)
+                ldsm_x4(a[kk][j], xrow0 + swz(16 * wi + (lane & 15) + j * HK_SLAB_W + dw,
+                                              (q * HK_KSTEPS + kk) * 2 + (lane >> 4)));
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HK_KSTEPS; ++kk)
+#pragma unroll
+              for (int j = 0; j < HK_ROWS + 2; ++j)
+#pragma unroll
+                for (int dh = 0; dh < 3; ++dh) {
+                  const int o = j - dh;
+                  if (o >= 0 && o < HK_ROWS)
+                    wgmma_64x64(acc[o], a[kk][j],"""
+# the descriptor with the start's row inside its swizzle atom in the
+# base-offset field
+_K1_A_BO = ("k_desc(xrow0 + (uint32_t)((j * HK_SLAB_W + dw) * ROW_BYTES +\n"
+            "                                                  (q * HK_KSTEPS + kk) * 32)),",
+            "k_desc_bo(xrow0 + (uint32_t)((j * HK_SLAB_W + dw) * ROW_BYTES +\n"
+            "                                                  (q * HK_KSTEPS + kk) * 32)),")
+_K1_BO_HELPER = """
+__device__ __forceinline__ uint64_t k_desc_bo(uint32_t addr) {
+  return k_desc(addr) | ((uint64_t)((addr >> 7) & 7) << 49);
+}
+
+// the output tile `tile` of the persistent walk"""
+_K1_TILE = "\n// the output tile `tile` of the persistent walk"
+
+_K2B_W = ("hopper::mbar_arrive_tx(r.w_full(s), PB_W_BYTES);",
+          "hopper::mbar_arrive_tx(r.w_full(s), 0);")
+_K2B_W2 = ("for (int dh = 0; dh < 3; ++dh)\n            hopper::tma_load_2d(",
+           "for (int dh = 0; dh < 3 * (T < 0); ++dh)\n"
+           "            hopper::tma_load_2d(")
+_K2B_X = ("hopper::mbar_arrive_tx(r.x_full(xs), PB_X_LOAD);\n"
+          "          hopper::tma_load_5d(",
+          "hopper::mbar_arrive_tx(r.x_full(xs), 0);\n"
+          "          if (T < 0) hopper::tma_load_5d(")
+
+_K2B_MMA = ("        hopper::wgmma_64x64_ss(\n            d[m],",
+            "        if (m0 < 0) hopper::wgmma_64x64_ss(\n            d[m],")
+
+# y[t] packed after conv2 and stored by the next conv1 once its first
+# stage's products are issued (the last frame of a column: by the next
+# column's, or at the end)
+_K2B_DEFER = [
+    ("""                                          int f, int T, int m0) {
+#pragma unroll
+  for (int m = 0; m < NT; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[m][i] = 0.f;
+""", """                                          int f, int T, int m0, Fn&& after_first) {
+#pragma unroll
+  for (int m = 0; m < NT; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[m][i] = 0.f;
+  bool first = true;
+"""),
+    ("template <int NT>\n__device__ __forceinline__ void pair_conv(",
+     "template <int NT, class Fn>\n__device__ __forceinline__ void pair_conv("),
+    ("""        pair_stage<NT>(d, src, m0, dw, q, r.wring + (uint32_t)s * PB_W_BYTES);
+""", """        pair_stage<NT>(d, src, m0, dw, q, r.wring + (uint32_t)s * PB_W_BYTES);
+        if (first) {
+          after_first();
+          first = false;
+        }
+"""),
+    ("""  int b, h0, w0;
+  __device__ PairColumn(""", """  int b = 0, h0 = 0, w0 = 0;
+  PairColumn() = default;
+  __device__ PairColumn("""),
+    ("""// The consumer warpgroup's walk over its columns""", """template <int NT>
+struct PendingY {
+  float d[NT][32];
+  int t = -1;
+  PairColumn cl;
+  __device__ void store(const PairRings& r, int m0, int T, int H, int W,
+                        const float (&b2v)[16], float slope,
+                        __nv_bfloat16* __restrict__ y, __nv_bfloat16* __restrict__ mid) {
+    if (t < 0) return;
+    pair_store_y<NT>(d, r, t, m0, cl, T, H, W, b2v, slope, y, mid);
+    t = -1;
+  }
+};
+
+// The consumer warpgroup's walk over its columns"""),
+    ("""  for (int col = blockIdx.x; col < ncols; col += gridDim.x) {
+    const PairColumn cl(col, tiles_h, tiles_w);
+    for (int s = -1; s < T; ++s) {
+      if (s + 1 < T) {
+        float d[NT1][32];
+        pair_conv<NT1>(d, r, true, s + 1, T, m1);
+        consumers_sync();  // every warp is done reading z[s - 2]'s slot
+        pair_store_z<NT1>(d, r, s + 1, m1, cl, H, W, b1v, slope);
+      }
+      consumers_sync();    // z[s + 1] is in its slot
+      if (s < 0) continue;
+      float d[NT2][32];
+      pair_conv<NT2>(d, r, false, s, T, m2);
+      pair_store_y<NT2>(d, r, s, m2, cl, T, H, W, b2v, slope, y, mid);
+    }
+  }
+}""", """  PendingY<NT2> yp;
+  auto store_y = [&]() { yp.store(r, m2, T, H, W, b2v, slope, y, mid); };
+  for (int col = blockIdx.x; col < ncols; col += gridDim.x) {
+    const PairColumn cl(col, tiles_h, tiles_w);
+    for (int s = -1; s < T; ++s) {
+      if (s + 1 < T) {
+        float d[NT1][32];
+        pair_conv<NT1>(d, r, true, s + 1, T, m1, store_y);
+        consumers_sync();  // every warp is done reading z[s - 2]'s slot
+        pair_store_z<NT1>(d, r, s + 1, m1, cl, H, W, b1v, slope);
+      } else {
+        store_y();
+      }
+      consumers_sync();    // z[s + 1] is in its slot
+      if (s < 0) continue;
+      pair_conv<NT2>(yp.d, r, false, s, T, m2, [] {});
+      yp.t = s;
+      yp.cl = cl;
+    }
+  }
+  store_y();
+}"""),
+]
 
 # experiment -> (source name, {variant: edits})
 EXPERIMENTS: Dict[str, Tuple[str, Dict[str, List[Edit]]]] = {
@@ -82,9 +254,57 @@ EXPERIMENTS: Dict[str, Tuple[str, Dict[str, List[Edit]]]] = {
         f"{n} stages": ([] if n == 5 else
                         [(_DW_RING, _DW_RING.replace("5", str(n)))])
         for n in (4, 5, 6)}),
+    "k1-parts": ("conv3d_pack", {
+        "full": [],
+        "no weight loads (wrong)": [_K1_W, _K1_W2],
+        "no x loads (wrong)": [_K1_X],
+        "no wgmma (wrong)": [("if (o >= 0 && o < HK_ROWS)",
+                              "if (o >= 0 && o < HK_ROWS && T < 0)")],
+        "no stores (wrong)": [("if (h >= H) break;",
+                               "if (h >= H || T > 0) break;")],
+    }),
+    "k1-ring": ("conv3d_pack", {
+        "2 x slabs, 4 weight stages": [],
+        "2 x slabs, 2 weight stages": [(_K1_RING[1], _K1_RING[1].replace(
+            "4", "2"))],
+        "2 x slabs, 3 weight stages": [(_K1_RING[1], _K1_RING[1].replace(
+            "4", "3"))],
+    }),
+    "k1-a": ("conv3d_pack", {
+        "A by descriptor": [],
+        "A by descriptor with a base offset (wrong)": [
+            _K1_A_BO, (_K1_TILE, _K1_BO_HELPER)],
+        "A from registers": [(_K1_A_DESC, _K1_A_REGS)],
+    }),
+    "k2b-parts": ("conv3d_fuse", {
+        "full": [],
+        "no weight loads (wrong)": [_K2B_W, _K2B_W2],
+        "no x loads (wrong)": [_K2B_X],
+        "no wgmma (wrong)": [_K2B_MMA],
+        "no y stores (wrong)": [(
+            "hopper::store_pixel_bf16(valid ? y + at : nullptr, pk, lane);",
+            "hopper::store_pixel_bf16(nullptr, pk, lane);")],
+    }),
+    "k2b-store": ("conv3d_fuse", {
+        "y stored right after conv2": [],
+        "y stored behind the next conv1's first products": _K2B_DEFER,
+    }),
+    "k2b-ring": ("conv3d_fuse", {
+        "3 weight stages": [],
+        "2 weight stages": [("constexpr int PB_W_STAGES = 3;",
+                             "constexpr int PB_W_STAGES = 2;")],
+    }),
+    "k2b-warps": ("conv3d_fuse", {
+        "2 consumer warpgroups": [],
+        "3 consumer warpgroups": [
+            ("constexpr int PB_CONSUMERS = 2;", "constexpr int PB_CONSUMERS = 3;"),
+            ("constexpr int PB_CONSUMER_REGS = 232;",
+             "constexpr int PB_CONSUMER_REGS = 152;")],
+    }),
 }
 
 SHAPE = (4, 13, 144, 256, 64)        # the critic's
+K1_SHAPE = (2, 13, 144, 256, 64)     # the top stage's
 CHECK_SHAPE = (1, 2, 9, 130, 64)     # ragged in every tile of both kernels
 
 
@@ -177,18 +397,84 @@ def _dw_runner(lib: ctypes.CDLL, shape, dev, g):
     return run, lambda: cp.conv3d64_dw_plain(x, dy)
 
 
+def _grid(lib: ctypes.CDLL, config: str, shape, dev) -> int:
+    """The persistent grid of a variant, from its own launch report."""
+    cfg = getattr(lib, config)
+    cfg.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+    vals = [ctypes.c_int() for _ in range(5)]
+    cp._raise_on(cfg(*(ctypes.byref(v) for v in vals)), "variant config")
+    _, _, per_sm, tile_h, tile_w = (v.value for v in vals)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return cp.fwd_plan(sms, per_sm, tile_h, tile_w, shape).grid
+
+
+def _k1_runner(lib: ctypes.CDLL, shape, dev, g):
+    fn = lib.conv3d64_fwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    scale = (27 * 64) ** -0.5
+    x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    w = ((torch.rand((3, 3, 3, 64, 64), device=dev, generator=g) * 2 - 1)
+         * scale)
+    b = (torch.rand(64, device=dev, generator=g) * 2 - 1) * scale
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    y = torch.empty_like(x)
+    grid = _grid(lib, "conv3d64_fwd_bf16_config", shape[:4], dev)
+
+    def run():
+        err = fn(x.data_ptr(), wb.data_ptr(), bb.data_ptr(), y.data_ptr(),
+                 *shape[:4], 1, 0.2, grid,
+                 torch.cuda.current_stream().cuda_stream)
+        cp._raise_on(err, "variant")
+        return y
+    return run, lambda: cp.conv3d64_plain(x, w, b, neg_slope=0.2)
+
+
+def _k2b_runner(lib: ctypes.CDLL, shape, dev, g):
+    fn = lib.conv3d64_pair_bf16
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    scale = (27 * 64) ** -0.5
+    x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    w1, w2 = ((torch.rand((3, 3, 3, 64, 64), device=dev, generator=g) * 2
+               - 1) * scale for _ in range(2))
+    b1, b2 = ((torch.rand(64, device=dev, generator=g) * 2 - 1) * scale
+              for _ in range(2))
+    bf = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
+    y = torch.empty_like(x)
+    grid = _grid(lib, "conv3d64_pair_bf16_config", (shape[0], 1, *shape[2:4]),
+                 dev)
+
+    def run():
+        err = fn(x.data_ptr(), *(t.data_ptr() for t in bf), y.data_ptr(),
+                 None, *shape[:4], cf.SLOPE, grid,
+                 torch.cuda.current_stream().cuda_stream)
+        cp._raise_on(err, "variant")
+        return y
+    return run, lambda: cf.conv3d64_pair_plain(x, w1, b1, w2, b2)
+
+
+def _runner(experiment: str):
+    """(make, shape it is timed at, launches timed) of an experiment."""
+    if experiment.startswith("dw-"):
+        return _dw_runner, SHAPE, 20
+    if experiment.startswith("k1-"):
+        return _k1_runner, K1_SHAPE, 20
+    if experiment.startswith("k2b-"):
+        return _k2b_runner, SHAPE, 10
+    return _k2_runner, SHAPE, 5
+
+
 def run_experiment(experiment: str) -> None:
     dev = torch.device("cuda", 0)
     libs = _build_variants(experiment)
-    make = _dw_runner if EXPERIMENTS[experiment][0] == "conv3d_dw" \
-        else _k2_runner
-    iters = 20 if make is _dw_runner else 5
+    make, shape, iters = _runner(experiment)
     g = torch.Generator(device=dev).manual_seed(0)
     errs, runs = {}, {}
     for variant, lib in libs.items():
         run, plain = make(lib, CHECK_SHAPE, dev, g)
-        errs[variant] = float((run() - plain()).abs().max())
-        runs[variant] = make(lib, SHAPE, dev, g)[0]
+        errs[variant] = float((run().float() - plain().float()).abs().max())
+        runs[variant] = make(lib, shape, dev, g)[0]
     for rnd in range(2):
         for variant, run in runs.items():
             for _ in range(2):
@@ -203,7 +489,7 @@ def run_experiment(experiment: str) -> None:
             e1.synchronize()
             print(f"{experiment} round {rnd} {variant}: max_abs_err "
                   f"{errs[variant]:.3e}, {e0.elapsed_time(e1) / iters:.4f} "
-                  f"ms at {SHAPE}", flush=True)
+                  f"ms at {shape}", flush=True)
 
 
 def main(argv=None) -> None:

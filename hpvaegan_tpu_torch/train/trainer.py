@@ -141,15 +141,18 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
         D.to(dev)
         if mid is not None:
             D.load_state_dict(mid["dvars"])
+        elif dataset is not None and cfg.netG and \
+                cfg.resumed_idx == scale_idx:
+            # the scale a --netG resume lands on warm-starts from the run
+            # resumed from, as the JAX trainer does (trainer.py:111-113),
+            # on the first GAN scale too: no VAE scale writes a critic, so
+            # there the file is missing and load_critic raises
+            load_critic(os.path.join(cfg.resume_dir,
+                                     f"netD_{scale_idx - 1}"), D)
         elif cfg.vae_levels < scale_idx:
-            # warm start from the previous GAN scale (train_video.py:50-52):
-            # its file, in the run resumed from if this scale is where the
-            # resume lands (the first GAN scale has no previous critic)
+            # warm start from the previous GAN scale (train_video.py:50-52)
             if dataset is not None:
-                directory = (cfg.resume_dir if cfg.netG and
-                             cfg.resumed_idx == scale_idx
-                             else saver.experiment_dir)
-                load_critic(os.path.join(directory,
+                load_critic(os.path.join(saver.experiment_dir,
                                          f"netD_{scale_idx - 1}"), D)
             elif D_prev is not None:
                 D.load_state_dict(D_prev.state_dict())

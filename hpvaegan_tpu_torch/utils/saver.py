@@ -32,6 +32,7 @@ loading, as ``hpvaegan_tpu/serving.py:154-160`` and ``saver.py:50-89`` do.
 """
 from __future__ import annotations
 
+import errno
 import glob
 import json
 import os
@@ -102,7 +103,11 @@ def restore_generator(path: str, G,
 
 
 def load_critic(path: str, D) -> None:
-    """Load a ``netD_<s>`` file of either package into the critic ``D``."""
+    """Load a ``netD_<s>`` file of either package into the critic ``D``;
+    a missing file raises FileNotFoundError naming it, as the JAX
+    package's ``open`` does (``hpvaegan_tpu/utils/saver.py:172-174``)."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(errno.ENOENT, "no critic checkpoint", path)
     raw = restore_file(path)
     if is_msgpack_file(path):
         convert.load_discriminator(D, raw["dvars"])

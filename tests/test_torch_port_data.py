@@ -79,10 +79,15 @@ def test_committed_frames_file_equals_a_fresh_decode(tmp_path):
     assert frames.shape == (13, 144, 256, 3) and frames.dtype == np.uint8
 
 
-@pytest.mark.parametrize("size", [(72, 128), (18, 33), (57, 102), (10, 7),
-                                  (143, 255)])
+@pytest.mark.parametrize("size", [
+    (72, 128), (18, 33), (57, 102), (10, 7), (143, 255),
+    # upscales of the 144 x 256 clip: W only, H only, both, one axis up
+    # and the other down, an exact 2x
+    (144, 300), (200, 256), (200, 300), (100, 300), (200, 200), (288, 512)])
 def test_resize_equals_cv2(size):
-    """(72, 128) is an exact 2x downscale, where cv2 takes INTER_AREA."""
+    """(72, 128) is an exact 2x downscale, where cv2 takes INTER_AREA; an
+    upscale's first and last rows read the edge row twice with their
+    fractional weights."""
     frames, _ = read_frames(WINGSUIT)
     h, w = size
     got = resize_linear(frames[:3], h, w)

@@ -70,11 +70,14 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, neg_slope):
 BF16_TOL, BF16_PAIR_TOL = 2.0 ** -7, 2.0 ** -6
 BF16_SHAPES = [(1, 3, 9, 7, 64), (2, 5, 45, 81, 64)]
 # every edge of the K1-dw bf16 tiling (128-pixel row tiles, x rows outside
-# H, T steps without a temporal neighbour) and of the K2 f32 one (8 x 16
-# output tiles): W in {1, 63, 65, 129, 256}, H in {1, 7, 144}, T in
-# {1, 2, 13}, B in {1, 3}
+# H, T steps without a temporal neighbour), of the K2 f32 one (8 x 16
+# output tiles), of K1-fwd bf16's (8 x 64) and of K2 bf16's (6 x 28, the
+# persistent walk's columns): W in {1, 28, 29, 57, 63, 64, 65, 129, 256},
+# H in {1, 6, 7, 8, 9, 13, 144}, T in {1, 2, 3, 13}, B in {1, 2, 3}
 EDGE_SHAPES = [(1, 1, 1, 1, 64), (3, 2, 7, 63, 64), (1, 13, 7, 65, 64),
-               (1, 2, 144, 129, 64), (3, 1, 1, 256, 64), (1, 13, 144, 1, 64)]
+               (1, 2, 144, 129, 64), (3, 1, 1, 256, 64), (1, 13, 144, 1, 64),
+               (1, 2, 8, 64, 64), (2, 3, 9, 28, 64), (1, 2, 6, 29, 64),
+               (3, 1, 13, 57, 64)]
 
 
 def _bf16(g, dev, *shape, scale=1.0):
@@ -116,7 +119,8 @@ def test_bf16_k1_kernels_match_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", BF16_SHAPES + [(1, 1, 8, 14, 64)])
+@pytest.mark.parametrize("shape",
+                         BF16_SHAPES + [(1, 1, 8, 14, 64)] + EDGE_SHAPES)
 def test_bf16_pair_kernel_matches_plain_on_card(cuda_device, shape):
     g = torch.Generator(device=cuda_device).manual_seed(22)
     x = _bf16(g, cuda_device, *shape)

@@ -141,6 +141,32 @@ def test_netG_resume_replays_growth_and_keeps_the_amps(clip, first_run,
     assert os.path.exists(os.path.join(_exp(tmp_path), "netD_4"))
 
 
+def test_netG_resume_on_the_first_gan_scale_needs_its_previous_critic(
+        clip, tmp_path):
+    """A --vae-levels 2 run interrupted after scale 2, its first GAN scale,
+    leaves an end-of-scale netG of scale 2.  A --netG resume retrains that
+    scale and warm-starts its critic from netD_1 of the run resumed from,
+    as the JAX trainer does (hpvaegan_tpu/train/trainer.py:111-113); the
+    VAE scales 0 and 1 write no critic, so the resume raises
+    FileNotFoundError naming netD_1 and the directory, as the JAX
+    trainer's open() does, and trains no fresh critic in its place."""
+    def stop(scale, event, it, info):
+        if scale == 3 and event == "step" and it == 0:
+            raise _Stop
+
+    with pytest.raises(_Stop):
+        _run(clip, tmp_path, "--vae-levels", "2", callback=stop)
+    exp = _exp(tmp_path)
+    assert _load(os.path.join(exp, "netG"))["scale"] == 2
+    assert os.path.exists(os.path.join(exp, "netD_2"))
+    assert not os.path.exists(os.path.join(exp, "netD_1"))
+    with pytest.raises(FileNotFoundError) as err:
+        _run(clip, tmp_path, "--vae-levels", "2", "--netG",
+             os.path.join(exp, "netG"))
+    assert err.value.filename == os.path.join(exp, "netD_1")
+    assert "netD_1" in str(err.value) and exp in str(err.value)
+
+
 def test_netG_mid_resume_ends_with_the_uninterrupted_weights(clip,
                                                              tmp_path):
     """Scale 1 is a GAN scale under --vae-levels 1, with the td of scale 0,
