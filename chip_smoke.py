@@ -12,7 +12,8 @@ Phases; any failure exits non-zero and prints no result:
    (one process per source, all started together), with ptxas's registers,
    shared memory and spills; the launch configuration of K1's forward,
    K1-dw and K2 in both dtypes (threads, shared memory, blocks an SM from
-   the occupancy API, ptxas registers and spills);
+   the occupancy API, ptxas registers and spills), and of K3's three
+   instances at the main path's channel counts;
 3. each kernel against its plain PyTorch version at the main paths'
    shapes (f32, TF32 off), with its time, the plain version's time, the
    time of one library call computing the same function, and the bound:
@@ -29,13 +30,15 @@ Phases; any failure exits non-zero and prints no result:
    K1's forward at each of the ten stage shapes at batch 2, timed through
    its wrapper (CUDA events) and alone (the profiler's device time)
    beside its bound;
-3c. K3, the fused conv3d + bias + LeakyReLU for any channel count,
-   against its plain version at the top stage's shape with 3 -> 64, 64 ->
-   64 and 64 -> 3 channels and at a ragged 5 -> 7 shape with T = 1, 2, 4,
-   its gradients against autograd through the plain conv, timed
-   against cuDNN's conv + LeakyReLU.  The JAX package routes K3 nowhere,
-   so its row counts the launches of this phase's own forward and
-   backward at the three shapes (run before the comparisons);
+3c. K3, the fused conv3d + bias + LeakyReLU for any channel count, one
+   kernel with three instances (wide, narrow_in, narrow_out): each
+   against its plain version at the top stage's shape (64 -> 64, 3 -> 64,
+   64 -> 3), at a ragged 5 -> 7 shape with T = 1, 2, 4 and at ragged
+   shapes across every instance's channel and tile boundaries, its
+   gradients against autograd through the plain conv, each timed against
+   cuDNN's conv + LeakyReLU.  The JAX package routes K3 nowhere, so its
+   rows count the launches of this phase's own forward and backward at
+   the three shapes (run before the comparisons): one per instance;
 4. the serving path at full width: the repository's default 3D
    GeneratorHPVAEGAN (nfc 64, latent 128, 5 layers, 3 VAE levels, pyramid
    to 256 px) on the in-repo wingsuit clip's geometry (256x144, 24 fps),
@@ -68,10 +71,10 @@ Phases; any failure exits non-zero and prints no result:
    set; then a ``--netG`` resume (scale 9 again, 10 amps kept) and one
    request at batch 2 from the run through ``SamplerSession`` (45 K1
    launches, finite values in [-1, 1]);
-7. a ``{"kernels": [...]}`` line (nine rows: four kernels in f32 and in
-   bf16, each with its launches over the main-path runs, and K3 with its
-   own phase's), the card line, and last ``{"ok": true, "device":
-   {...}}``.
+7. a ``{"kernels": [...]}`` line (eleven rows: four kernels in f32 and
+   in bf16, each with its launches over the main-path runs, and K3's
+   three instances with their own phase's), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -718,9 +721,21 @@ def check_k2_bf16(dev):
 # ---------------------------------------------------------------------------
 
 # (C_in, C_out) at the top stage's (2, 13, 144, 256): the encoder head's
-# 3 -> 64, a body conv's 64 -> 64, a tail's 64 -> 3
+# 3 -> 64 (narrow_in), a body conv's 64 -> 64 (wide), a tail's 64 -> 3
+# (narrow_out)
 K3_CHANNELS = ((3, 64), (64, 64), (64, 3))
 K3_RAGGED = [((1, t, 9, 7, 5), 7) for t in (1, 2, 4)]
+# every instance across its boundaries: C_in 1, 2, 3, 4 (narrow_in) and
+# 5, 17, 64 (wide) into C_out 9, 64, 65, 130; C_out 1, 3, 8 (narrow_out)
+# from C_in 1, 4, 5, 64; H and W off the tiles (4 x 32, 8 x 64),
+# T 1, 2, 4 and longer runs of frames (narrow_out streams T)
+K3_EDGES = [((1, 4, 9, 37, 1), 9), ((2, 1, 35, 67, 3), 65),
+            ((1, 2, 17, 33, 4), 64), ((1, 3, 9, 37, 2), 130),
+            ((1, 4, 9, 37, 5), 9), ((2, 1, 35, 67, 64), 65),
+            ((1, 2, 17, 33, 5), 64), ((1, 3, 6, 35, 17), 130),
+            ((1, 4, 9, 37, 64), 1), ((2, 1, 35, 67, 4), 3),
+            ((1, 2, 17, 33, 5), 8), ((1, 7, 20, 70, 64), 8),
+            ((1, 6, 33, 65, 1), 3)]
 
 
 def k3_bound(shape, c_out: int):
@@ -744,9 +759,10 @@ def k3_inputs(dev, g, shape, c_out):
 
 def check_k3(dev):
     """K3's own phase: one forward and backward through the differentiable
-    ``conv3d_lrelu`` at each full shape (the row's launches), then the
-    kernel against its plain version, the Function's gradients against
-    autograd through the plain conv, and the timings."""
+    ``conv3d_lrelu`` at each full shape (the rows' launches: one per
+    instance), then each instance against its plain version at the full
+    and ragged shapes, the Function's gradients against autograd through
+    the plain conv, and the timings.  One row per instance."""
     import torch
     import torch.nn.functional as F
     from hpvaegan_tpu_torch.ops.kernels import conv3d as k3
@@ -762,18 +778,21 @@ def check_k3(dev):
         torch.autograd.grad(k3.conv3d_lrelu(*leaves).square().sum(), leaves)
         data[(shape, c_out)] = [t.detach() for t in leaves]
     torch.cuda.synchronize()
-    launches = k3.counts.launches
+    launches = dict(k3.counts.by_instance)
     print(f"K3 path (forward + backward at {len(full)} shapes): launches "
-          f"{launches}, plain calls {k3.counts.plain_calls}", flush=True)
-    if launches != len(full) or k3.counts.plain_calls:
-        fail("K3's own path did not launch the kernel once per shape")
+          f"{k3.counts.launches} {launches}, plain calls "
+          f"{k3.counts.plain_calls}", flush=True)
+    if (k3.counts.launches != len(full) or k3.counts.plain_calls
+            or launches != {i: 1 for i in k3.INSTANCES}):
+        fail("K3's own path did not launch each instance once")
 
-    worst = 0.0
-    for shape, c_out in full + K3_RAGGED:
+    worst = dict.fromkeys(k3.INSTANCES, 0.0)
+    for shape, c_out in full + K3_RAGGED + K3_EDGES:
+        inst = k3.k3_instance(shape[-1], c_out)
         x, w, b = data.get((shape, c_out)) or k3_inputs(dev, g, shape, c_out)
-        worst = max(worst, check_close(f"K3 {shape} -> {c_out}",
-                                       k3.conv3d_lrelu(x, w, b),
-                                       k3.conv3d_lrelu_plain(x, w, b)))
+        worst[inst] = max(worst[inst], check_close(
+            f"K3 {inst} {shape} -> {c_out}", k3.conv3d_lrelu(x, w, b),
+            k3.conv3d_lrelu_plain(x, w, b)))
         # the backward against autograd through the plain conv (slope 1:
         # no LeakyReLU) for the cotangent masked by the kernel's own y: a
         # mask from the plain forward would flip wherever an output
@@ -791,8 +810,9 @@ def check_k3(dev):
             check_close(f"K3 {shape} -> {c_out} {name}", a, r)
         del got, ref, got_leaves, ref_leaves, y, d_pre
 
-    row = None
+    rows = []
     for shape, c_out in full:
+        inst = k3.k3_instance(shape[-1], c_out)
         x, w, b = data[(shape, c_out)]
         xc, wc = ncdhw(x), w.permute(4, 3, 0, 1, 2).contiguous(
             memory_format=torch.channels_last_3d)
@@ -801,18 +821,18 @@ def check_k3(dev):
         lib_ms = time_ms(lambda: F.leaky_relu(F.conv3d(xc, wc, b, padding=1),
                                               0.2), iters=10)
         bd = k3_bound(shape, c_out)
-        print(f"K3 timing at {shape} -> {c_out}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.conv3d + leaky_relu (cuDNN, TF32 off) "
-              f"{lib_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
-              f"{bd[0] / ms:.3f} of the bound; launch config "
-              f"{k3.kernel_config(c_out)}", flush=True)
-        if shape[-1] == c_out == 64:
-            row = kernel_row("conv3d_lrelu", k3.SOURCE, k3.REPLACES, worst,
-                             ms, plain_ms, bd, None)
-    row["launches"] = launches
-    row["routed"] = ("nowhere, as in the JAX package: launches of its own "
-                     "phase (3c)")
-    return row
+        print(f"K3 timing, {inst} at {shape} -> {c_out}: kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, F.conv3d + leaky_relu (cuDNN, "
+              f"TF32 off) {lib_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+              f"{bd[0] / ms:.3f} of the bound", flush=True)
+        row = kernel_row(f"conv3d_lrelu_{inst}", k3.SOURCE, k3.REPLACES,
+                         worst[inst], ms, plain_ms, bd, None)
+        row.update(launches=launches[inst], shape=[*shape, c_out],
+                   cudnn_lrelu_ms=lib_ms,
+                   routed="nowhere, as in the JAX package: launches of its "
+                          "own phase (3c)")
+        rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -884,15 +904,22 @@ def check_card_against_cpu(dev, seed: int, bf16: bool = False) -> None:
         def rms(d):
             return float(np.sqrt(np.mean(np.square(d))))
         card, noise = outs["cuda"] - outs["cpu"], outs["cpu"] - outs["cpu f32"]
-        print(f"bf16 card vs CPU bf16: rms {rms(card):.3e}, max {err:.3e}; "
-              f"the bar, CPU bf16 vs CPU f32: rms {rms(noise):.3e}, max "
-              f"{float(np.abs(noise).max()):.3e}", flush=True)
+        said = (f"bf16 card vs CPU bf16: rms {rms(card):.3e}, max {err:.3e}; "
+                f"the bar, CPU bf16 vs CPU f32: rms {rms(noise):.3e}, max "
+                f"{float(np.abs(noise).max()):.3e}")
         ok = (rms(card) <= rms(noise)
               and err <= 2 * float(np.abs(noise).max()))
     else:
+        excess = np.abs(outs["cuda"] - outs["cpu"]) - (
+            ATOL + RTOL * np.abs(outs["cpu"]))
+        said = (f"f32 card vs CPU: max_abs_err {err:.3e}, worst excess over "
+                f"atol {ATOL} + rtol {RTOL} * |CPU| {float(excess.max()):.3e}")
         ok = np.allclose(outs["cuda"], outs["cpu"], rtol=RTOL, atol=ATOL)
+    print(said, flush=True)
     if not ok:
-        fail("the generator on the card disagrees with the CPU path")
+        fail(f"the generator on the card disagrees with the CPU path "
+             f"({said}; CPU threads {torch.get_num_threads()}, CPU "
+             f"capability {torch.backends.cpu.get_cpu_capability()})")
 
 
 def serve_main_path(dev, seed: int, profile: bool, bf16: bool = False):
@@ -1355,13 +1382,23 @@ def main() -> None:
              "conv3d64_pair_bf16_kernel")):
         print(f"{what} launch config: {cfg}; ptxas {regs.get(entry)}",
               flush=True)
+    from hpvaegan_tpu_torch.ops.kernels import conv3d as k3
+    for c_in, c_out in K3_CHANNELS:   # K3's instances at the main shapes
+        cfg = k3.kernel_config(c_in, c_out)
+        entry = {"wide": "conv3d_lrelu_wide",
+                 "narrow_in": f"conv3d_lrelu_narrow_inILi{c_in}",
+                 "narrow_out": ("conv3d_lrelu_narrow_out"
+                                + ("_res" if cfg["resident_bytes"] else "")
+                                + f"ILi{c_out}")}
+        print(f"conv3d_lrelu {c_in} -> {c_out} launch config: {cfg}; ptxas "
+              f"{regs.get(entry[cfg['instance']])}", flush=True)
 
     rows = [check_k1(dev), check_k1_dx(dev), check_k1_dw(dev),
             check_k2(dev)]                                   # phase 3
     torch.cuda.empty_cache()
     rows += check_k1_bf16(dev) + [check_k2_bf16(dev)]        # phase 3b
     torch.cuda.empty_cache()
-    k3_row = check_k3(dev)                                   # phase 3c
+    k3_rows = check_k3(dev)                                  # phase 3c
     torch.cuda.empty_cache()
     # the main paths: each reads the launches of its own run
     paths = {}
@@ -1384,7 +1421,7 @@ def main() -> None:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on the main path")
-    rows.append(k3_row)   # routed nowhere: its own phase's launches
+    rows += k3_rows   # routed nowhere: its own phase's launches
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

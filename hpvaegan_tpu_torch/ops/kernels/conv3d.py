@@ -18,6 +18,12 @@ so runs on stock PyTorch calls here: the LeakyReLU mask from the sign of
 the saved output, then ``torch.nn.grad.conv3d_input`` and
 ``conv3d_weight`` and a sum for ``db``, in full f32.
 
+The kernel has three instances, chosen from (C_in, C_out) by
+``k3_instance``: ``wide`` (the 64 -> 64 body conv), ``narrow_in`` (C_in
+<= 4: the 3 -> 64 encoder head) and ``narrow_out`` (C_out <= 8: the 64 ->
+3 tail).  Each is persistent: ``k3_plan`` sizes the grid from the
+kernel's own report (``kernel_config``) and the shape.
+
 The JAX package routes this function nowhere (only its tests call it), so
 no path of the port does either: it is tested on its own, and
 ``chip_smoke.py`` drives it in a phase of its own.
@@ -30,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,24 +45,31 @@ from ... import full_f32
 
 __all__ = ["conv3d_lrelu", "conv3d_lrelu_plain", "conv3d_lrelu_forward",
            "Conv3dLReLUFunction", "counts", "LReLUCounts", "kernel_config",
-           "NEG_SLOPE", "SOURCE", "REPLACES"]
+           "k3_instance", "k3_plan", "K3Plan", "INSTANCES", "NEG_SLOPE",
+           "SOURCE", "REPLACES"]
 
 SOURCE = "hpvaegan_tpu_torch/csrc/conv3d_lrelu.cu"
 REPLACES = "hpvaegan_tpu/ops/pallas/conv3d.py:138"
 NEG_SLOPE = 0.2  # the reference's LeakyReLU slope (networks_3d.py:21)
-_GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y (T) and gridDim.z (B)
+# the kernel's instances, in the order of its C interface's ids
+INSTANCES = ("wide", "narrow_in", "narrow_out")
+_CONFIG = ("threads", "smem_bytes", "blocks_per_sm", "tile_h", "tile_w",
+           "co_blk", "ci_chunk", "stages", "resident_bytes")
+_INT_MAX = 2 ** 31 - 1
 
 
 @dataclasses.dataclass
 class LReLUCounts:
-    """``launches``: kernel launches; ``plain_calls``: forwards served by
-    the plain version (CPU tensors)."""
+    """``launches``: kernel launches (``by_instance``: of each instance);
+    ``plain_calls``: forwards served by the plain version (CPU tensors)."""
 
     launches: int = 0
     plain_calls: int = 0
+    by_instance: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.launches = self.plain_calls = 0
+        self.by_instance = {}
 
 
 counts = LReLUCounts()
@@ -112,22 +126,98 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("conv3d_lrelu")
     lib.conv3d_lrelu_f32.argtypes = ([ctypes.c_void_p] * 4
                                      + [ctypes.c_int] * 6
-                                     + [ctypes.c_float, ctypes.c_void_p])
+                                     + [ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p])
     lib.conv3d_lrelu_f32.restype = ctypes.c_int
     lib.conv3d_lrelu_f32_config.argtypes = (
-        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
     lib.conv3d_lrelu_f32_config.restype = ctypes.c_int
     return lib
 
 
-def kernel_config(c_out: int) -> dict:
-    """Output channels per block, dynamic shared memory and threads of one
-    block for ``c_out`` output channels (builds the kernel if needed)."""
-    co_blk, smem, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _lib().conv3d_lrelu_f32_config(c_out, ctypes.byref(co_blk),
-                                   ctypes.byref(smem), ctypes.byref(threads))
-    return {"co_blk": co_blk.value, "smem_bytes": smem.value,
-            "threads": threads.value}
+def k3_instance(c_in: int, c_out: int) -> str:
+    """The kernel instance for ``c_in`` -> ``c_out`` channels:
+    ``narrow_out`` for C_out <= 8, else ``narrow_in`` for C_in <= 4, else
+    ``wide``."""
+    if c_in < 1 or c_out < 1:
+        raise ValueError(f"channel counts must be positive, got {c_in}, "
+                         f"{c_out}")
+    if c_out <= 8:
+        return "narrow_out"
+    return "narrow_in" if c_in <= 4 else "wide"
+
+
+def kernel_config(c_in: int, c_out: int,
+                  device: Optional[int] = None) -> dict:
+    """The launch configuration of the instance for ``c_in`` -> ``c_out``
+    on ``device`` (the current one by default): its name, threads and
+    dynamic shared memory of a block, blocks an SM (CUDA's occupancy API),
+    the output tile (rows, columns, channels), input channels a stage,
+    ring stages and the bytes of weights a block keeps resident.  Builds
+    the kernel if needed."""
+    if device is None:
+        device = torch.cuda.current_device()
+    return dict(_config(k3_instance(c_in, c_out), c_in, c_out, device))
+
+
+@functools.lru_cache(maxsize=None)
+def _config(instance: str, c_in: int, c_out: int, device: int) -> tuple:
+    vals = (ctypes.c_int * len(_CONFIG))()
+    with torch.cuda.device(device):
+        err = _lib().conv3d_lrelu_f32_config(INSTANCES.index(instance),
+                                             c_in, c_out, vals)
+    if err != 0:
+        raise RuntimeError(f"conv3d_lrelu config failed with CUDA error "
+                           f"{err}")
+    cfg = dict(zip(_CONFIG, vals), instance=instance)
+    if cfg["blocks_per_sm"] < 1:
+        raise RuntimeError(f"the {instance} instance fits no block on an "
+                           f"SM: {cfg}")
+    return tuple(cfg.items())
+
+
+@dataclasses.dataclass(frozen=True)
+class K3Plan:
+    """A persistent launch of ``grid`` blocks over ``ntiles`` output tiles.
+
+    ``wide`` and ``narrow_in`` walk the tiles round-robin (block i takes
+    tiles i, i + grid, ...), tile index ``(((b * T + t) * tiles_h + th) *
+    tiles_w + tw) * co_blocks + cb``; narrow_in's grid is a multiple of
+    ``co_blocks``, so each block keeps one channel block's weights.
+    ``narrow_out`` (``co_blocks`` 1) gives block i the contiguous run of
+    tiles ``[i * ntiles // grid, (i + 1) * ntiles // grid)`` in the order
+    ``((b * tiles_h + th) * tiles_w + tw) * T + t``: T innermost, so a
+    block streams through the frames of a spatial tile."""
+
+    instance: str
+    tiles_h: int
+    tiles_w: int
+    co_blocks: int
+    ntiles: int
+    grid: int
+
+
+def k3_plan(shape, c_out: int, sms: int, cfg: dict) -> K3Plan:
+    """The launch of x ``shape`` ``(B, T, H, W, C_in)`` -> ``c_out``
+    channels on a card of ``sms`` SMs, with the instance's report ``cfg``
+    (``kernel_config``: ``blocks_per_sm``, ``tile_h``, ``tile_w``,
+    ``co_blk``): one wave of resident blocks, never more blocks than
+    tiles, at least one."""
+    B, T, H, W, c_in = shape
+    instance = k3_instance(c_in, c_out)
+    if cfg.get("instance", instance) != instance:
+        raise ValueError(f"{c_in} -> {c_out} channels take the {instance} "
+                         f"instance, not {cfg['instance']}")
+    tiles_h, tiles_w = -(-H // cfg["tile_h"]), -(-W // cfg["tile_w"])
+    co_blocks = -(-c_out // cfg["co_blk"])
+    ntiles = B * T * tiles_h * tiles_w * co_blocks
+    if ntiles > _INT_MAX:
+        raise ValueError(f"{ntiles} output tiles: the kernel indexes at "
+                         f"most {_INT_MAX}")
+    grid = max(1, min(ntiles, sms * cfg["blocks_per_sm"]))
+    if instance == "narrow_in":
+        grid = max(co_blocks, grid // co_blocks * co_blocks)
+    return K3Plan(instance, tiles_h, tiles_w, co_blocks, ntiles, grid)
 
 
 def conv3d_lrelu_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -145,17 +235,23 @@ def conv3d_lrelu_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     device=x.device)
     if y.numel() == 0:
         return y
-    if B > _GRID_YZ_MAX or T > _GRID_YZ_MAX:
-        raise ValueError(f"B and T must be <= {_GRID_YZ_MAX}, got {B}, {T}")
     with torch.cuda.device(x.device):
+        dev = torch.cuda.current_device()
+        plan = k3_plan(
+            x.shape, c_out,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            kernel_config(c_in, c_out, dev))
         err = _lib().conv3d_lrelu_f32(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             B, T, H, W, c_in, c_out, float(neg_slope),
+            INSTANCES.index(plan.instance), plan.grid,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3d_lrelu kernel launch failed with CUDA "
                            f"error {err}")
     counts.launches += 1
+    counts.by_instance[plan.instance] = (
+        counts.by_instance.get(plan.instance, 0) + 1)
     return y
 
 

@@ -38,7 +38,27 @@ Experiments:
 * ``k2b-ring``: K2 bf16 with 3 (the source) or 2 weight stages;
 * ``k2b-warps``: K2 bf16 with 2 (the source) or 3 consumer warpgroups
   sharing the m64 tiles (conv1 2 + 2 or 2 + 1 + 1, conv2 2 + 1 or
-  1 + 1 + 1).
+  1 + 1 + 1);
+* ``k3-parts``: K3 (all three instances: timed at 64 -> 64, 3 -> 64 and
+  64 -> 3 at the top stage's (2,13,144,256)) with the x copies, the weight
+  copies, the FMAs or the stores cut out (wrong);
+* ``k3-ring``: K3 with each instance's ring one stage deeper than the
+  source's (wide 2 -> 3, narrow_in 2 -> 3, narrow_out 2 -> 3);
+* ``k3-in-blocks``: K3 narrow_in compiled for 2 (the source), 3 or 4
+  blocks an SM (``__launch_bounds__``: 255, 168 or 128 registers), timed
+  at 3 -> 64;
+* ``k3-out-chunk``: K3 narrow_out with stages of 8 (the source), 4, 16
+  or 32 input channels, timed at 64 -> 3;
+* ``k3-out-occupancy``: K3 narrow_out with 4 output columns a thread
+  (a 64 x 8 tile) compiled for 3 (the source), 2 or 4 blocks an SM, or
+  with 8 columns (a 64 x 16 tile at C_out <= 4) at 2, timed at 64 -> 3;
+* ``k3-copies``: K3 narrow_in's x copies as in the source (a thread
+  keeps a slab column and walks its rows) or with each copy's indices
+  recomputed by division, timed at 3 -> 64;
+* ``k3-out-weights``: K3 narrow_out with its weights resident where they
+  fit (the source) or carried by every stage, timed at 64 -> 3;
+* ``k3-out-l2``: K3 narrow_out's 16-byte x copies with no L2 prefetch
+  size (the source), ``.L2::128B`` or ``.L2::256B``, timed at 64 -> 3.
 """
 from __future__ import annotations
 
@@ -51,6 +71,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..ops.kernels import _build
+from ..ops.kernels import conv3d as k3
 from ..ops.kernels import conv3d_fuse as cf
 from ..ops.kernels import conv3d_pack as cp
 
@@ -218,6 +239,51 @@ struct PendingY {
 }"""),
 ]
 
+_K3_STORES = [
+    ("    if (h >= p.H) return;\n    const int coa",
+     "    if (h >= p.H || p.T > 0) return;\n    const int coa"),
+    ("    if (h >= p.H) return;\n    float bv[COUT];",
+     "    if (h >= p.H || p.T > 0) return;\n    float bv[COUT];")]
+_K3_WIDE_RING = "  static constexpr int STAGES = 2;  // wide ring"
+_K3_IN_RING = "  static constexpr int STAGES = 2;  // narrow_in ring"
+_K3_OUT_RING = "  static constexpr int STAGES = 2;   // narrow_out ring"
+_K3_IN_BLOCKS = "  static constexpr int MIN_BLOCKS = 2;  // narrow_in blocks an SM"
+_K3_OUT_PX = "  static constexpr int PX = 4;  // output columns a thread"
+_K3_OUT_BLOCKS = "  static constexpr int MIN_BLOCKS = 3;  // narrow_out blocks an SM"
+_K3_X_COPY = ('  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"\n'
+              '               :\n               : "r"(dst), "l"(src), "r"(valid ? 16 : 0)')
+_K3_OUT_NQ = "  static constexpr int NQ = 2;       // float4 planes of a stage"
+
+_K3_IN_COPY_NEW = """\
+    // a thread keeps one (frame, column, channel) and walks the slab's rows
+    for (int i = threadIdx.x; i < 3 * SLAB_W * CIN; i += THREADS) {
+      const int ci = i % CIN, sc = (i / CIN) % SLAB_W, dt = i / (CIN * SLAB_W);
+      const int tt = o.t + dt - 1, ww = o.w0 - 1 + sc;
+      const bool col_ok = tt >= 0 && tt < p.T && ww >= 0 && ww < p.W;
+      const long long at = (((long long)tt * p.H + o.h0 - 1) * p.W + ww) * CIN + ci;
+      const uint32_t dc = d + 4u * ((dt * CIN + ci) * SLAB_PIX + sc);
+#pragma unroll
+      for (int sr = 0; sr < TILE_H + 2; ++sr) {
+        const int hh = o.h0 - 1 + sr;
+        const bool ok = col_ok && hh >= 0 && hh < p.H;
+        cp_async4(dc + 4u * sr * SLAB_W, ok ? xb + at + (long long)sr * p.W * CIN : p.x, ok);
+      }
+    }"""
+_K3_IN_COPY_OLD = """\
+    for (int i = threadIdx.x; i < 3 * SLAB_PIX * CIN; i += THREADS) {
+      const int dt = i / (SLAB_PIX * CIN);
+      const int rest = i % (SLAB_PIX * CIN);
+      const int pix = rest / CIN, ci = rest % CIN;
+      const int tt = o.t + dt - 1;
+      const int hh = o.h0 - 1 + pix / SLAB_W, ww = o.w0 - 1 + pix % SLAB_W;
+      const bool ok = tt >= 0 && tt < p.T && hh >= 0 && hh < p.H && ww >= 0 && ww < p.W;
+      cp_async4(d + 4u * ((dt * CIN + ci) * SLAB_PIX + pix),
+                ok ? xb + (((size_t)tt * p.H + hh) * p.W + ww) * CIN + ci : p.x, ok);
+    }"""
+# narrow_in's x copy loop with every copy's indices recomputed by
+# division (a thread per 4-byte piece of the slab)
+_K3_FLAT = [(_K3_IN_COPY_NEW, _K3_IN_COPY_OLD)]
+
 # experiment -> (source name, {variant: edits})
 EXPERIMENTS: Dict[str, Tuple[str, Dict[str, List[Edit]]]] = {
     "k2-unroll": ("conv3d_fuse", {
@@ -293,6 +359,58 @@ EXPERIMENTS: Dict[str, Tuple[str, Dict[str, List[Edit]]]] = {
         "3 weight stages": [],
         "2 weight stages": [("constexpr int PB_W_STAGES = 3;",
                              "constexpr int PB_W_STAGES = 2;")],
+    }),
+    "k3-parts": ("conv3d_lrelu", {
+        "full": [],
+        "no x copies (wrong)": [("  K::load_x(p, o, s, dst);",
+                                 "  if (p.T < 0) K::load_x(p, o, s, dst);")],
+        "no weight copies (wrong)": [
+            ("  K::load_w(p, o, s, dst + K::X_FLOATS);",
+             "  if (p.T < 0) K::load_w(p, o, s, dst + K::X_FLOATS);"),
+            ("  K::load_res(p, res);", "  if (p.T < 0) K::load_res(p, res);")],
+        "no FMAs (wrong)": [("    k.compute(p, cur, smem",
+                             "    if (p.T < 0) k.compute(p, cur, smem")],
+        "no stores (wrong)": _K3_STORES,
+    }),
+    "k3-ring": ("conv3d_lrelu", {
+        "the source's rings": [],
+        "wide 3 stages": [(_K3_WIDE_RING, _K3_WIDE_RING.replace("2", "3"))],
+        "narrow_in 3 stages": [(_K3_IN_RING, _K3_IN_RING.replace("2", "3"))],
+        "narrow_out 3 stages": [(_K3_OUT_RING,
+                                 _K3_OUT_RING.replace("2", "3"))],
+    }),
+    "k3-in-blocks": ("conv3d_lrelu", {
+        f"{n} blocks an SM": ([] if n == 2 else [(
+            _K3_IN_BLOCKS, _K3_IN_BLOCKS.replace("2", str(n)))])
+        for n in (2, 3, 4)}),
+    "k3-out-chunk": ("conv3d_lrelu", {
+        f"{4 * n} input channels a stage": ([] if n == 2 else [(
+            _K3_OUT_NQ, _K3_OUT_NQ.replace("2", str(n)))])
+        for n in (2, 1, 4, 8)}),
+    "k3-out-occupancy": ("conv3d_lrelu", {
+        "4 columns a thread, 3 blocks an SM": [],
+        **{f"4 columns, {n} blocks an SM": [
+            (_K3_OUT_BLOCKS, _K3_OUT_BLOCKS.replace("3", str(n)))]
+           for n in (2, 4)},
+        "8 columns (C_out <= 4), 2 blocks an SM": [
+            (_K3_OUT_PX, _K3_OUT_PX.replace("4;", "COUT <= 4 ? 8 : 4;")),
+            (_K3_OUT_BLOCKS, _K3_OUT_BLOCKS.replace("3", "2"))],
+    }),
+    "k3-copies": ("conv3d_lrelu", {
+        "copies walking slab columns and weight rows": [],
+        "one copy an iteration, indices by division": _K3_FLAT,
+    }),
+    "k3-out-weights": ("conv3d_lrelu", {
+        "weights resident where they fit": [],
+        "weights in every stage": [(
+            "  return K::res_floats(C_in) <= 27 * 64 * 4;",
+            "  return C_in < 0;")],
+    }),
+    "k3-out-l2": ("conv3d_lrelu", {
+        "no L2 prefetch size": [],
+        **{f"L2::{n}B": [(_K3_X_COPY, _K3_X_COPY.replace(
+            "cp.async.cg.shared.global", f"cp.async.cg.shared.global.L2::{n}B"))]
+           for n in (128, 256)},
     }),
     "k2b-warps": ("conv3d_fuse", {
         "2 consumer warpgroups": [],
@@ -454,42 +572,95 @@ def _k2b_runner(lib: ctypes.CDLL, shape, dev, g):
     return run, lambda: cf.conv3d64_pair_plain(x, w1, b1, w2, b2)
 
 
-def _runner(experiment: str):
-    """(make, shape it is timed at, launches timed) of an experiment."""
+def _k3_runner(c_out: int):
+    """K3 with ``c_out`` output channels (C_in from the shape), launched
+    with the grid the variant's own report gives."""
+    def make(lib: ctypes.CDLL, shape, dev, g):
+        fn = lib.conv3d_lrelu_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        cfg_fn = lib.conv3d_lrelu_f32_config
+        cfg_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        c_in = shape[-1]
+        instance = k3.INSTANCES.index(k3.k3_instance(c_in, c_out))
+        vals = (ctypes.c_int * len(k3._CONFIG))()
+        cp._raise_on(cfg_fn(instance, c_in, c_out, vals), "variant config")
+        cfg = dict(zip(k3._CONFIG, vals))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = k3.k3_plan(shape, c_out, sms, cfg).grid
+        print(f"  {shape} -> {c_out}: launch config {cfg}, grid {grid}",
+              flush=True)
+        scale = (27 * c_in) ** -0.5
+        x = torch.randn(shape, device=dev, generator=g)
+        w = (torch.rand((3, 3, 3, c_in, c_out), device=dev, generator=g) * 2
+             - 1) * scale
+        b = (torch.rand(c_out, device=dev, generator=g) * 2 - 1) * scale
+        y = torch.empty((*shape[:4], c_out), device=dev)
+
+        def run():
+            err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     *shape, c_out, k3.NEG_SLOPE, instance, grid,
+                     torch.cuda.current_stream().cuda_stream)
+            cp._raise_on(err, "variant")
+            return y
+        return run, lambda: k3.conv3d_lrelu_plain(x, w, b)
+    return make
+
+
+# K3's instances at the top stage's shape: (C_in, C_out) per experiment
+K3_FULL = {"wide": (64, 64), "narrow_in": (3, 64), "narrow_out": (64, 3)}
+K3_TIMED = {"k3-in-blocks": ("narrow_in",), "k3-out-chunk": ("narrow_out",),
+            "k3-out-l2": ("narrow_out",), "k3-out-occupancy": ("narrow_out",),
+            "k3-copies": ("narrow_in",), "k3-out-weights": ("narrow_out",)}
+
+
+def _runners(experiment: str):
+    """[(make, shape it is timed at, check shape, launches timed)] of an
+    experiment."""
+    if experiment.startswith("k3-"):
+        out = []
+        for inst in K3_TIMED.get(experiment, tuple(K3_FULL)):
+            c_in, c_out = K3_FULL[inst]
+            out.append((_k3_runner(c_out), (*K1_SHAPE[:4], c_in),
+                        (1, 3, 19, 70, c_in), 20))
+        return out
     if experiment.startswith("dw-"):
-        return _dw_runner, SHAPE, 20
+        return [(_dw_runner, SHAPE, CHECK_SHAPE, 20)]
     if experiment.startswith("k1-"):
-        return _k1_runner, K1_SHAPE, 20
+        return [(_k1_runner, K1_SHAPE, CHECK_SHAPE, 20)]
     if experiment.startswith("k2b-"):
-        return _k2b_runner, SHAPE, 10
-    return _k2_runner, SHAPE, 5
+        return [(_k2b_runner, SHAPE, CHECK_SHAPE, 10)]
+    return [(_k2_runner, SHAPE, CHECK_SHAPE, 5)]
 
 
 def run_experiment(experiment: str) -> None:
     dev = torch.device("cuda", 0)
     libs = _build_variants(experiment)
-    make, shape, iters = _runner(experiment)
     g = torch.Generator(device=dev).manual_seed(0)
-    errs, runs = {}, {}
-    for variant, lib in libs.items():
-        run, plain = make(lib, CHECK_SHAPE, dev, g)
-        errs[variant] = float((run().float() - plain().float()).abs().max())
-        runs[variant] = make(lib, shape, dev, g)[0]
-    for rnd in range(2):
-        for variant, run in runs.items():
-            for _ in range(2):
-                run()
-            torch.cuda.synchronize()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(iters):
-                run()
-            e1.record()
-            e1.synchronize()
-            print(f"{experiment} round {rnd} {variant}: max_abs_err "
-                  f"{errs[variant]:.3e}, {e0.elapsed_time(e1) / iters:.4f} "
-                  f"ms at {shape}", flush=True)
+    for make, shape, check_shape, iters in _runners(experiment):
+        errs, runs = {}, {}
+        for variant, lib in libs.items():
+            run, plain = make(lib, check_shape, dev, g)
+            errs[variant] = float((run().float() - plain().float())
+                                  .abs().max())
+            runs[variant] = make(lib, shape, dev, g)[0]
+        for rnd in range(2):
+            for variant, run in runs.items():
+                for _ in range(2):
+                    run()
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(iters):
+                    run()
+                e1.record()
+                e1.synchronize()
+                print(f"{experiment} round {rnd} {variant}: max_abs_err "
+                      f"{errs[variant]:.3e}, "
+                      f"{e0.elapsed_time(e1) / iters:.4f} ms at {shape}",
+                      flush=True)
+        del runs
 
 
 def main(argv=None) -> None:

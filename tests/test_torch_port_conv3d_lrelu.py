@@ -44,6 +44,15 @@ def _assert_close(got, ref):
     ((1, 3, 7, 9, 5), 7),      # ragged channels and tiles
     ((1, 1, 5, 6, 5), 7),      # T = 1: the Pallas function's XLA branch
     ((2, 2, 6, 5, 4), 3),      # T = 2: the same branch, C_out 3
+    # the channel counts where the CUDA kernel changes instance
+    # (narrow_in C_in <= 4 < wide; narrow_out C_out <= 8 < the others), at
+    # T 1, 2 and 3
+    ((1, 1, 6, 7, 4), 9),      # narrow_in's widest input
+    ((1, 2, 6, 7, 5), 9),      # wide's narrowest channels
+    ((1, 3, 5, 6, 4), 8),      # narrow_out's widest output, C_in 4
+    ((1, 2, 5, 6, 5), 8),      # narrow_out, C_in 5
+    ((1, 1, 7, 5, 5), 9),      # wide at T = 1
+    ((1, 3, 6, 5, 4), 9),      # narrow_in through the Pallas kernel
 ])
 def test_cpu_matches_pallas_interpret(shape, c_out):
     x, w, b = _inputs(shape, c_out, seed=sum(shape) + c_out)

@@ -404,6 +404,24 @@ def _gan_step_gives_every_kernel_weight_a_gradient(cuda_device, bf16):
 K3_CASES = [((2, 5, 45, 81, 3), 64), ((1, 4, 19, 37, 64), 64),
             ((2, 5, 45, 81, 64), 3), ((1, 1, 9, 7, 5), 7),
             ((1, 2, 9, 7, 5), 7), ((1, 4, 9, 7, 5), 7)]
+# every instance across its boundaries: C_in 1, 3, 4 (narrow_in) and 5,
+# 64 (wide) into C_out 9, 64, 65, 130 (two and three channel blocks); C_out
+# 1, 3, 8 (narrow_out) from C_in 1, 4, 5, 64; H and W off the tiles (4 x
+# 32, 8 x 64), T 1, 2 and 4
+K3_EDGES = [((1, 4, 9, 37, 1), 9), ((2, 1, 35, 67, 3), 65),
+            ((1, 2, 17, 33, 4), 64), ((1, 3, 9, 37, 2), 130),
+            ((1, 4, 9, 37, 5), 9), ((2, 1, 35, 67, 64), 65),
+            ((1, 2, 17, 33, 5), 64), ((1, 3, 6, 35, 17), 130),
+            ((1, 4, 9, 37, 64), 1), ((2, 1, 35, 67, 4), 3),
+            ((1, 2, 17, 33, 5), 8), ((1, 7, 20, 70, 64), 8),
+            ((1, 6, 33, 65, 1), 3)]
+# (C_in, C_out) -> the launch configuration the CPU tests of k3_plan
+# assume (tests/test_torch_port_k3_plan.py): instance, tile rows, tile
+# columns, output channels a tile, blocks an SM
+K3_CONFIGS = {(3, 64): ("narrow_in", 4, 32, 64, 4),
+              (64, 64): ("wide", 4, 32, 64, 2),
+              (64, 3): ("narrow_out", 8, 64, 3, 3),
+              (64, 8): ("narrow_out", 8, 64, 8, 3)}
 
 
 def _k3_inputs(g, dev, shape, c_out):
@@ -414,7 +432,7 @@ def _k3_inputs(g, dev, shape, c_out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,c_out", K3_CASES)
+@pytest.mark.parametrize("shape,c_out", K3_CASES + K3_EDGES)
 def test_k3_kernel_matches_plain_on_card(cuda_device, shape, c_out):
     from hpvaegan_tpu_torch.ops.kernels import conv3d as k3
     g = torch.Generator(device=cuda_device).manual_seed(31)
@@ -423,6 +441,7 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, shape, c_out):
     y = k3.conv3d_lrelu(x, w, b)
     torch.cuda.synchronize()
     assert (k3.counts.launches, k3.counts.plain_calls) == (1, 0)
+    assert k3.counts.by_instance == {k3.k3_instance(shape[-1], c_out): 1}
     assert y.shape == (*shape[:4], c_out) and y.dtype == torch.float32
     _close_to_plain(y, k3.conv3d_lrelu_plain(x, w, b))
     # a bf16 x is widened to f32 first
@@ -451,6 +470,17 @@ def test_k3_gradients_match_autograd_through_plain_on_card(cuda_device,
     for a, r in zip(got, ref):
         np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", sorted(K3_CONFIGS))
+def test_k3_config_is_what_the_plan_tests_assume(cuda_device, channels):
+    from hpvaegan_tpu_torch.ops.kernels import conv3d as k3
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the plan tests model a 132-SM H100")
+    cfg = k3.kernel_config(*channels)
+    assert (cfg["instance"], cfg["tile_h"], cfg["tile_w"], cfg["co_blk"],
+            cfg["blocks_per_sm"]) == K3_CONFIGS[channels]
 
 
 @pytest.mark.gpu
