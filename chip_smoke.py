@@ -68,10 +68,30 @@ Phases; any failure exits non-zero and prints no result:
    model, ``--niter 2 --pconv --pconv-all --pfuse``, all ten scales: each
    step's wall time, peak memory and launches printed, 137/4/80/75
    launches and no plain call per scale-9 GAN step, the JAX package's file
-   set; then a ``--netG`` resume (scale 9 again, 10 amps kept) and one
-   request at batch 2 from the run through ``SamplerSession`` (45 K1
-   launches, finite values in [-1, 1]);
-7. a ``{"kernels": [...]}`` line (eleven rows: four kernels in f32 and
+   set; under ``--visualize`` (the five grids at iteration 0 of each
+   scale, their 4 x 5 x scale K1 launches counted apart, their time and
+   the host's share printed) with the event file read back (every step's
+   scalars, ten image values a scale); then a ``--netG`` resume (scale 9
+   again, 10 amps kept) and one request at batch 2 from the run through
+   ``SamplerSession`` (45 K1 launches, finite values in [-1, 1]);
+6b. the same CLI run under ``--bf16``: 137/4/80/75 bf16 launches and no
+   f32 one per scale-9 GAN step;
+7. ``python -m hpvaegan_tpu_torch.cli.generate`` in-process on the runs
+   of 6 and 6b, on the card: rand (4 samples, ``--metrics``), rec
+   (``--metrics``), ``--inject-scale 5`` and rand at ``--w-factor 1.5``;
+   45 K1 launches a rand or rec batch and 20 an inject batch of that
+   run's dtype and nothing else, each AVI read back (13 frames of the
+   asked size, the samples' de-normalisation), with the time of each
+   batch and each clip's write;
+7b. ``python -m hpvaegan_tpu_torch.cli.serve``'s server on the run of 6
+   with ``--coalesce-ms 30``: five stdio requests (written, not written,
+   the same seed twice with identical files, rec), four concurrent
+   unseeded one-sample requests through the coalescer (at most two
+   dispatches of 45 launches), HTTP health and two requests, whose
+   ``device_ms`` stays within 1.2x a stdio request's of the same size
+   (all run on the server's one device thread); each response's
+   ``device_ms`` and ``latency_ms`` printed, any ``ok: false`` fails;
+8. a ``{"kernels": [...]}`` line (eleven rows: four kernels in f32 and
    in bf16, each with its launches over the main-path runs, and K3's
    three instances with their own phase's), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -1198,23 +1218,67 @@ def train_main_path(dev, seed: int, profile: bool, bf16: bool = False):
 CLI_FILES = (["netG", "Noise_Amps", "Noise_Amps.json", "config.json",
               "logbook.txt", "eval"]
              + [f"netD_{s}" for s in range(MAIN_CFG["vae_levels"], SCALE + 1)])
+# the five grids of --visualize, each an unfolded frame grid and a clip
+VIS_IMAGES = 10
+INJECT_SCALE = 5    # phase 7's --inject-scale
+# the 3 rand samples and the reconstruction of --visualize
+VIS_FORWARDS = 4
 
 
-def train_cli_main_path(dev, seed: int):
+def experiment_dir(run_dir) -> Path:
+    return Path(run_dir) / "wingsuit" / "DEBUG" / "experiment_0"
+
+
+def check_events(exp: Path, want_scalars: dict) -> None:
+    """The event file of a --visualize CLI run: every step's scalars
+    (``want_scalars[scale]`` values an iteration, both iterations) and
+    the ten image values of every scale at iteration 0."""
+    from collections import Counter
+
+    from hpvaegan_tpu_torch.utils.tb_events import read_events
+    files = list(exp.glob("events.out.tfevents.*"))
+    if len(files) != 1:
+        fail(f"want one event file in {exp}, found {files}")
+    t0 = time.perf_counter()
+    events = read_events(str(files[0]))
+    read_s = time.perf_counter() - t0
+    scalars, images = Counter(), Counter()
+    for e in events:
+        for tag, kind, _ in e["values"]:
+            scale = int(tag.split("/")[1].split("_")[1])
+            (scalars if kind == "scalar" else images)[(scale, e["step"])] += 1
+    print(f"events file {files[0].name}: {files[0].stat().st_size} bytes, "
+          f"{len(events)} events, {sum(scalars.values())} scalar values, "
+          f"{sum(images.values())} image values (read with CRC checks in "
+          f"{read_s:.3f} s)", flush=True)
+    want_s = Counter({(s, it): n for s, n in want_scalars.items()
+                      for it in range(2)})
+    want_i = Counter({(s, 0): VIS_IMAGES for s in want_scalars})
+    if scalars != want_s or images != want_i:
+        fail(f"the event file holds scalars {dict(scalars)} and images "
+             f"{dict(images)}, want {dict(want_s)} and {dict(want_i)}")
+
+
+def train_cli_main_path(dev, seed: int, run_dir, bf16: bool = False):
     """``hpvaegan_tpu_torch.cli.train_video`` at full width on the in-repo
-    clip, all ten scales with ``--niter 2``; a ``--netG`` resume; one
-    request from the run.  Returns the launches of the three runs."""
-    import logging
-
+    clip, all ten scales with ``--niter 2 --visualize`` (the grids at
+    iteration 0 of each scale) and ``--bf16`` or not; in f32 also a
+    ``--netG`` resume and one request from the run.  Returns the
+    launches of the runs; the run stays in ``run_dir``."""
     import numpy as np
     import torch
     from hpvaegan_tpu_torch.cli import train_video
     from hpvaegan_tpu_torch.core.config import Config
     from hpvaegan_tpu_torch.serving import SamplerSession, apply_snapshot
+    from hpvaegan_tpu_torch.utils.logger import kept_logging
 
-    want_step = {**{k: 0 for k in all_counts()}, **GAN_STEP_LAUNCHES}
-    state = {"t": 0.0, "counts": None, "steps": {}}
+    sfx = "_bf16" if bf16 else ""
+    k1 = f"conv3d64_fwd{sfx}"
+    want_step = {**{k: 0 for k in all_counts()},
+                 **{f"{k}{sfx}": n for k, n in GAN_STEP_LAUNCHES.items()}}
+    state = {"t": 0.0, "counts": None, "steps": {}, "vis": {}}
     out = sys.stdout   # the CLI's own console log goes to `console` below
+    name = f"CLI {dtype_name(bf16)}"
 
     def mark():
         torch.cuda.synchronize()
@@ -1228,105 +1292,317 @@ def train_cli_main_path(dev, seed: int):
         delta = {k: now[k] - state["counts"][k] for k in now}
         peak = torch.cuda.max_memory_allocated(dev)
         values = {k: float(v) for k, v in info.items()}
-        print(f"CLI scale {scale} {event} {it}: {wall:.4f} s, {values}, peak "
-              f"memory {peak} bytes, launches "
+        print(f"{name} scale {scale} {event} {it}: {wall:.4f} s, {values}, "
+              f"peak memory {peak} bytes, launches "
               f"{ {k: v for k, v in delta.items() if v} }", file=out,
               flush=True)
         if not all(math.isfinite(v) for v in values.values()):
-            fail(f"CLI scale {scale} {event} {it}: a loss is not finite")
+            fail(f"{name} scale {scale} {event} {it}: a value is not finite")
         if delta["plain"]:
             fail(f"the plain versions ran {delta['plain']} times")
         if event == "step":
             state["steps"][scale] = state["steps"].get(scale, 0) + 1
             if scale == SCALE and delta != want_step:
-                fail(f"a scale-{scale} GAN step of the CLI launched {delta}, "
-                     f"want {want_step}")
+                fail(f"a scale-{scale} GAN step of the {name} run launched "
+                     f"{delta}, want {want_step}")
+        elif event == "visualize":
+            # 4 forwards through the scale's stages, 5 K1 convs a stage
+            want = {**{k: 0 for k in delta}, k1: VIS_FORWARDS * 5 * scale}
+            if delta != want:
+                fail(f"--visualize at scale {scale} launched {delta}, want "
+                     f"{want}")
+            state["vis"][scale] = values
         mark()
 
-    root = logging.getLogger()
-    handlers = list(root.handlers)
     console = io.StringIO()   # kept out of the output's tail; logbook.txt
-    flags = ["--video-path", str(ROOT / MAIN_CFG["video_path"]),
-             "--niter", "2", "--pconv", "--pconv-all", "--pfuse",
-             "--manualSeed", str(seed)]
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            reset_counts()
-            mark()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(console):
-                cfg = train_video.main(flags + ["--run-dir", tmp],
-                                       callback=on_event)
-            print(f"CLI run: {time.perf_counter() - t0:.3f} s for "
-                  f"{cfg.stop_scale + 1} scales, steps per scale "
-                  f"{state['steps']}", flush=True)
-            exp = Path(tmp) / "wingsuit" / "DEBUG" / "experiment_0"
-            missing = [n for n in CLI_FILES if not (exp / n).exists()]
-            with open(exp / "Noise_Amps.json") as f:
-                amps = json.load(f)["noise_amps"]
-            print(f"CLI files: {sorted(p.name for p in exp.iterdir())}; "
-                  f"amps {amps}", flush=True)
-            if (missing or cfg.stop_scale != SCALE or len(amps) != SCALE + 1
-                    or amps[0] != 1.0
-                    or not all(math.isfinite(a) for a in amps)
-                    or state["steps"] != {s: 2 for s in range(SCALE + 1)}):
-                fail(f"the CLI run is incomplete: missing {missing}, amps "
-                     f"{amps}, steps {state['steps']}")
+    flags = (["--video-path", str(ROOT / MAIN_CFG["video_path"]),
+              "--niter", "2", "--pconv", "--pconv-all", "--pfuse",
+              "--manualSeed", str(seed), "--run-dir", str(run_dir)]
+             + (["--bf16"] if bf16 else []))
+    with kept_logging():
+        reset_counts()
+        mark()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(console):
+            cfg = train_video.main(flags + ["--visualize"],
+                                   callback=on_event)
+        print(f"{name} run with --visualize: {time.perf_counter() - t0:.3f} s "
+              f"for {cfg.stop_scale + 1} scales, steps per scale "
+              f"{state['steps']}", flush=True)
+        vis9 = state["vis"].get(SCALE, {})
+        print(f"{name} --visualize at scale {SCALE} ({VIS_FORWARDS} forwards "
+              f"of batch {BATCH}, {VIS_IMAGES} image values): "
+              f"{vis9.get('seconds', float('nan')):.4f} s, of which the "
+              f"grids' encoding and writing on the host "
+              f"{vis9.get('write_seconds', float('nan')):.4f} s", flush=True)
+        exp = experiment_dir(run_dir)
+        missing = [n for n in CLI_FILES if not (exp / n).exists()]
+        with open(exp / "Noise_Amps.json") as f:
+            amps = json.load(f)["noise_amps"]
+        print(f"{name} files: {sorted(p.name for p in exp.iterdir())}; "
+              f"amps {amps}", flush=True)
+        if (missing or cfg.stop_scale != SCALE or len(amps) != SCALE + 1
+                or amps[0] != 1.0 or not all(math.isfinite(a) for a in amps)
+                or state["steps"] != {s: 2 for s in range(SCALE + 1)}
+                or sorted(state["vis"]) != list(range(SCALE + 1))):
+            fail(f"the {name} run is incomplete: missing {missing}, amps "
+                 f"{amps}, steps {state['steps']}, visualized "
+                 f"{sorted(state['vis'])}")
+        check_events(exp, {s: 3 if s < MAIN_CFG["vae_levels"] else 5
+                           for s in range(SCALE + 1)})
+        if bf16:
+            return all_counts()
 
-            state["steps"] = {}
-            mark()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(console):
-                cfg = train_video.main(
-                    flags + ["--run-dir", tmp, "--netG", str(exp / "netG")],
-                    callback=on_event)
-            with open(exp.parent / "experiment_1" / "Noise_Amps.json") as f:
-                amps2 = json.load(f)["noise_amps"]
-            print(f"CLI resume from netG: {time.perf_counter() - t0:.3f} s, "
-                  f"steps per scale {state['steps']}, amps {amps2}",
-                  flush=True)
-            if state["steps"] != {SCALE: 2} or len(amps2) != SCALE + 1:
-                fail("the --netG resume did not retrain scale 9 alone with "
-                     "the amps kept")
+        state["steps"] = {}
+        mark()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(console):
+            cfg = train_video.main(flags + ["--netG", str(exp / "netG")],
+                                   callback=on_event)
+    with open(exp.parent / "experiment_1" / "Noise_Amps.json") as f:
+        amps2 = json.load(f)["noise_amps"]
+    print(f"{name} resume from netG: {time.perf_counter() - t0:.3f} s, "
+          f"steps per scale {state['steps']}, amps {amps2}", flush=True)
+    if state["steps"] != {SCALE: 2} or len(amps2) != SCALE + 1:
+        fail("the --netG resume did not retrain scale 9 alone with the amps "
+             "kept")
 
-            netG = str(exp / "netG")
-            scfg = Config(netG=netG, pconv_all=True)
-            apply_snapshot(scfg, netG, explicit=set(),
-                           user_chose_source=False)
-            scfg.adjust_scales()
-            session = SamplerSession(scfg, batch_size=BATCH,
-                                     manual_seed=seed, device=dev)
-            before = all_counts()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = session.sample_batch()
-            e1.record()
-            e1.synchronize()
-            now = all_counts()
-            launched = {k: now[k] - before[k] for k in now}
-            print(f"request from the CLI run: {e0.elapsed_time(e1):.3f} ms, "
-                  f"shape {out.shape}, range [{out.min():.4f}, "
-                  f"{out.max():.4f}], launches "
-                  f"{ {k: v for k, v in launched.items() if v} }",
-                  flush=True)
-            if out.shape != (BATCH, *TOP_SHAPE[1:4], 3) or \
-                    not np.all(np.isfinite(out)) or np.abs(out).max() > 1.0:
-                fail("the request from the CLI run is wrong")
-            if launched != {**{k: 0 for k in launched},
-                            "conv3d64_fwd": 5 * SCALE}:
-                fail(f"the request from the CLI run launched {launched}")
-            del session
-            print(f"the CLI runs logged {console.getvalue().count(chr(10))} "
-                  f"console lines (as in their logbook.txt)", flush=True)
-    finally:
-        for h in list(root.handlers):
-            root.removeHandler(h)
-            h.close()
-        for h in handlers:
-            root.addHandler(h)
+    netG = str(exp / "netG")
+    scfg = Config(netG=netG, pconv_all=True)
+    apply_snapshot(scfg, netG, explicit=set(), user_chose_source=False)
+    scfg.adjust_scales()
+    session = SamplerSession(scfg, batch_size=BATCH, manual_seed=seed,
+                             device=dev)
+    before = all_counts()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    sample = session.sample_batch()
+    e1.record()
+    e1.synchronize()
+    now = all_counts()
+    launched = {k: now[k] - before[k] for k in now}
+    print(f"request from the CLI run: {e0.elapsed_time(e1):.3f} ms, shape "
+          f"{sample.shape}, range [{sample.min():.4f}, {sample.max():.4f}], "
+          f"launches { {k: v for k, v in launched.items() if v} }",
+          flush=True)
+    if sample.shape != (BATCH, *TOP_SHAPE[1:4], 3) or \
+            not np.all(np.isfinite(sample)) or np.abs(sample).max() > 1.0:
+        fail("the request from the CLI run is wrong")
+    if launched != {**{k: 0 for k in launched}, "conv3d64_fwd": 5 * SCALE}:
+        fail(f"the request from the CLI run launched {launched}")
+    del session
+    print(f"the CLI runs logged {console.getvalue().count(chr(10))} console "
+          f"lines (as in their logbook.txt)", flush=True)
     torch.cuda.empty_cache()
     return all_counts()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the sampling CLI; phase 7b: the server
+# ---------------------------------------------------------------------------
+
+def check_clips(what: str, paths, samples, hw) -> None:
+    """The written AVIs: 13 frames of ``hw`` each, equal to the samples'
+    de-normalisation; the samples finite and in [-1, 1]."""
+    import numpy as np
+    from hpvaegan_tpu_torch.utils.video_io import read_avi, to_uint8
+    if not np.all(np.isfinite(samples)) or np.abs(samples).max() > 1.0:
+        fail(f"{what}: samples not finite or outside [-1, 1]")
+    for path, sample in zip(paths, samples):
+        frames, _ = read_avi(path)
+        if frames.shape != (TOP_SHAPE[1], *hw, 3) or \
+                not np.array_equal(frames, to_uint8(sample)):
+            fail(f"{what}: {path} holds {frames.shape}, want "
+                 f"{(TOP_SHAPE[1], *hw, 3)} equal to its sample")
+
+
+def generate_main_path(dev, seed: int, exp: Path, out_dir: Path,
+                       bf16: bool = False):
+    """``hpvaegan_tpu_torch.cli.generate`` in-process on the CLI run in
+    ``exp`` (on the card, its default): rand with ``--metrics``, rec with
+    ``--metrics``, ``--inject-scale 5`` and rand with ``--w-factor 1.5``
+    (the clips at the top scale's T, H and the W it asks for).
+    Returns the launches of the four calls."""
+    from hpvaegan_tpu_torch.cli import generate
+
+    k1 = "conv3d64_fwd_bf16" if bf16 else "conv3d64_fwd"
+    top_hw = TOP_SHAPE[2:4]
+    cases = [  # name, flags, batches, K1 launches a batch, (H, W)
+        ("rand", ["--num-samples", "4", "--metrics"], 2, 5 * SCALE, top_hw),
+        ("rec", ["--mode", "rec", "--num-samples", "2", "--metrics"], 1,
+         5 * SCALE, top_hw),
+        (f"inject {INJECT_SCALE}", ["--inject-scale", str(INJECT_SCALE),
+                                    "--num-samples", "2"], 1,
+         5 * (SCALE - INJECT_SCALE), top_hw),
+        # two batches: the first at a new shape pays the first-call costs
+        ("rand w x1.5", ["--w-factor", "1.5", "--num-samples", "4"], 2,
+         5 * SCALE, (top_hw[0], round(top_hw[1] * 1.5)))]
+    reset_counts()
+    for i, (name, extra, batches, per_batch, hw) in enumerate(cases):
+        before = all_counts()
+        t0 = time.perf_counter()
+        res = generate.main(["--netG", str(exp / "netG"), "--output-dir",
+                             str(out_dir / f"{dtype_name(bf16)}_{i}"),
+                             "--batch-size", str(BATCH), "--manualSeed",
+                             str(seed), *extra])
+        wall = time.perf_counter() - t0
+        now = all_counts()
+        launched = {k: now[k] - before[k] for k in now}
+        print(f"generate {dtype_name(bf16)} {name}: {wall:.3f} s in all, "
+              f"ms a batch {[round(t, 3) for t in res['batch_ms']]}, AVI "
+              f"write ms a clip {[round(t, 3) for t in res['write_ms']]}, "
+              f"metrics {res['metrics']}, launches "
+              f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+        want = {**{k: 0 for k in launched}, k1: batches * per_batch}
+        if launched != want or len(res["batch_ms"]) != batches:
+            fail(f"generate {name} launched {launched} in "
+                 f"{len(res['batch_ms'])} batches, want {want} in {batches}")
+        n = int(extra[extra.index("--num-samples") + 1])
+        if len(res["paths"]) != n:
+            fail(f"generate {name} wrote {res['paths']}")
+        check_clips(f"generate {name}", res["paths"], res["samples"], hw)
+        metric = list(res["metrics"].values())
+        if "--metrics" in extra and not (metric and math.isfinite(metric[0])):
+            fail(f"generate {name}: metrics {res['metrics']}")
+    return all_counts()
+
+
+def serve_cli_main_path(dev, seed: int, exp: Path, out_dir: Path):
+    """``hpvaegan_tpu_torch.cli.serve`` in-process on the f32 CLI run, on
+    the card with ``--coalesce-ms 30``: stdio requests on in-memory
+    streams, four concurrent unseeded requests through the coalescer,
+    HTTP on a free port (health, two requests).  Returns the launches of
+    the server's life."""
+    import threading
+    import urllib.request
+
+    from hpvaegan_tpu_torch.cli import serve
+
+    per_batch = 5 * SCALE
+    reset_counts()
+    server, _ = serve.make_server(["--netG", str(exp / "netG"),
+                                   "--output-dir", str(out_dir),
+                                   "--coalesce-ms", "30", "--manualSeed",
+                                   str(seed)])
+    try:
+        warm = all_counts()
+        if warm["conv3d64_fwd"] != per_batch or warm["plain"]:
+            fail(f"the server's warmup launched {warm}")
+        reqs = [{"id": "write", "num_samples": 2, "seed": 1},
+                {"id": "nowrite", "num_samples": 2, "seed": 2,
+                 "write": False},
+                {"id": "same_a", "num_samples": 2, "seed": 7},
+                {"id": "same_b", "num_samples": 2, "seed": 7},
+                {"id": "rec", "mode": "rec", "num_samples": 2}]
+        stream = io.StringIO()
+        serve.serve_stdio(server, io.StringIO(
+            "".join(json.dumps(r) + "\n" for r in reqs)), stream)
+        lines = [json.loads(x) for x in stream.getvalue().splitlines()]
+        resps = lines[1:]
+        launched = all_counts()["conv3d64_fwd"] - warm["conv3d64_fwd"]
+        for r in resps:
+            print(f"serve stdio {r.get('id')}: ok {r['ok']}, device_ms "
+                  f"{r.get('device_ms')}, latency_ms {r.get('latency_ms')}, "
+                  f"files {len(r.get('paths', []))}", flush=True)
+        if len(resps) != len(reqs) or not all(r["ok"] for r in resps):
+            fail(f"serve stdio: {resps}")
+        if launched != per_batch * len(reqs):
+            fail(f"serve stdio launched {launched} K1, want "
+                 f"{per_batch * len(reqs)} ({per_batch} a dispatch)")
+        with open(resps[2]["paths"][0], "rb") as a, \
+                open(resps[3]["paths"][0], "rb") as b:
+            if a.read() != b.read():
+                fail("the same seeded request wrote different files")
+        if resps[1]["paths"] or resps[1]["sample_shape"] != [
+                *TOP_SHAPE[1:4], 3]:
+            fail(f"the write: false request answered {resps[1]}")
+
+        before = all_counts()["conv3d64_fwd"]
+        dispatches = server.coalescer.dispatches
+        out = [None] * 4
+
+        def go(i):
+            out[i] = server.handle({"id": f"co{i}", "num_samples": 1})
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        dispatches = server.coalescer.dispatches - dispatches
+        launched = all_counts()["conv3d64_fwd"] - before
+        for r in out:
+            print(f"serve coalesced {r and r.get('id')}: ok {r and r['ok']}, "
+                  f"device_ms {r and r.get('device_ms')}, latency_ms "
+                  f"{r and r.get('latency_ms')}", flush=True)
+        print(f"serve coalesced: 4 one-sample requests in {dispatches} "
+              f"dispatches, {launched} K1 launches ({per_batch} a dispatch)",
+              flush=True)
+        if not all(r is not None and r["ok"] for r in out) or \
+                not 1 <= dispatches <= 2 or launched != per_batch * dispatches:
+            fail(f"the coalesced requests: {out}, {dispatches} dispatches, "
+                 f"{launched} launches")
+        if len({open(r["paths"][0], "rb").read() for r in out}) != 4:
+            fail("the coalesced requests' samples are not distinct")
+
+        from hpvaegan_tpu_torch.cli.serve import serve_http
+        box, started = {}, threading.Event()
+
+        def ready(httpd):
+            box["httpd"] = httpd
+            started.set()
+
+        before = all_counts()["conv3d64_fwd"]
+        thread = threading.Thread(target=serve_http,
+                                  args=(server, "127.0.0.1", 0, ready),
+                                  daemon=True)
+        thread.start()
+        if not started.wait(60):
+            fail("the HTTP server did not start")
+        url = f"http://127.0.0.1:{box['httpd'].server_address[1]}"
+        try:
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            http = []   # two requests: each in a new handler thread
+            for i in range(2):
+                req = urllib.request.Request(
+                    f"{url}/generate", headers={"Content-Type":
+                                                "application/json"},
+                    data=json.dumps({"id": f"http{i}", "num_samples": 2,
+                                     "seed": 3 + i}).encode())
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    http.append(json.loads(r.read()))
+        finally:
+            box["httpd"].shutdown()
+            thread.join(timeout=60)
+        launched = all_counts()["conv3d64_fwd"] - before
+        print(f"serve HTTP: healthz {health}; generate "
+              + "; ".join(f"{r.get('id')} ok {r['ok']}, device_ms "
+                          f"{r.get('device_ms')}, latency_ms "
+                          f"{r.get('latency_ms')}" for r in http)
+              + f"; {launched} K1 launches", flush=True)
+        if not health.get("ok") or not all(r["ok"] for r in http) or \
+                launched != 2 * per_batch:
+            fail(f"serve HTTP: {health}, {http}, {launched} launches")
+        # each HTTP request comes in a new handler thread, its batches run
+        # on the server's one device thread: no first-call cost of a new
+        # thread, so its device_ms is a stdio request's of the same size
+        stdio_ms = max(r["device_ms"] for r in resps[:4])
+        http_ms = min(r["device_ms"] for r in http)
+        print(f"serve HTTP against stdio, device_ms of 2 seeded clips: "
+              f"HTTP {http_ms} (the least of 2), stdio {stdio_ms} (the "
+              f"most of 4), bar 1.2x", flush=True)
+        if http_ms > 1.2 * stdio_ms:
+            fail(f"an HTTP request's device_ms {http_ms} is above 1.2x a "
+                 f"stdio request's {stdio_ms}")
+    finally:
+        server.close()
+    counts = all_counts()
+    if counts["plain"] or any(v for k, v in counts.items()
+                              if k not in ("conv3d64_fwd", "plain")):
+        fail(f"the server launched {counts}")
+    return counts
 
 
 def main() -> None:
@@ -1414,7 +1690,17 @@ def main() -> None:
         check_train_card_against_cpu(dev, args.seed, bf16)
         paths[f"training {dtype_name(bf16)}"] = train_main_path(
             dev, args.seed, args.profile, bf16)
-    paths["training CLI f32"] = train_cli_main_path(dev, args.seed)  # 6
+    with tempfile.TemporaryDirectory() as runs:
+        runs = Path(runs)
+        for bf16 in (False, True):                           # phases 6, 6b
+            paths[f"training CLI {dtype_name(bf16)}"] = train_cli_main_path(
+                dev, args.seed, runs / dtype_name(bf16), bf16)
+        for bf16 in (False, True):                           # phase 7
+            paths[f"generate {dtype_name(bf16)}"] = generate_main_path(
+                dev, args.seed, experiment_dir(runs / dtype_name(bf16)),
+                runs / "generate", bf16)
+        paths["serve f32"] = serve_cli_main_path(             # phase 7b
+            dev, args.seed, experiment_dir(runs / "f32"), runs / "serve")
     for name, launched in paths.items():
         print(f"launches, {name} path: {launched}", flush=True)
     for row in rows:

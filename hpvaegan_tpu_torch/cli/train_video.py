@@ -10,7 +10,11 @@ been decoded once into its frames file (``python -m
 hpvaegan_tpu_torch.tools.decode_frames <clip>``).  It trains on the card;
 ``--no-cuda`` trains on the CPU with the kernels' plain versions.  The
 flags are the JAX CLI's; a flag whose feature the port does not have yet
-raises, naming its ROADMAP item, instead of being ignored.
+raises, naming its ROADMAP item, instead of being ignored.  As in the JAX
+CLI, every run opens an event file in its experiment directory
+(``utils/summaries.py``), which ``--visualize`` fills with the scalars
+and sample grids; ``--profile-dir`` writes a ``torch.profiler`` trace per
+scale.
 """
 from __future__ import annotations
 
@@ -23,19 +27,16 @@ from .. import resolve_device
 from ..core.config import build_parser, config_from_args
 from ..data.video import SingleVideoDataset
 from ..models.registry import make_generator
-from ..train.trainer import seeded_generator, train_scale
+from ..train.trainer import train_scale
 from ..utils.logger import LoggingBlock, configure_logging
 from ..utils.saver import VideoSaver, apply_resume
+from ..utils.summaries import TensorboardSummary
+from ..utils.tools import seeded_generator
 
 __all__ = ["main", "check_ported"]
 
 # flag -> (is it asked for?, where its feature waits)
 _UNPORTED = {
-    "--visualize": (lambda c: c.visualize,
-                    "TensorBoard summaries: ROADMAP Queue 1 item 4 (the "
-                    "card's machine has no tensorboardX)"),
-    "--profile-dir": (lambda c: bool(c.profile_dir),
-                      "profiler traces: ROADMAP Queue 1 item 4"),
     "--scan-steps > 1": (lambda c: int(c.scan_steps) > 1,
                          "ROADMAP Queue 1 item 9 (CUDA graphs)"),
     "--fast-grads": (lambda c: c.fast_grads, "ROADMAP Queue 1 item 9"),
@@ -104,6 +105,7 @@ def main(argv: Optional[Sequence[str]] = None,
     seed = cfg.manualSeed
     G = make_generator(cfg.generator, cfg, pyramid, ndim=3)
     G.init(seeded_generator(seed, 7)).to(device)
+    summary = TensorboardSummary(saver.experiment_dir)
     try:
         if cfg.netG != "":
             apply_resume(cfg, G, seeded_generator(seed, 100, device=device))
@@ -132,10 +134,12 @@ def main(argv: Optional[Sequence[str]] = None,
             if callback is not None:
                 def hook(event, it, info, scale=scale):
                     callback(scale, event, it, info)
-            train_scale(cfg, G, dataset=dataset, saver=saver, callback=hook)
+            train_scale(cfg, G, dataset=dataset, saver=saver,
+                        summary=summary, callback=hook)
             cfg.scale_idx += 1
     finally:
         saver.wait()   # a write queued before an error still lands
+        summary.close()
     return cfg
 
 

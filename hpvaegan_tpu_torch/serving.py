@@ -1,9 +1,13 @@
-"""Checkpoint loading + samplers (port of ``hpvaegan_tpu/serving.py:32-279``).
+"""Checkpoint loading + samplers (port of ``hpvaegan_tpu/serving.py:32-279``),
+shared by the one-shot ``cli/generate.py`` and the persistent
+``cli/serve.py`` server.
 
-``SamplerSession`` loads a trained generator once and serves rand-mode and
-rec-mode batches on the card.  PyTorch runs eagerly, so there is no
-per-shape compile to pay: ``warmup`` builds the kernels and settles the
-allocator and cuDNN's first-call set-up instead.
+``SamplerSession`` loads a trained generator once and serves rand, rec
+and inject batches on the card, at the training geometry or at a multiple
+of it (``h/w/t_factor``: the pyramid becomes a ``ScaledPyramid``, as the
+JAX session rebuilds its generator, ``serving.py:148-155``).  PyTorch runs
+eagerly, so there is no per-shape compile to pay: ``warmup`` builds the
+kernels and settles the allocator and cuDNN's first-call set-up instead.
 
 One forced difference from the JAX package: the pyramid geometry.  The
 JAX session decodes the source video with OpenCV only to learn its aspect
@@ -11,19 +15,26 @@ ratio and frame rate (``hpvaegan_tpu/serving.py:127-133``,
 ``data/video.py:67-72``).  The machine with the card has no OpenCV, so the
 port's session reads ``ar`` and ``org_fps`` from the experiment's
 ``config.json`` beside the checkpoint, where training wrote them
-(``Config.snapshot_dict``).  The video itself is not opened, and rec mode
-takes the real zero-scale clip as an array.
+(``Config.snapshot_dict``): rand sampling needs no frames at all.  The
+clip's frames file (``tools/decode_frames.py``) is opened lazily, the
+first time rec or inject mode needs the real clip (``dataset``,
+``rec_input``).
+
+Every sampler takes its draws from a ``torch.Generator`` on the session's
+device, or explicitly (``noise``, ``noises``, ``eps``), so that tests can
+feed the JAX package's draws.
 
 A snapshot with ``bf16: true`` samples in bf16 (the generator reads
 ``cfg.bf16``), as the JAX session does; the JAX sampler returns that bf16
 array, and numpy has no bf16, so the port returns the same values as
-float32.
+float32.  ``write_sample`` writes a clip as an uncompressed AVI
+(``utils/video_io.py``; the JAX package writes MJPG through OpenCV).
 
 It serves 3D ``GeneratorHPVAEGAN`` checkpoints in the port's own format
 and the JAX package's flax-msgpack ``netG`` (``utils/saver.py``
-``restore_generator`` tells them apart by their first byte); the 2D image
-path, the baselines and extrapolated (``h/w/t_factor``) sampling are
-ROADMAP items.
+``restore_generator`` tells them apart by their first byte).  The 2D
+image path and the baselines (ROADMAP Queue 1 items 5 and 7) and a
+sharded batch (``mesh_shape``, item 12) raise.
 """
 from __future__ import annotations
 
@@ -33,15 +44,19 @@ import logging
 import math
 import os
 from functools import reduce
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import resolve_device
 from .core.config import Config
+from .core.pyramid import ScaledPyramid
+from .data.video import SingleVideoDataset
 from .models.registry import make_generator
+from .tools.decode_frames import frames_path
 from .utils.saver import restore_generator
+from .utils.video_io import write_avi
 
 __all__ = ["SNAPSHOT_KEYS", "apply_snapshot", "config_from_cli_args",
            "explicit_cli_keys", "read_geometry", "SamplerSession"]
@@ -72,13 +87,17 @@ def explicit_cli_keys(build_parser, argv=None) -> set:
 
 
 # training-time keys restored from the experiment's config.json snapshot
-# (written at train start); any flag the user passes explicitly wins
+# (written at train start); any flag the user passes explicitly wins.
+# The JAX package's keys, and ``pconv_all``: a run trained with
+# --pconv-all samples with its stage convs on K1 as it trained (the JAX
+# session samples with stock convs whatever the run used; the flag only
+# routes, the weights and the outputs are the same)
 SNAPSHOT_KEYS = (
     "generator", "nc_im", "nfc", "latent_dim", "vae_levels", "enc_blocks",
     "ker_size", "num_layer", "padd_size", "scale_factor", "noise_amp",
     "min_size", "max_size", "img_size", "sampling_rates", "stop_scale_time",
     "start_frame", "max_frames", "train_all", "bf16",
-    "video_path", "image_path",
+    "video_path", "image_path", "pconv_all",
 )
 
 
@@ -141,16 +160,24 @@ def read_geometry(netG: str):
 
 
 class SamplerSession:
-    """A loaded checkpoint with rand/rec samplers on ``device``.
+    """A loaded checkpoint with rand/rec/inject samplers on ``device``.
 
     ``cfg`` must already have the snapshot applied and ``adjust_scales()``
     called by the caller (the CLIs own flag parsing); the session owns the
     geometry, the model and the samplers.  ``device`` defaults to the card
-    and raises when there is none.
+    and raises when there is none.  Each sampler runs under
+    ``torch.inference_mode`` itself (a per-thread mode), so the server's
+    threads may call it.
     """
 
     def __init__(self, cfg: Config, *, batch_size: int = 2,
-                 manual_seed: int = 0, device="cuda"):
+                 manual_seed: int = 0, h_factor: float = 1.0,
+                 w_factor: float = 1.0, t_factor: float = 1.0,
+                 mesh_shape: str = "", device="cuda"):
+        if mesh_shape:
+            raise NotImplementedError(
+                f"mesh_shape={mesh_shape!r}: sampling over several cards "
+                f"is not ported yet (ROADMAP Queue 1 item 12)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch_size = int(batch_size)
@@ -168,7 +195,7 @@ class SamplerSession:
             raise RuntimeError(f"=> no <G> checkpoint found at '{cfg.netG}'")
         cfg.ar, cfg.org_fps = read_geometry(cfg.netG)
         cfg.fps_lcm = reduce(math.lcm, cfg.sampling_rates)
-        pyramid = cfg.pyramid()
+        self.train_pyramid = pyramid = cfg.pyramid()
 
         # weights are built and loaded on the CPU, then moved: the growth
         # replay's stage init draws from a CPU generator either way
@@ -178,6 +205,11 @@ class SamplerSession:
         raw = restore_generator(cfg.netG, G, init_gen)
         self.scale = int(raw["scale"])
         cfg.scale_idx = self.scale
+        # sampling geometry: possibly an extrapolated pyramid (the model
+        # is fully convolutional)
+        if (h_factor, w_factor, t_factor) != (1.0, 1.0, 1.0):
+            pyramid = ScaledPyramid(pyramid, h_factor, w_factor, t_factor)
+            G.pyramid = pyramid
         self.G = G.to(self.device)
         self.pyramid = pyramid
         self.amps = [float(a) for a in raw["noise_amps"]]
@@ -186,46 +218,122 @@ class SamplerSession:
 
         t0, h0, w0 = pyramid.shape3d(0)
         self.noise_shape = (self.batch_size, t0, h0, w0, cfg.latent_dim)
+        self._dataset = None
+        self._rec_input = None
+
+    # ---- the clip (rec and inject modes) ----
+
+    @property
+    def dataset(self) -> SingleVideoDataset:
+        """The training clip at the training geometry, opened from its
+        frames file on first use."""
+        if self._dataset is None:
+            self._dataset = SingleVideoDataset(self.cfg, self.train_pyramid)
+        return self._dataset
+
+    def has_frames(self) -> bool:
+        """Is the clip's frames file there (rec and inject need it)?"""
+        return os.path.isfile(frames_path(self.cfg.video_path))
+
+    def real_clip(self, scale: int) -> np.ndarray:
+        """The real clip (T, H, W, 3) at pyramid level ``scale``: the
+        first window of the clip, unflipped."""
+        self.dataset.generate_frames(scale)
+        cur, _ = self.dataset.get(0, hflip=False, scale_idx=scale)
+        return cur
+
+    def rec_input(self):
+        """``(real_zero batch, real current-scale clip)``: the rec-mode
+        conditioning input, the real sample's zero-scale clip repeated to
+        the batch.  Cached after first use (JAX ``serving.py:226-248``)."""
+        if self._rec_input is None:
+            self.dataset.generate_frames(self.scale)
+            cur, zero = self.dataset.get(0, hflip=False,
+                                         scale_idx=self.scale)
+            if zero is None:
+                zero = cur
+            self._rec_input = (np.stack([zero] * self.batch_size), cur)
+        return self._rec_input
 
     # ---- convenience entry points (one batch each) ----
 
-    def sample_batch(self, generator: Optional[torch.Generator] = None
+    def _generator(self, generator: Optional[torch.Generator]
+                   ) -> torch.Generator:
+        return self.generator if generator is None else generator
+
+    def sample_batch(self, generator: Optional[torch.Generator] = None, *,
+                     noise=None, noises: Optional[Sequence] = None
                      ) -> np.ndarray:
         """One rand-mode batch, NTHWC in [-1, 1], float32 (holding bf16
-        values under ``bf16``): draw the latent noise, run the pyramid
-        (BatchNorm on batch statistics, as in training)."""
-        g = self.generator if generator is None else generator
+        values under ``bf16``): draw the latent ``noise`` (unless given),
+        run the pyramid (BatchNorm on batch statistics, as in training)."""
+        g = self._generator(generator)
         with torch.inference_mode():
-            noise = torch.randn(self.noise_shape, generator=g,
-                                device=self.device)
+            if noise is None:
+                noise = torch.randn(self.noise_shape, generator=g,
+                                    device=self.device)
             out, _, _ = self.G.apply(self.amps, noise_init=noise,
-                                     mode="rand", train=True, generator=g)
+                                     mode="rand", train=True, noises=noises,
+                                     generator=g)
             return out.float().cpu().numpy()
 
-    def reconstruct_batch(self, real_zero: np.ndarray,
-                          generator: Optional[torch.Generator] = None
-                          ) -> np.ndarray:
+    def reconstruct_batch(self, real_zero: Optional[np.ndarray] = None,
+                          generator: Optional[torch.Generator] = None, *,
+                          eps=None) -> np.ndarray:
         """One rec-mode batch from the real zero-scale clip ``real_zero``
-        ((T,H,W,3) for one clip, repeated to the batch, or a batch)."""
+        ((T,H,W,3) for one clip, repeated to the batch, or a batch);
+        by default the clip's own (``rec_input``)."""
+        if real_zero is None:
+            real_zero = self.rec_input()[0]
         real_zero = np.asarray(real_zero, np.float32)
         if real_zero.ndim == 4:
             real_zero = np.stack([real_zero] * self.batch_size)
-        g = self.generator if generator is None else generator
+        g = self._generator(generator)
         with torch.inference_mode():
             out, _, _ = self.G.apply(self.amps, real_zero=real_zero,
-                                     mode="rec", train=True, generator=g)
+                                     mode="rec", train=True, eps=eps,
+                                     generator=g)
             return out.float().cpu().numpy()
+
+    def inject_batch(self, x_init: np.ndarray, start: int,
+                     generator: Optional[torch.Generator] = None, *,
+                     noises: Optional[Sequence] = None) -> np.ndarray:
+        """Refine the clips ``x_init`` (a batch at pyramid level
+        ``start``) from stage ``start`` upward in rand mode, the decoder
+        fed zeros (JAX ``inject_fn``, ``serving.py:203-210``)."""
+        x_init = np.asarray(x_init, np.float32)
+        g = self._generator(generator)
+        with torch.inference_mode():
+            zeros = torch.zeros((x_init.shape[0], *self.noise_shape[1:]),
+                                device=self.device)
+            out, _, _ = self.G.apply(self.amps, noise_init=zeros,
+                                     sample_init=(start, x_init),
+                                     mode="rand", train=True, noises=noises,
+                                     generator=g)
+            return out.float().cpu().numpy()
+
+    def write_sample(self, frame: np.ndarray, path_base: str) -> str:
+        """A [-1, 1] clip (T, H, W, 3) -> ``path_base + ".avi"``,
+        uncompressed at the top scale's frame rate.  Returns the path."""
+        path = path_base + ".avi"
+        write_avi(frame, path, self.pyramid.fps(self.scale))
+        return path
 
     def warmup(self, modes=("rand",)) -> None:
         """Run one batch per mode before serving (kernel build, allocator,
-        cuDNN set-up).  Unknown mode strings raise."""
+        cuDNN set-up).  ``rec`` runs on the clip when its frames file is
+        there, else on zeros.  Unknown mode strings raise."""
         for mode in modes:
             g = torch.Generator(device=self.device).manual_seed(999983)
             if mode == "rand":
                 self.sample_batch(g)
             elif mode == "rec":
-                t0, h0, w0 = self.pyramid.shape3d(0)
-                self.reconstruct_batch(
-                    np.zeros((t0, h0, w0, self.cfg.nc_im), np.float32), g)
+                if self.has_frames():
+                    self.reconstruct_batch(None, g)
+                else:
+                    t0, h0, w0 = self.train_pyramid.shape3d(0)
+                    self.reconstruct_batch(
+                        np.zeros((t0, h0, w0, self.cfg.nc_im), np.float32),
+                        g)
             else:
                 raise ValueError(f"unknown warmup mode {mode!r} (rand|rec)")

@@ -32,13 +32,32 @@ resumed from ``netG_mid`` replays exactly the draws of the run it resumes
 and ends with the same weights.  (The numbers differ from JAX's threefry
 draws; the tests inject JAX's draws into the steps instead.)
 
-Waiting for their ROADMAP items: TensorBoard scalars and sample grids
-(Queue 1 item 4); ``--scan-steps`` and the other fast-path options
-(item 9); the memory ladder (item 8); SPMD (item 12).
+With a ``summary`` (the CLI's ``utils/summaries.TensorboardSummary``)
+and ``--visualize``, every iteration writes the JAX package's scalars
+(``noise_amp``, then ``KLD`` and ``Rec VAE`` or ``rec loss``, ``errG``,
+``errD_fake`` and ``errD_real``, ``trainer.py:382-421``), and every
+``--print-interval``-th iteration, the first included, the five sample
+grids of ``_visualize`` (``:423-425, 471-503``): three rand samples and a
+reconstruction from the current weights.  Those draw from a generator of
+their own, ``(seed, scale, iteration, 7)``, under ``inference_mode``
+without touching the BatchNorm statistics, so a run with
+``--visualize`` ends with the same weights as one without.  They run
+after the step's callback and report themselves to it as the event
+``"visualize"``, so a step's launch counts hold only the step.
+
+``--profile-dir`` traces ten iterations from the first at or past
+iteration 5 with ``torch.profiler`` (CPU, and CUDA on the card), as the
+JAX trainer traces its window (``:216-231``), and writes a Chrome trace
+to ``<profile dir>/scale_<s>/trace.json``.
+
+Waiting for their ROADMAP items: ``--scan-steps`` and the other
+fast-path options (Queue 1 item 9); the memory ladder (item 8); SPMD
+(item 12).
 """
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -48,21 +67,12 @@ from ..data.loader import make_loader
 from ..models.registry import make_discriminator
 from ..utils.profiling import StepTimer
 from ..utils.saver import load_critic
-from ..utils.tools import create_progressbar
+from ..utils.tools import create_progressbar, seeded_generator
 from ..utils.watchdog import Watchdog
 from .optim import build_d_optimizer, build_g_optimizer
 from .steps import calibrate, gan_step, vae_step
 
-__all__ = ["train_scale", "seeded_generator"]
-
-
-def seeded_generator(seed: int, *key: int, device=None) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` whose state depends only on
-    ``(seed, *key)`` (numpy's ``SeedSequence`` mixes them)."""
-    state = np.random.SeedSequence(entropy=int(seed),
-                                   spawn_key=tuple(int(k) for k in key))
-    value = int(state.generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(value)
+__all__ = ["train_scale"]
 
 
 def _z_init_shape(cfg, G) -> Tuple[int, ...]:
@@ -95,7 +105,8 @@ def _calibrate_amp(cfg, G, real, real_zero, scale_idx: int,
 
 
 def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
-                saver=None, D_prev=None, seed: Optional[int] = None,
+                saver=None, summary=None, D_prev=None,
+                seed: Optional[int] = None,
                 callback: Optional[Callable[[str, int, dict], None]] = None):
     """Train scale ``cfg.scale_idx`` of ``G`` (grown to that scale, on its
     device) for ``cfg.niter`` iterations.
@@ -105,7 +116,11 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     previous scale's critic.  ``seed`` defaults to ``cfg.manualSeed``.
     ``callback(event, iteration, info)`` is called after the calibration
     (``"calibrate"``, -1, ``{"rmse", "noise_amp"}``) and after every step
-    (``"step"``, i, metrics).  Appends this scale's amp to
+    (``"step"``, i, metrics), and after each ``--visualize`` sampling
+    (``"visualize"``, i, ``{"seconds", "write_seconds"}``: its wall time,
+    and that of encoding and writing the grids alone).
+    ``summary`` receives the scalars and grids under ``--visualize``.
+    Appends this scale's amp to
     ``cfg.Noise_Amps`` unless it is there already.
 
     Returns ``(G, D or None, [metrics per step])``; the list stays empty
@@ -174,8 +189,15 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
                         context=f"scale {scale_idx} start").start()
     save_interval = int(cfg.save_interval)
     history, amps = [], None
+    profiler = None
+    profile_done = not cfg.profile_dir
     try:
         for it in range(start_it, cfg.niter):
+            if not profile_done and profiler is None and it >= 5:
+                profiler, profile_start = _start_profiler(dev), it
+            elif profiler is not None and it >= profile_start + 10:
+                _stop_profiler(profiler, cfg.profile_dir, scale_idx)
+                profiler, profile_done = None, True
             real, real_zero = next(batches)
             if amps is None:
                 rmse = _calibrate_amp(cfg, G, real, real_zero, scale_idx,
@@ -213,14 +235,31 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
                 f"Iteration [{it + 1}/{cfg.niter}]" + timer.suffix)
             if dataset is None:
                 history.append(metrics)
+            if summary is not None and cfg.visualize:
+                _write_scalars(summary, scale_idx, it,
+                               cfg.Noise_Amps[scale_idx], metrics, gan_phase)
             if callback is not None:
                 callback("step", it, metrics)
+            if summary is not None and cfg.visualize and \
+                    it % cfg.print_interval == 0:
+                t0 = time.perf_counter()
+                write_s = _visualize(cfg, G, amps, real, real_zero,
+                                     _z_init_shape(cfg, G),
+                                     seeded_generator(seed, scale_idx, it, 7,
+                                                      device=dev),
+                                     summary, it)
+                if callback is not None:
+                    callback("visualize", it,
+                             {"seconds": time.perf_counter() - t0,
+                              "write_seconds": write_s})
     except BaseException:
         # the checkpoints below never run on this path: disarm the
         # watchdog so it cannot end a process that handles the error
         watchdog.stop()
         raise
     finally:
+        if profiler is not None:
+            _stop_profiler(profiler, cfg.profile_dir, scale_idx)
         if dataset is not None:
             batches.close()
         bar.close()
@@ -246,3 +285,72 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     finally:
         watchdog.stop()
     return G, D, history
+
+
+def _start_profiler(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str, scale_idx: int) -> None:
+    profiler.stop()
+    out = os.path.join(profile_dir, f"scale_{scale_idx}")
+    os.makedirs(out, exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(out, "trace.json"))
+
+
+def _write_scalars(summary, scale_idx: int, it: int, noise_amp: float,
+                   metrics: dict, gan_phase: bool) -> None:
+    """The JAX trainer's scalars of one iteration (``trainer.py:382-421``;
+    the reference's ``Video/Scale {s}`` tags)."""
+    tag = f"Video/Scale {scale_idx}"
+    summary.add_scalar(f"{tag}/noise_amp", noise_amp, it)
+    names = ((("rec loss", "rec_loss"), ("errG", "errG"),
+              ("errD_fake", "errD_fake"), ("errD_real", "errD_real"))
+             if gan_phase else (("KLD", "kl_loss"),
+                                ("Rec VAE", "rec_vae_loss")))
+    for name, key in names:
+        summary.add_scalar(f"{tag}/{name}", float(metrics[key]), it)
+
+
+def _host(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().cpu().numpy()
+    return np.asarray(t, np.float32)
+
+
+def _visualize(cfg, G, amps, real, real_zero, noise_shape, generator,
+               summary, iteration: int) -> float:
+    """3 independent rand-mode samples and a reconstruction -> the five
+    grids (``trainer.py:471-503``; reference train_video.py:225-241).
+    BatchNorm uses each batch's own statistics and writes none.  Returns
+    the seconds spent encoding and writing the grids (the samples are on
+    the host by then)."""
+    dev = G.device
+    with torch.inference_mode():
+        fakes, fake_vaes = [], []
+        for _ in range(3):
+            noise = torch.randn(noise_shape, generator=generator,
+                                device=dev)
+            fake, fake_vae, _ = G.apply(amps, noise_init=noise, mode="rand",
+                                        train=True, generator=generator)
+            fakes.append(_host(fake))
+            fake_vaes.append(_host(fake_vae))
+        generated, generated_vae, _ = G.apply(
+            amps, real_zero=real_zero, mode="rec", train=True,
+            generator=generator)
+    grids = [(_host(real), "Real"), (_host(generated), "Generated"),
+             (_host(generated_vae), "Generated VAE"),
+             (np.concatenate(fakes), "Fake var"),
+             (np.concatenate(fake_vaes), "Fake VAE var")]
+    viz = (summary.visualize_video if G.ndim == 3
+           else summary.visualize_image)
+    t0 = time.perf_counter()
+    for arr, name in grids:
+        viz(cfg, iteration, arr, name)
+    return time.perf_counter() - t0

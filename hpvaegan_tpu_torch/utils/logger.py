@@ -6,15 +6,19 @@ of ``hpvaegan_tpu/utils/logger.py``; reference utils/logger.py:69-138).
   the console;
 * console lines carry a timestamp (dim on a terminal) and emphasized
   section titles (``==>`` in cyan), the file gets color-stripped lines;
-* ``LoggingBlock`` context managers indent nested sections.
+* ``LoggingBlock`` context managers indent nested sections;
+* ``kept_logging`` gives the root logger's handlers back after a block
+  that configures logging (a CLI run in-process).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import re
 import sys
 
-__all__ = ["configure_logging", "LoggingBlock", "LOGBOOK", "logbook"]
+__all__ = ["configure_logging", "kept_logging", "LoggingBlock", "LOGBOOK",
+           "logbook"]
 
 _ANSI_RE = re.compile(r"\x1b\[[0-9;]*m")
 _INDENT = {"level": 0}
@@ -76,6 +80,23 @@ def configure_logging(logbook_path) -> None:
         fileh.setFormatter(_StripColorFormatter(
             "%(asctime)s %(levelname)s %(message)s", datefmt="%H:%M:%S"))
         root.addHandler(fileh)
+
+
+@contextlib.contextmanager
+def kept_logging():
+    """The training CLIs replace the root logger's handlers; give them
+    back afterwards."""
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        yield
+    finally:
+        for h in list(root.handlers):
+            root.removeHandler(h)
+            h.close()
+        for h in handlers:
+            root.addHandler(h)
+        root.setLevel(level)
 
 
 class LoggingBlock:

@@ -1,5 +1,6 @@
 """A progress reporter mirrored into the logbook (port of
-``hpvaegan_tpu/utils/tools.py``; reference utils/tools.py:12-159).
+``hpvaegan_tpu/utils/tools.py``; reference utils/tools.py:12-159), and
+the seeded ``torch.Generator`` that every entry point draws from.
 
 The JAX package subclasses ``tqdm``; the machine with the card has no
 ``tqdm``, so this is a small bar of its own on stderr: ``desc: pct%|
@@ -13,9 +14,12 @@ from __future__ import annotations
 import sys
 import time
 
+import numpy as np
+import torch
+
 from .logger import logbook as _logbook
 
-__all__ = ["ProgressBar", "create_progressbar"]
+__all__ = ["ProgressBar", "create_progressbar", "seeded_generator"]
 
 _LOG_INTERVAL_S = 10.0   # between lines when stderr is not a terminal
 
@@ -82,3 +86,12 @@ def create_progressbar(total: int, desc: str = "",
     """The bar factory, with the arguments of the JAX package's that the
     port's trainer uses."""
     return ProgressBar(total=total, desc=desc, initial=initial)
+
+
+def seeded_generator(seed: int, *key: int, device=None) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` whose state depends only on
+    ``(seed, *key)`` (numpy's ``SeedSequence`` mixes them)."""
+    state = np.random.SeedSequence(entropy=int(seed),
+                                   spawn_key=tuple(int(k) for k in key))
+    value = int(state.generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(value)

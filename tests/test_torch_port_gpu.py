@@ -538,3 +538,126 @@ def test_training_cli_runs_on_card(cuda_device, tmp_path):
     for name in ["netG", "Noise_Amps", "Noise_Amps.json", "config.json"] + [
             f"netD_{s}" for s in range(2, cfg.stop_scale + 1)]:
         assert os.path.exists(os.path.join(exp, name)), name
+
+
+# ---- the sampling surface: SamplerSession's rand, rec and inject batches
+# and the coalescing server, on the card against the CPU path ----
+
+SAMPLE_CFG = dict(nfc=64, latent_dim=128, num_layer=5, enc_blocks=2,
+                  vae_levels=3, img_size=48, min_size=24, max_size=48,
+                  pconv_all=True, video_path="data/vids/wingsuit.avi")
+
+
+def _sampling_checkpoint(directory, bf16: bool, seed: int = 5) -> str:
+    """A full-width generator with random weights from ``seed`` on a small
+    pyramid, grown to its top scale, saved with its config.json."""
+    import json
+    import os
+
+    from hpvaegan_tpu_torch.utils.saver import save_generator
+    cfg = Config(**SAMPLE_CFG, bf16=bf16)
+    cfg.ar, cfg.org_fps = 144 / 256, 24.0
+    cfg.adjust_scales()
+    gen = torch.Generator().manual_seed(seed)
+    G = make_generator(cfg.generator, cfg, cfg.pyramid(), ndim=3)
+    G.init(gen)
+    for _ in range(cfg.stop_scale):
+        G.init_next_stage(gen)
+    os.makedirs(directory, exist_ok=True)
+    netG = os.path.join(directory, "netG")
+    save_generator(netG, G, cfg.stop_scale,
+                   [1.0] + [cfg.noise_amp] * cfg.stop_scale)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(cfg.snapshot_dict(), f)
+    return netG
+
+
+def _session(netG, device):
+    from hpvaegan_tpu_torch.serving import SamplerSession, apply_snapshot
+    cfg = Config(netG=netG)
+    apply_snapshot(cfg, netG, explicit=set(), user_chose_source=False)
+    cfg.adjust_scales()
+    return SamplerSession(cfg, batch_size=2, manual_seed=0, device=device)
+
+
+def _three_modes(sess, seed: int = 9):
+    """Rand, rec and inject-from-1 batches on draws made from ``seed``."""
+    pyr, scale = sess.pyramid, sess.scale
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    noises = [draw(2, *pyr.shape3d(i + 1), 3) for i in range(scale)]
+    return {
+        "rand": sess.sample_batch(noise=draw(*sess.noise_shape),
+                                  noises=noises),
+        "rec": sess.reconstruct_batch(
+            np.tanh(draw(2, *pyr.shape3d(0), 3)),
+            eps=draw(2, *pyr.shape3d(0), sess.cfg.latent_dim)),
+        "inject": sess.inject_batch(np.tanh(draw(2, *pyr.shape3d(1), 3)), 1,
+                                    noises=noises)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_session_batches_match_the_cpu_path_on_card(cuda_device, tmp_path,
+                                                    bf16):
+    """chip_smoke.py's bars: f32 within the tests' f32 bar; bf16 no
+    further from the CPU bf16 path, in RMS, than the CPU bf16 path is from
+    the CPU f32 path on the same weights and draws (nor twice that in
+    max)."""
+    netG = _sampling_checkpoint(tmp_path / "run", bf16)
+    cp.counts.reset()
+    card = _three_modes(_session(netG, cuda_device))
+    torch.cuda.synchronize()
+    launches = cp.counts.fwd_bf16_launches if bf16 else cp.counts.fwd_launches
+    assert launches > 0 and cp.counts.plain_calls == 0
+    cpu = _three_modes(_session(netG, "cpu"))
+    if bf16:
+        f32 = _three_modes(_session(
+            _sampling_checkpoint(tmp_path / "f32", False), "cpu"))
+    for mode in ("rand", "rec", "inject"):
+        assert card[mode].shape == cpu[mode].shape
+        assert np.all(np.isfinite(card[mode]))
+        if not bf16:
+            np.testing.assert_allclose(card[mode], cpu[mode], rtol=RTOL,
+                                       atol=ATOL)
+            continue
+        diff, noise = card[mode] - cpu[mode], cpu[mode] - f32[mode]
+        rms = float(np.sqrt(np.mean(diff ** 2)))
+        bar = float(np.sqrt(np.mean(noise ** 2)))
+        assert rms <= bar, (mode, rms, bar)
+        assert np.abs(diff).max() <= 2 * np.abs(noise).max(), mode
+
+
+@pytest.mark.gpu
+def test_coalesced_requests_on_card_are_distinct(cuda_device, tmp_path):
+    import threading
+
+    from hpvaegan_tpu_torch.cli.serve import Server
+    from hpvaegan_tpu_torch.utils.video_io import read_avi
+    sess = _session(_sampling_checkpoint(tmp_path / "run", False),
+                    cuda_device)
+    server = Server(sess, str(tmp_path / "out"), default_num=1, seed0=0,
+                    coalesce_ms=500.0)
+    resps = [None] * 4
+
+    def go(i):
+        resps[i] = server.handle({"num_samples": 1, "prefix": f"c{i}"})
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        server.close()
+    assert not any(t.is_alive() for t in threads)
+    assert all(r is not None and r["ok"] for r in resps), resps
+    assert server.coalescer.dispatches <= 2
+    clips = [read_avi(r["paths"][0])[0].astype(int) for r in resps]
+    for i in range(4):
+        for j in range(i + 1, 4):
+            assert np.abs(clips[i] - clips[j]).mean() > 0, (i, j)

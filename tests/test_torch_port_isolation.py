@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
 package, nor any package the card's machine lacks (flax, msgpack, tqdm,
-tensorboardX, OpenCV), and none of its sources imports them; only the
-frames tool imports OpenCV, which no other module imports."""
+tensorboard, tensorboardX, moviepy, PIL, OpenCV), and none of its
+sources, nor chip_smoke.py, imports them; only the frames tool imports
+OpenCV, which no other module imports."""
 import pathlib
 import re
 import subprocess
@@ -27,9 +28,14 @@ import hpvaegan_tpu_torch.utils.saver
 import hpvaegan_tpu_torch.data.video
 import hpvaegan_tpu_torch.data.loader
 import hpvaegan_tpu_torch.cli.train_video
+import hpvaegan_tpu_torch.cli.generate
+import hpvaegan_tpu_torch.cli.serve
+import hpvaegan_tpu_torch.eval
+import hpvaegan_tpu_torch.utils.summaries
+import hpvaegan_tpu_torch.utils.video_io
 import hpvaegan_tpu_torch.tools.decode_frames
-banned = {"jax", "flax", "optax", "cv2", "msgpack", "imageio", "tensorboardX",
-          "tqdm"}
+banned = {"jax", "flax", "optax", "cv2", "msgpack", "imageio", "tensorboard",
+          "tensorboardX", "moviepy", "PIL", "tqdm"}
 loaded = sorted(m for m in set(sys.modules) - before
                 if m.split(".")[0] in banned
                 or m == "hpvaegan_tpu" or m.startswith("hpvaegan_tpu."))
@@ -49,8 +55,8 @@ def _importing(names):
 
 
 def test_sources_import_no_jax_and_no_jax_package():
-    pattern = _importing(r"jax|flax|optax|msgpack|tqdm|tensorboardX|imageio"
-                         r"|hpvaegan_tpu")
+    pattern = _importing(r"jax|flax|optax|msgpack|tqdm|tensorboard"
+                         r"|tensorboardX|moviepy|PIL|imageio|hpvaegan_tpu")
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10
     offenders = [str(p.relative_to(REPO)) for p in sources

@@ -203,7 +203,7 @@ def test_netG_mid_resume_ends_with_the_uninterrupted_weights(clip,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--visualize"], ["--profile-dir", "p"], ["--scan-steps", "2"],
+    ["--scan-steps", "2"],
     ["--fast-grads"], ["--fused-forwards"], ["--hoist-prefix"], ["--remat"],
     ["--remat-blocks"], ["--gp-chunked"], ["--spmd"], ["--mesh-shape", "2x1"],
     ["--distributed"], ["--compile-ahead"], ["--wpack"]])
