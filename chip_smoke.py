@@ -91,10 +91,29 @@ Phases; any failure exits non-zero and prints no result:
    ``device_ms`` stays within 1.2x a stdio request's of the same size
    (all run on the server's one device thread); each response's
    ``device_ms`` and ``latency_ms`` printed, any ``ok: false`` fails;
-8. a ``{"kernels": [...]}`` line (eleven rows: four kernels in f32 and
-   in bf16, each with its launches over the main-path runs, and K3's
-   three instances with their own phase's), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. the sharded path, with the ranks sharing this one card over gloo
+   (NCCL refuses two ranks of a group on one device), each a process of
+   this script started through the ``--distributed`` launcher's
+   environment, every rank's output printed and any rank's failure
+   failing the run.  These time correctness, not multi-GPU scaling:
+   8a. K4 (``ops/kernels/conv3d_spmd.py``) on 1x2 and 2x2 meshes at the
+       critic's (4, 13, 144, 256, 64), f32 and bf16: y, dx and dw summed
+       over the ranks against K1 on the whole volume and against the
+       plain composition; per rank the K4 call, the exchange, the plain
+       composition and ``F.conv3d`` on the haloed block with all ranks at
+       once, and K1 and ``F.conv3d`` on the haloed block alone, beside
+       K1's bound on that block;
+   8b. ``cli.train_video --spmd --mesh-shape 1x2 --distributed --pconv
+       --pconv-all`` on the clip, two ranks, all ten scales at ``--niter
+       2``, f32 and ``--bf16``: per rank each step's time, peak memory and
+       launches (145 K4 / K1-fwd, 80 K1-dx, 75 K1-dw a scale-9 GAN step);
+       the first scale-9 GAN step's metrics and its gradients before the
+       update held against a single-process ``train_scale`` from the same
+       scale-8 checkpoint (no ``--pfuse``, which ``--spmd`` turns off);
+9. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
+   in bf16 and K4 in both, each with its launches over the main-path
+   runs, and K3's three instances with their own phase's), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1605,10 +1624,549 @@ def serve_cli_main_path(dev, seed: int, exp: Path, out_dir: Path):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the sharded path, ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+SHARDED_MESHES = {2: (1, 2), 4: (2, 2)}     # world -> K4's meshes
+CLI_MESH = "1x2"                            # the sharded CLI's mesh
+RANK_TIMEOUT_S = 900
+K4_ITERS = 5
+# launches of one scale-9 GAN step under --spmd --pconv --pconv-all on a
+# rank: --pfuse is off under --spmd, so the critic body's five convs run
+# K1 through K4 (GAN_STEP_LAUNCHES with K2's pairs as single convs)
+SHARDED_STEP_LAUNCHES = {"conv3d64_fwd": 145, "conv3d64_pair": 0,
+                         "conv3d64_dx": 80, "conv3d64_dw": 75,
+                         "conv3d64_spmd": 145}
+SHARDED = "ranks sharing one card over gloo"
+
+
+def sharded_label() -> str:
+    """How phase 8's figures were taken, with the card's name and power
+    limit."""
+    return f"{SHARDED}: {card_line()}"
+
+
+def sharded_flags(seed: int, bf16: bool) -> list:
+    """The flags of phase 8b's runs, less the mesh's and the run dir."""
+    return (["--video-path", str(ROOT / MAIN_CFG["video_path"]), "--niter",
+             "2", "--pconv", "--pconv-all", "--manualSeed", str(seed)]
+            + (["--bf16"] if bf16 else []))
+
+
+def spmd_counts() -> dict:
+    """all_counts() with K4's compositions (f32 and bf16)."""
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4
+    c = all_counts()
+    c.update(conv3d64_spmd=k4.counts.launches,
+             conv3d64_spmd_bf16=k4.counts.bf16_launches)
+    c["plain"] += k4.counts.plain_calls
+    return c
+
+
+def run_ranks(world: int, argv, label: str):
+    """``world`` ranks of this script (``argv`` after ``--rank``) through
+    the launcher's environment (HPVAEGAN_*), all on this card; their
+    output is printed by rank once they end.  Any rank's failure, or a
+    group that outlives RANK_TIMEOUT_S, stops the others and fails the
+    run."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    procs = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logs:
+        files = [open(Path(logs) / f"rank{r}.log", "w+") for r in
+                 range(world)]
+        try:
+            for rank in range(world):
+                env = dict(os.environ, HPVAEGAN_COORDINATOR=coordinator,
+                           HPVAEGAN_NUM_PROCESSES=str(world),
+                           HPVAEGAN_PROCESS_ID=str(rank))
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--rank", *argv], cwd=str(ROOT), env=env,
+                    stdout=files[rank], stderr=subprocess.STDOUT))
+            failed = None
+            while failed is None:
+                codes = [p.poll() for p in procs]
+                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if bad:
+                    failed = f"rank {bad[0]} exited with {codes[bad[0]]}"
+                elif all(c == 0 for c in codes):
+                    break
+                elif time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                    failed = f"the ranks outlived {RANK_TIMEOUT_S} s"
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for rank, f in enumerate(files):
+                f.seek(0)
+                for line in f.read().splitlines():
+                    if not line.startswith(("Training scale", "Scale [")):
+                        print(f"[{label} rank {rank}] {line}", flush=True)
+                f.close()
+    if failed:
+        fail(f"{label}: {failed}")
+    print(f"{label}: {world} ranks done in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def _concurrent_ms(fn, iters: int) -> float:
+    """Host-clock ms a call of ``fn``, every rank of the group calling it
+    at the same time (a barrier before), the card synchronised."""
+    import torch
+    import torch.distributed as dist
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _alone_ms(fn, iters: int) -> float:
+    """``time_ms`` of ``fn`` on this rank while the others wait at a
+    barrier (one rank at a time on the card)."""
+    import torch.distributed as dist
+    out = None
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn == dist.get_rank():
+            out = time_ms(fn, iters)
+    dist.barrier()
+    return out
+
+
+def rank_k4(out: Path, seed: int) -> None:
+    """One rank of phase 8a: K4 at the critic's shape on this rank's mesh
+    (1x2 with two ranks, 2x2 with four), f32 and bf16, held against K1 on
+    the whole volume (every rank runs it itself) and against the plain
+    composition; its timings; a JSON result in ``out``."""
+    import torch
+    import torch.nn.functional as F
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4
+    from hpvaegan_tpu_torch.parallel import make_mesh, maybe_initialize
+    from hpvaegan_tpu_torch.parallel.distributed import all_reduce_, backend
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = maybe_initialize(True, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(SHARDED_MESHES[world])
+    H = CRITIC_SHAPE[2]
+    h0, h1 = mesh.block(H)
+    b0, b1 = mesh.batch_rows(CRITIC_SHAPE[0])
+    halo_shape = (b1 - b0, CRITIC_SHAPE[1], h1 - h0 + 2, *CRITIC_SHAPE[3:])
+    label = sharded_label()
+    print(f"mesh {mesh.shape} position {(mesh.data_index, mesh.spatial_index)}"
+          f", backend {backend()} on {dev} ({label}), rows [{h0}, {h1}) "
+          f"of {H}, batch rows [{b0}, {b1}), haloed block {halo_shape}",
+          flush=True)
+    result = {"rank": rank, "mesh": list(mesh.shape), "backend": backend(),
+              "halo_shape": list(halo_shape)}
+    for bf16 in (False, True):
+        name = dtype_name(bf16)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x, w, b = conv_inputs(dev, g, CRITIC_SHAPE)
+        dy = torch.randn(CRITIC_SHAPE, device=dev, generator=g)
+        if bf16:
+            x, dy = x.bfloat16(), dy.bfloat16()
+        # single-process K1 on the whole volume
+        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y_ref = cp.conv3d64(xr, wr, br)
+        y_ref.backward(dy)
+        # K4 on this rank's block, then the plain composition
+        got = {}
+        for fn in (k4.conv3d64_spmd, k4.conv3d64_spmd_plain):
+            xl = mesh.shard(x, 2).requires_grad_(True)
+            wl, bl = (t.clone().requires_grad_(True) for t in (w, b))
+            y = fn(xl, wl, bl, mesh)
+            y.backward(mesh.shard(dy, 2))
+            got[fn.__name__] = (y.detach(), xl.grad,
+                                all_reduce_(wl.grad.clone()),
+                                all_reduce_(bl.grad.clone()))
+        y, dx, dw, db = got["conv3d64_spmd"]
+        # bf16: y rounds once (1 ulp); dx's edge rows add the neighbours'
+        # halo cotangents in bf16 after the kernel's rounding (2 ulp); dw
+        # and db are f32 sums of the same products, but the plain
+        # composition's autograd rounds them to bf16 through its cast of
+        # w and b (1 ulp)
+        tol_y = tol_wb = BF16_TOL if bf16 else KERNEL_TOL
+        tol_dx = BF16_TOL2 if bf16 else KERNEL_TOL
+        errs = [check_close(f"K4 {name} {mesh.shape} rank {rank} y vs K1 "
+                            f"on the whole volume", y,
+                            mesh.shard(y_ref.detach(), 2), tol_y),
+                check_close(f"K4 {name} {mesh.shape} rank {rank} dx vs K1",
+                            dx, mesh.shard(xr.grad, 2), tol_dx),
+                check_close(f"K4 {name} {mesh.shape} rank {rank} dw (summed "
+                            f"over the ranks) vs K1", dw, wr.grad),
+                check_close(f"K4 {name} {mesh.shape} rank {rank} db vs K1",
+                            db, br.grad)]
+        # K4 against its plain version: the kernels row's max_abs_err is
+        # y's, as every other row's is its output's
+        plain_errs = [check_close(
+            f"K4 {name} {mesh.shape} rank {rank} {what} vs the plain "
+            f"composition", got["conv3d64_spmd"][i],
+            got["conv3d64_spmd_plain"][i], tol)
+            for i, (what, tol) in enumerate((("y", tol_y), ("dx", tol_dx),
+                                             ("dw", tol_wb),
+                                             ("db", tol_wb)))]
+        del xr, wr, br, y_ref, got, y, dx, dw, db
+        torch.cuda.empty_cache()
+
+        with torch.no_grad():
+            xl = mesh.shard(x, 2)
+            z = k4.halo(xl, mesh, 2)
+            zc = ncdhw(z)
+            wc, bc = oi(w).to(x.dtype), b.to(x.dtype)
+            row = {
+                "max_abs_err": plain_errs[0],
+                "max_abs_err_vs_whole_k1": errs,
+                "k4_ms": _concurrent_ms(
+                    lambda: k4.conv3d64_spmd(xl, w, b, mesh), K4_ITERS),
+                "plain_ms": _concurrent_ms(
+                    lambda: k4.conv3d64_spmd_plain(xl, w, b, mesh), 2),
+                "exchange_ms": _concurrent_ms(
+                    lambda: k4.halo(xl, mesh, 2), K4_ITERS),
+                "library_ms": _concurrent_ms(
+                    lambda: F.conv3d(zc, wc, bc, padding=1), K4_ITERS),
+                "k1_alone_ms": _alone_ms(lambda: cp.conv3d64(z, w, b),
+                                         K4_ITERS),
+                "library_alone_ms": _alone_ms(
+                    lambda: F.conv3d(zc, wc, bc, padding=1), K4_ITERS),
+            }
+        row["bound_ms"], row["bound_by"] = k1_bound(halo_shape, bf16=bf16)
+        print(f"K4 {name} {mesh.shape} rank {rank} ({label}): the K4 call "
+              f"{row['k4_ms']:.4f} ms (exchange {row['exchange_ms']:.4f}), "
+              f"the plain composition {row['plain_ms']:.4f}, F.conv3d on "
+              f"the haloed block {row['library_ms']:.4f}, all ranks at once;"
+              f" alone: K1 on the haloed block {row['k1_alone_ms']:.4f} ms "
+              f"against its bound {row['bound_ms']:.4f} (k1_bound x "
+              f"{halo_shape[0] * halo_shape[2]}/{CRITIC_SHAPE[0] * H} of the "
+              f"volume), F.conv3d {row['library_alone_ms']:.4f}", flush=True)
+        result[name] = row
+        del x, dy, xl, z, zc
+        torch.cuda.empty_cache()
+    (out / f"k4_{world}_{rank}.json").write_text(json.dumps(result))
+
+
+def rank_train(out: Path, seed: int, bf16: bool) -> None:
+    """One rank of phase 8b: the training CLI, ``--spmd --mesh-shape 1x2
+    --distributed --pconv --pconv-all`` on the clip, all ten scales at
+    ``--niter 2``.  Each step's wall time, peak memory and launches;
+    K4's launches per scale-9 GAN step checked; the first scale-9 GAN
+    step's metrics and the gradients that reach Adam (every optimizer
+    step's, through a global step hook) saved, with the updated critic's
+    tail bias; rank 0 copies scale 8's netG and netD_8 before scale 9
+    trains, for the single-process reference."""
+    import shutil
+
+    import torch
+    from torch.optim.optimizer import (register_optimizer_step_post_hook,
+                                       register_optimizer_step_pre_hook)
+    from hpvaegan_tpu_torch.cli import train_video
+    from hpvaegan_tpu_torch.utils.logger import kept_logging
+
+    sfx, name = ("_bf16" if bf16 else ""), f"sharded CLI {dtype_name(bf16)}"
+    stdout = sys.stdout
+    want = {**{k: 0 for k in spmd_counts()},
+            **{f"{k}{sfx}": n for k, n in SHARDED_STEP_LAUNCHES.items()}}
+    run_dir = out / f"run_{dtype_name(bf16)}"
+    state = {"t": 0.0, "counts": None, "record": False, "steps": [],
+             "after": [], "metrics": None, "wall": [], "peak": [],
+             "k4": 0}
+
+    def grads(opt, args, kwargs):
+        if state["record"]:
+            state["steps"].append([None if p.grad is None else
+                                   p.grad.detach().cpu().clone()
+                                   for grp in opt.param_groups
+                                   for p in grp["params"]])
+
+    def params(opt, args, kwargs):
+        if state["record"]:
+            state["after"].append(opt.param_groups[-1]["params"][-1]
+                                  .detach().cpu().clone())
+
+    def mark():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state["t"], state["counts"] = time.perf_counter(), spmd_counts()
+
+    def on_event(scale, event, it, info):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - state["t"]
+        now = spmd_counts()
+        delta = {k: now[k] - state["counts"][k] for k in now}
+        peak = torch.cuda.max_memory_allocated()
+        values = {k: float(v) for k, v in info.items()}
+        print(f"{name} scale {scale} {event} {it}: {wall:.4f} s, {values}, "
+              f"peak memory {peak} bytes, launches "
+              f"{ {k: v for k, v in delta.items() if v} }", file=stdout,
+              flush=True)
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"{name} scale {scale} {event} {it}: a value is not finite")
+        if delta["plain"]:
+            fail(f"the plain versions ran {delta['plain']} times")
+        if scale == SCALE and event == "calibrate":
+            if rank == 0:   # scale 8's files, complete since its barrier
+                exp = experiment_dir(run_dir)
+                shutil.copy(exp / "netG", out / f"netG_8_{dtype_name(bf16)}")
+                shutil.copy(exp / f"netD_{SCALE - 1}",
+                            out / f"netD_8_{dtype_name(bf16)}")
+            state["record"] = True
+        if event == "step":
+            state["k4"] += delta[f"conv3d64_spmd{sfx}"]
+            if scale == SCALE:
+                state["wall"].append(wall)
+                state["peak"].append(peak)
+                if delta != want:
+                    fail(f"a scale-{scale} GAN step of the {name} run "
+                         f"launched {delta}, want {want}")
+                if it == 0:
+                    state["record"] = False
+                    state["metrics"] = values
+        mark()
+
+    from hpvaegan_tpu_torch.parallel import maybe_initialize
+    rank, world = maybe_initialize(True, device_type="cuda")
+    flags = sharded_flags(seed, bf16) + [
+        "--run-dir", str(run_dir), "--spmd", "--mesh-shape", CLI_MESH,
+        "--distributed"]
+    hooks = [register_optimizer_step_pre_hook(grads),
+             register_optimizer_step_post_hook(params)]
+    t0 = time.perf_counter()
+    console = io.StringIO()   # the CLI's console log (rank 0: logbook.txt)
+    with kept_logging(), contextlib.redirect_stdout(console):
+        mark()
+        cfg = train_video.main(flags, callback=on_event)
+    for h in hooks:
+        h.remove()
+    if len(state["steps"]) != 2 or state["metrics"] is None:
+        fail(f"{name}: recorded {len(state['steps'])} optimizer steps of "
+             f"the first scale-{SCALE} GAN step, want 2")
+    print(f"{name} rank {rank} ({sharded_label()}): {cfg.stop_scale + 1} "
+          f"scales in "
+          f"{time.perf_counter() - t0:.3f} s; scale-{SCALE} GAN steps "
+          f"{[round(w, 4) for w in state['wall']]} s, peak memory "
+          f"{state['peak']} bytes; K4 launches in the run {state['k4']}",
+          flush=True)
+    torch.save({"grads": state["steps"], "tail_bias": state["after"][0],
+                "metrics": state["metrics"]},
+               out / f"step_{dtype_name(bf16)}_{rank}.pt")
+    (out / f"train_{dtype_name(bf16)}_{rank}.json").write_text(json.dumps(
+        {"k4": state["k4"], "wall": state["wall"], "peak": state["peak"],
+         "counts": spmd_counts()}))
+
+
+def reference_step(dev, seed: int, out: Path, bf16: bool):
+    """The first scale-9 GAN step of a single-process run of the sharded
+    CLI run's flags (no --spmd, so no mesh; no --pfuse, as --spmd turns
+    it off), in memory through ``train_scale``: scale 8's netG and
+    netD_8 from the sharded run, stage 9 grown and the scale's loader,
+    draws and calibration as the CLI makes them.  Returns its metrics,
+    the gradients of its two optimizer steps and its critic's updated
+    tail bias."""
+    import torch
+    from torch.optim.optimizer import (register_optimizer_step_post_hook,
+                                       register_optimizer_step_pre_hook)
+    from hpvaegan_tpu_torch.core.config import build_parser, config_from_args
+    from hpvaegan_tpu_torch.data.loader import make_loader
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+    from hpvaegan_tpu_torch.models.registry import (make_discriminator,
+                                                    make_generator)
+    from hpvaegan_tpu_torch.train.trainer import train_scale
+    from hpvaegan_tpu_torch.utils.saver import load_critic, restore_generator
+    from hpvaegan_tpu_torch.utils.tools import seeded_generator
+
+    name = dtype_name(bf16)
+    cfg = config_from_args(build_parser("video").parse_args(
+        sharded_flags(seed, bf16)))
+    cfg.niter = 1
+    cfg.adjust_scales()
+    dataset = SingleVideoDataset(cfg)
+    pyr = dataset.pyramid
+    G = make_generator(cfg.generator, cfg, pyr, ndim=3)
+    G.init(seeded_generator(seed, 7)).to(dev)
+    raw = restore_generator(str(out / f"netG_8_{name}"), G)
+    G.init_next_stage(seeded_generator(seed, 100 + SCALE, device=dev))
+    D_prev = make_discriminator(cfg.discriminator, cfg, 3).to(dev)
+    load_critic(str(out / f"netD_8_{name}"), D_prev)
+    cfg.scale_idx, cfg.resumed_idx = SCALE, -1
+    cfg.Noise_Amps = [float(a) for a in raw["noise_amps"]]
+    cfg.fps, cfg.td = pyr.fps(SCALE), pyr.td(SCALE)
+    cfg.fps_index = pyr.fps_index(SCALE)
+    h0, w0 = pyr.shape2d(0)
+    # the quirk, as the CLI set it at the first scale it trained
+    cfg.Z_init_size = [cfg.batch_size, pyr.td(0), h0, w0, cfg.latent_dim]
+    dataset.generate_frames(SCALE)
+    steps, after = [], []
+
+    def grads(opt, args, kwargs):
+        steps.append([None if p.grad is None else
+                      p.grad.detach().cpu().clone()
+                      for grp in opt.param_groups for p in grp["params"]])
+
+    def params(opt, args, kwargs):
+        after.append(opt.param_groups[-1]["params"][-1].detach().cpu()
+                     .clone())
+
+    hooks = [register_optimizer_step_pre_hook(grads),
+             register_optimizer_step_post_hook(params)]
+    batches = make_loader(dataset, cfg, seed, SCALE, dev)
+    try:
+        _, _, hist = train_scale(cfg, G, batches, D_prev=D_prev, seed=seed)
+    finally:
+        batches.close()
+        for h in hooks:
+            h.remove()
+    return ({k: float(v) for k, v in hist[0].items()}, steps, after[0])
+
+
+def sharded_main_path(dev, seed: int):
+    """Phase 8: K4 on 1x2 and 2x2 meshes of ranks on this card (8a), then
+    the sharded training CLI in f32 and under --bf16 (8b), its first
+    scale-9 GAN step held against the single-process reference.  Returns
+    (the K4 kernel rows, the launches of the sharded CLI runs summed over
+    the ranks)."""
+    import torch
+    out = Path(tempfile.mkdtemp(prefix="sharded_"))
+    try:
+        k4 = {}
+        for world in SHARDED_MESHES:                          # phase 8a
+            run_ranks(world, ["k4", "--out", str(out), "--seed", str(seed)],
+                      f"K4 {SHARDED_MESHES[world]}")
+            k4[world] = [json.loads((out / f"k4_{world}_{r}.json")
+                                    .read_text()) for r in range(world)]
+            if any(r["backend"] != "gloo" for r in k4[world]):
+                fail(f"ranks sharing a card must talk over gloo: {k4[world]}")
+        launched = {}
+        for bf16 in (False, True):                            # phase 8b
+            name = dtype_name(bf16)
+            reset_counts()
+            run_ranks(2, ["train", "--out", str(out), "--seed", str(seed)]
+                      + (["--bf16"] if bf16 else []), f"sharded CLI {name}")
+            ranks = [json.loads((out / f"train_{name}_{r}.json").read_text())
+                     for r in range(2)]
+            for key in ranks[0]["counts"]:
+                launched[key] = launched.get(key, 0) + sum(
+                    r["counts"][key] for r in ranks)
+            got = [torch.load(out / f"step_{name}_{r}.pt",
+                              weights_only=False) for r in range(2)]
+            for a, b in zip(got[0]["grads"], got[1]["grads"]):
+                for ga, gb in zip(a, b):
+                    if (ga is None) != (gb is None) or (
+                            ga is not None and not torch.equal(ga, gb)):
+                        fail(f"the ranks' summed gradients differ ({name})")
+            ref_metrics, ref_steps, ref_tail = reference_step(dev, seed, out,
+                                                              bf16)
+            check_sharded_step(name, bf16, got[0], ref_metrics, ref_steps,
+                               ref_tail)
+            torch.cuda.empty_cache()
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4_mod
+    label = sharded_label()
+    rows = []
+    for bf16 in (False, True):
+        name = dtype_name(bf16)
+        r0 = k4[2][0][name]   # rank 0 of the 1x2 mesh, the CLI's
+        rows.append({
+            "name": f"conv3d64_spmd{'_bf16' if bf16 else ''}",
+            "route": "cuda", "source": f"{k4_mod.SOURCE} (around "
+            f"{cp.SOURCE}, {cp.DW_SOURCE})", "replaces": k4_mod.REPLACES,
+            "launches": None,
+            "max_abs_err": max(r[name]["max_abs_err"] for w in k4
+                               for r in k4[w]),
+            "ms": r0["k4_ms"], "plain_ms": r0["plain_ms"],
+            "bound_ms": r0["bound_ms"], "bound_by": r0["bound_by"],
+            "library_ms": r0["library_ms"],
+            "timed": f"mesh 1x2 rank 0, {label}, all ranks at once; the "
+                     f"bound and F.conv3d on its haloed block "
+                     f"{k4[2][0]['halo_shape']}",
+            "per_rank": {f"{w}": [{k: r[name][k] for k in
+                                   ("k4_ms", "exchange_ms", "k1_alone_ms",
+                                    "library_alone_ms", "bound_ms")}
+                                  for r in k4[w]] for w in k4}})
+    return rows, launched
+
+
+def check_sharded_step(name: str, bf16: bool, got: dict, ref_metrics: dict,
+                       ref_steps: list, ref_tail) -> None:
+    """The sharded run's first scale-9 GAN step against the single-process
+    reference: every metric and the gradients of both optimizer steps
+    (critic, generator) at the card-vs-CPU bars (f32: the tests' rtol /
+    atol; bf16: BF16_MODEL_BAR of max(1, max|ref|)).  errG and the total
+    read the critic after its Adam step, and the critic tail's bias has
+    an exact gradient of 0, so Adam moves it by rounding noise times up
+    to lr_d: those two metrics may differ by the measured difference of
+    that bias (errG sums it one for one, times disc_loss_weight = 1)."""
+    import numpy as np
+    drift = abs(float(got["tail_bias"]) - float(ref_tail))
+
+    def close(a, b, extra=0.0):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err = float(np.max(np.abs(a - b))) if a.size else 0.0
+        if bf16:
+            return err, err <= BF16_MODEL_BAR * max(
+                1.0, float(np.abs(b).max())) + extra
+        return err, bool(np.all(np.abs(a - b) <= ATOL + RTOL * np.abs(b)
+                                + extra))
+
+    worst = 0.0
+    for key, value in ref_metrics.items():
+        extra = drift if key in ("errG", "loss") else 0.0
+        err, ok = close(got["metrics"][key], value, extra)
+        print(f"{name} first scale-{SCALE} GAN step {key}: sharded "
+              f"{got['metrics'][key]:.6f}, single process {value:.6f}",
+              flush=True)
+        if not ok:
+            fail(f"{name}: the sharded step's {key} disagrees with the "
+                 f"single-process step ({got['metrics'][key]} against "
+                 f"{value})")
+        worst = max(worst, err)
+    if len(ref_steps) != 2 or len(got["grads"]) != 2:
+        fail(f"{name}: {len(ref_steps)} reference optimizer steps")
+    for which, a, b in zip(("critic", "generator"), got["grads"], ref_steps):
+        if len(a) != len(b):
+            fail(f"{name}: {which} gradients {len(a)} against {len(b)}")
+        g_worst = 0.0
+        for i, (ga, gb) in enumerate(zip(a, b)):
+            if (ga is None) != (gb is None):
+                fail(f"{name}: {which} gradient {i} is missing on one side")
+            if ga is None:
+                continue
+            err, ok = close(ga.float().numpy(), gb.float().numpy())
+            if not ok:
+                fail(f"{name}: the sharded step's {which} gradient {i} "
+                     f"{tuple(ga.shape)} disagrees, max_abs_err {err:.3e}")
+            g_worst = max(g_worst, err)
+        print(f"{name} first scale-{SCALE} GAN step, {which} gradients "
+              f"before the update: {len(a)} tensors agree with the single-"
+              f"process step, max_abs_err {g_worst:.3e}", flush=True)
+    print(f"{name}: the sharded first scale-{SCALE} GAN step agrees with "
+          f"the single-process one (metrics max_abs_err {worst:.3e}; the "
+          f"critic tail bias moved {drift:.3e} apart)", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    # phase 8 starts its ranks as this script with --rank (the launcher's
+    # environment names each rank)
+    ap.add_argument("--rank", choices=("k4", "train"), help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1617,6 +2175,10 @@ def main() -> None:
     if not (ROOT / "hpvaegan_tpu_torch" / "csrc").is_dir():
         fail(f"no hpvaegan_tpu_torch/ beside {__file__}: run from the "
              f"root of the repository")
+    if args.rank == "k4":
+        return rank_k4(Path(args.out), args.seed)
+    if args.rank == "train":
+        return rank_train(Path(args.out), args.seed, args.bf16)
     # phases 3-4 with TF32 off: the f32 kernels' references (plain
     # versions, cuDNN yardsticks) and the bf16 plain versions' f32 sums are
     # full f32.  Phase 5 runs with PyTorch's own defaults, so that the
@@ -1701,10 +2263,13 @@ def main() -> None:
                 runs / "generate", bf16)
         paths["serve f32"] = serve_cli_main_path(             # phase 7b
             dev, args.seed, experiment_dir(runs / "f32"), runs / "serve")
+    torch.cuda.empty_cache()
+    k4_rows, paths["sharded CLI"] = sharded_main_path(dev, args.seed)  # 8
+    rows += k4_rows
     for name, launched in paths.items():
         print(f"launches, {name} path: {launched}", flush=True)
     for row in rows:
-        row["launches"] = sum(p[row["name"]] for p in paths.values())
+        row["launches"] = sum(p.get(row["name"], 0) for p in paths.values())
         if row["launches"] == 0:
             fail(f"{row['name']} was not launched on the main path")
     rows += k3_rows   # routed nowhere: its own phase's launches

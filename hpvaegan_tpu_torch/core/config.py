@@ -135,7 +135,7 @@ class Config:
     save_interval: int = 0         # intra-scale checkpoint every N iterations
     #                                (netG_mid: params + BOTH optimizer states
     #                                + iteration; 0 = end-of-scale only)
-    distributed: bool = False      # multi-host jax.distributed.initialize
+    distributed: bool = False      # one rank of a torch.distributed launch
     mesh_shape: str = ""           # e.g. "2x4" -> ('data','spatial') mesh
     spmd: bool = False             # shard the train step over the mesh
     run_dir: str = "run"           # root of the experiment tree
@@ -323,7 +323,9 @@ _COMMON_FLAGS = [
                                  "(divides the GP HBM peak by the batch size; "
                                  "auto-enabled if remat alone still OOMs)")),
     (["--distributed"], dict(action="store_true", default=False,
-                             help="multi-host: jax.distributed.initialize() at startup")),
+                             help="this process is one rank of a torch.distributed "
+                                  "launch named by HPVAEGAN_COORDINATOR, "
+                                  "HPVAEGAN_NUM_PROCESSES, HPVAEGAN_PROCESS_ID")),
     (["--watchdog"], dict(type=float, default=0.0,
                           help="exit 75 (EX_TEMPFAIL) if no training chunk "
                                "completes for this many seconds — converts "

@@ -11,6 +11,14 @@ The WGAN-GP's double backprop is ``torch.autograd.grad`` with
 ``create_graph=True``, as in the reference.  The critic it differentiates
 must be made of stock ops: the kernels' gradients are first order only.
 ``chunked`` (``--gp-chunked``) waits for ROADMAP Queue 1 item 8.
+
+Under a ``mesh`` (``parallel/mesh.py``) the tensors are this rank's
+blocks and each mean is this rank's share of the whole mean: the sum
+over its block divided by the whole tensor's count (``global_mean``).
+The shares of all ranks add up to the single-process loss, so each rank
+backpropagates its share and the step sums the gradients
+(``train/steps.py``).  The GP's norm is over channels only, so it stays
+local.
 """
 from __future__ import annotations
 
@@ -19,14 +27,23 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["kl_criterion", "kl_bern_criterion", "mse",
+__all__ = ["global_mean", "kl_criterion", "kl_bern_criterion", "mse",
            "calc_gradient_penalty"]
 
 
-def kl_criterion(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+def global_mean(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``t.mean()``; under a ``mesh``, this rank's share of the mean of
+    the whole tensor whose block ``t`` is (in ``t``'s dtype)."""
+    if mesh is None:
+        return t.mean()
+    return (t.float().sum() / mesh.count(t)).to(t.dtype)
+
+
+def kl_criterion(mu: torch.Tensor, logvar: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """KL(q || N(0,1)), mean over all elements (modules/losses.py:7-9)."""
     kld = -0.5 * (1 + logvar - mu.square() - logvar.exp())
-    return kld.mean()
+    return global_mean(kld, mesh)
 
 
 def kl_bern_criterion(x: torch.Tensor) -> torch.Tensor:
@@ -37,17 +54,17 @@ def kl_bern_criterion(x: torch.Tensor) -> torch.Tensor:
     return kld.mean()
 
 
-def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mse(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """torch.nn.MSELoss(): the mean squared error."""
-    return (a - b).square().mean()
+    return global_mean((a - b).square(), mesh)
 
 
 def calc_gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
                           real: torch.Tensor, fake: torch.Tensor,
                           lambda_grad: float,
                           alpha: Optional[torch.Tensor] = None,
-                          generator: Optional[torch.Generator] = None
-                          ) -> torch.Tensor:
+                          generator: Optional[torch.Generator] = None,
+                          mesh=None) -> torch.Tensor:
     """WGAN-GP (modules/utils.py:4-19) with the reference's quirks:
 
     * one scalar alpha ~ U(0, 1) for the whole batch (modules/utils.py:5-7);
@@ -60,7 +77,11 @@ def calc_gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
     ``d_apply`` is the critic forward; the penalty is differentiable in
     its parameters (double backprop).  The interpolates are f32 whatever
     ``fake``'s dtype, as the JAX package's f32 alpha makes them (torch
-    would keep a 0-d f32 tensor times a bf16 tensor in bf16)."""
+    would keep a 0-d f32 tensor times a bf16 tensor in bf16).  Under a
+    ``mesh`` ``real`` and ``fake`` are this rank's blocks and ``alpha``
+    is the same on every rank: ``out.sum()`` is this rank's share of the
+    whole sum, and the halo's adjoint inside ``d_apply``'s backward adds
+    the neighbours' shares, so ``grads`` is the whole gradient's block."""
     if alpha is None:
         alpha = torch.rand((), generator=generator, device=real.device)
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=real.device)
@@ -71,4 +92,4 @@ def calc_gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
     (grads,) = torch.autograd.grad(out.sum(), interpolates,
                                    create_graph=True)
     grad_norm = grads.square().sum(dim=1).sqrt()
-    return (grad_norm - 1.0).square().mean() * lambda_grad
+    return global_mean((grad_norm - 1.0).square(), mesh) * lambda_grad

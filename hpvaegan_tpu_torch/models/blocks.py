@@ -31,6 +31,22 @@ LeakyReLU in f32 before rounding, where the JAX package applies it to
 the rounded bf16 output (``blocks.py:338-345``): the two differ by at
 most one bf16 ulp on negative values.
 
+Under a mesh (``mesh``, set by ``parallel.mesh.attach``; the JAX
+modules' ``mesh`` field, ``blocks.py:111-134, 151-186, 289-345``) every
+block runs on this rank's block of the activation (batch over ``data``,
+H over ``spatial``):
+
+* a conv routed to K1 runs K4 (``ops/kernels/conv3d_spmd.py``): the H
+  halo exchanged with the ring neighbours, K1 on the haloed block, the
+  interior kept;
+* a stock conv takes the same halo and runs ``F.conv3d`` on the haloed
+  block with no padding along H, which gives the interior rows directly
+  (how XLA partitions such a conv); stride 1 only;
+* BatchNorm takes its batch statistics over the whole mesh: one
+  differentiable all-reduce of the per-channel sum, sum of squares and
+  count (``Mesh.all_sum``), the biased variance over the global count,
+  so the running buffers move identically on every rank.
+
 This slice ports what ``GeneratorHPVAEGAN`` uses: zero padding, the
 torch-default init, conv -> BN -> LeakyReLU blocks and LeakyReLU SN convs.
 The JAX package's baseline-only options (N(0, 0.02) init, blocks without
@@ -46,6 +62,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.kernels.conv3d_pack import conv3d64, scalar_as
+from ..ops.kernels.conv3d_spmd import conv3d64_spmd, halo
 
 __all__ = [
     "torch_kernel_init",
@@ -118,10 +135,18 @@ def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def _stock_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 ndim: int, stride: int, padding: int,
-                dtype: Optional[torch.dtype]) -> torch.Tensor:
+                dtype: Optional[torch.dtype], mesh=None) -> torch.Tensor:
     """A stock conv in the compute dtype: f32 with the bias fused, or
     operands cast to ``dtype``, the product rounded to it and the bias
-    added in it (flax's ``nn.Conv(dtype=...)``)."""
+    added in it (flax's ``nn.Conv(dtype=...)``).  Under a ``mesh`` with
+    a spatial axis ``x`` is this rank's H block: it takes ``padding`` rows
+    of halo and no zero padding along H."""
+    if mesh is not None and mesh.n_spatial > 1 and padding > 0:
+        if stride != 1:
+            raise NotImplementedError("a strided conv under a spatial mesh")
+        h_dim = 3 if ndim == 3 else 2
+        x = halo(x, mesh, h_dim, padding)
+        padding = (padding, 0, padding) if ndim == 3 else (0, padding)
     if dtype is None:
         return _conv(ndim)(x, w, b, stride, padding)
     y = _conv(ndim)(x.to(dtype), w.to(dtype), None, stride, padding)
@@ -159,7 +184,10 @@ class ConvND(nn.Module):
     64 -> 64 runs on the K1 kernel (``ops/kernels/conv3d_pack.py``): the
     route of ``blocks.py:164-186`` without its TPU-only gates.  The route
     is fixed at construction (``kernel_route``) and decides the weight
-    layout.  ``dtype``: the compute dtype (None: f32)."""
+    layout; under a ``mesh`` the K1 route runs K4.  ``dtype``: the
+    compute dtype (None: f32)."""
+
+    mesh = None
 
     def __init__(self, in_features: int, features: int, ker_size: int,
                  padding: int, ndim: int = 2, stride: int = 1,
@@ -195,11 +223,12 @@ class ConvND(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernel_route:
-            y = conv3d64(_to_nthwc(_cast(x, self.dtype)), self.weight,
-                         self.bias)
+            x = _to_nthwc(_cast(x, self.dtype))
+            y = (conv3d64(x, self.weight, self.bias) if self.mesh is None
+                 else conv3d64_spmd(x, self.weight, self.bias, self.mesh))
             return y.permute(0, 4, 1, 2, 3)
         return _stock_conv(x, self.weight, self.bias, self.ndim, self.stride,
-                           self.padding, self.dtype)
+                           self.padding, self.dtype, self.mesh)
 
 
 class _BatchNorm(nn.Module):
@@ -207,7 +236,10 @@ class _BatchNorm(nn.Module):
     (flax ``BatchNorm(dtype=jnp.float32)``).  Train mode uses the batch
     statistics; with ``update_stats`` it also moves the running buffers
     towards them as flax does: ``ra = 0.9 ra + 0.1 batch`` with the
-    biased batch variance."""
+    biased batch variance.  Under a ``mesh`` the batch statistics are
+    the whole mesh's."""
+
+    mesh = None
 
     def __init__(self, features: int):
         super().__init__()
@@ -226,6 +258,8 @@ class _BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False) -> torch.Tensor:
         x = x.float()
+        if train and self.mesh is not None:
+            return self._mesh_forward(x, update_stats)
         if train:
             if update_stats:
                 self._update_running_stats(x)
@@ -240,9 +274,31 @@ class _BatchNorm(nn.Module):
         dims = [d for d in range(x.dim()) if d != 1]
         mean = x.mean(dim=dims)
         var = (x * x).mean(dim=dims) - mean * mean  # biased, as flax
+        self._move_running_stats(mean, var)
+
+    @torch.no_grad()
+    def _move_running_stats(self, mean: torch.Tensor,
+                            var: torch.Tensor) -> None:
         self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
         self.running_var.mul_(BN_MOMENTUM).add_(
             (1 - BN_MOMENTUM) * var.clamp_min(0))
+
+    def _mesh_forward(self, x: torch.Tensor,
+                      update_stats: bool) -> torch.Tensor:
+        """Batch statistics over every rank's block: the per-channel sum,
+        sum of squares and count in one differentiable all-reduce."""
+        dims = [d for d in range(x.dim()) if d != 1]
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        sums = self.mesh.all_sum(torch.cat([x.sum(dim=dims),
+                                            (x * x).sum(dim=dims), count]))
+        mean = sums[:c] / sums[-1]
+        var = sums[c:2 * c] / sums[-1] - mean * mean   # biased, as flax
+        if update_stats:
+            self._move_running_stats(mean.detach(), var.detach())
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        scale = (self.weight * torch.rsqrt(var + BN_EPS)).reshape(shape)
+        return (x - mean.reshape(shape)) * scale + self.bias.reshape(shape)
 
 
 class ConvBlock(nn.Module):
@@ -285,8 +341,11 @@ class SNConv(nn.Module):
     geometry runs on the K1 kernel with the THWIO view of
     ``weight / sigma`` (``blocks.py:325-345``); ``normalized`` hands the
     same pair to the fused K2 path instead (the JAX ``defer``,
-    ``:290-295, 322-323``).  ``dtype``: the compute dtype (None: f32);
-    the output has it."""
+    ``:290-295, 322-323``).  Under a ``mesh`` the K1 route runs K4 and
+    the stock route takes the H halo.  ``dtype``: the compute dtype
+    (None: f32); the output has it."""
+
+    mesh = None
 
     def __init__(self, in_features: int, features: int, ker_size: int,
                  padding: int, ndim: int = 2, stride: int = 1,
@@ -337,9 +396,11 @@ class SNConv(nn.Module):
                 ) -> torch.Tensor:
         w, b = self.normalized()
         if self.kernel_route and use_kernels:
-            y = conv3d64(_to_nthwc(_cast(x, self.dtype)), to_thwio(w), b,
-                         neg_slope=0.2)
+            x = _to_nthwc(_cast(x, self.dtype))
+            y = (conv3d64(x, to_thwio(w), b, neg_slope=0.2)
+                 if self.mesh is None else
+                 conv3d64_spmd(x, to_thwio(w), b, self.mesh, neg_slope=0.2))
             return y.permute(0, 4, 1, 2, 3)
         y = _stock_conv(x, w, b, self.ndim, self.stride, self.padding,
-                        self.dtype)
+                        self.dtype, self.mesh)
         return activation(y, "lrelu")

@@ -26,6 +26,15 @@ and the residual stream is bf16 as in the JAX package: ``mu``/``logvar``,
 there, because the JAX package's amps are an f32 array, so it is
 computed in f32 here too (torch would keep ``bf16 * float`` in bf16).
 The parameters stay f32.
+Under a mesh (``parallel.mesh.attach``) the inputs and draws stay whole,
+as a single-process run has them, and ``apply`` cuts this rank's block
+of each (``Mesh.shard``); every draw it makes itself (``eps``, the stage
+noises) is drawn whole from ``generator`` and then cut, so a sharded run
+sees the single-process run's numbers.  Its outputs are this rank's
+blocks.  Each inter-stage resize mixes all of H (``generators.py:95-110``):
+it gathers the ring's blocks (``Mesh.gather_h``), resizes the whole on
+every rank of the ring, and keeps the rank's block of the result
+(``Mesh.slice_h``).
 ``apply_prefix``, ``apply_suffix`` and ``apply_fused`` serve
 ``--hoist-prefix`` and ``--fused-forwards`` and wait for ROADMAP Queue 1
 item 9.
@@ -43,6 +52,7 @@ from .. import full_f32
 from ..core.pyramid import Pyramid
 from ..ops.noise import generate_noise
 from ..ops.resize import interpolate_2d, interpolate_3d
+from ..parallel.mesh import attach
 from .networks import Decoder, EncodeVAE, Stage, reparameterize
 
 __all__ = ["GeneratorHPVAEGAN", "to_model_layout", "to_public_layout"]
@@ -74,6 +84,8 @@ def to_public_layout(t: torch.Tensor) -> torch.Tensor:
 
 class GeneratorHPVAEGAN(nn.Module):
     """The core model (networks_3d.py:325-406 / networks_2d.py:188-269)."""
+
+    mesh = None
 
     def __init__(self, cfg, pyramid: Pyramid, ndim: int):
         super().__init__()
@@ -119,6 +131,7 @@ class GeneratorHPVAEGAN(nn.Module):
                           dtype=self.dtype)
             stage.to(self.device)
             stage.reset_parameters(generator)
+            attach(stage, self.mesh)
         else:
             stage = copy.deepcopy(self.body[-1])
         self.body.append(stage)
@@ -126,9 +139,32 @@ class GeneratorHPVAEGAN(nn.Module):
 
     # -- forward -----------------------------------------------------------
     def _upscale(self, x: torch.Tensor, index: int) -> torch.Tensor:
+        h_dim = self.ndim   # H of an NCDHW / NCHW tensor
+        if self.mesh is not None:
+            x = self.mesh.gather_h(x, h_dim)
         if self.ndim == 3:
-            return interpolate_3d(x, self.pyramid.shape3d(index))
-        return interpolate_2d(x, self.pyramid.shape2d(index))
+            x = interpolate_3d(x, self.pyramid.shape3d(index))
+        else:
+            x = interpolate_2d(x, self.pyramid.shape2d(index))
+        return x if self.mesh is None else self.mesh.slice_h(x, h_dim)
+
+    def _local(self, t, dtype=None) -> torch.Tensor:
+        """A whole NTHWC (NHWC) input in the model layout on this module's
+        device, cut to this rank's block under a mesh."""
+        x = to_model_layout(t, self.device, dtype)
+        if self.mesh is None:
+            return x
+        fmt = (torch.channels_last_3d if x.dim() == 5
+               else torch.channels_last)
+        return self.mesh.shard(x, self.ndim).contiguous(memory_format=fmt)
+
+    def _draw(self, shape, dtype, generator) -> torch.Tensor:
+        """N(0, 1) of the whole ``shape`` (model layout) from
+        ``generator``, cut to this rank's block under a mesh."""
+        noise = generate_noise(size=shape, dtype=dtype, generator=generator,
+                               device=self.device)
+        return noise if self.mesh is None else self.mesh.shard(noise,
+                                                               self.ndim)
 
     def apply(self, amps: Sequence[float], real_zero=None, noise_init=None,
               sample_init: Optional[Tuple[int, torch.Tensor]] = None,
@@ -142,27 +178,31 @@ class GeneratorHPVAEGAN(nn.Module):
         ``noise_init`` replaces the encoder (rand mode); otherwise
         ``real_zero`` is encoded and reparameterized with ``eps``.
         ``noises[idx]`` is stage ``idx``'s rand-mode noise, shaped like its
-        upscaled input; entries for stages without noise are ignored."""
+        upscaled input; entries for stages without noise are ignored.
+        Under a mesh the inputs are whole and the outputs this rank's
+        blocks."""
         amps = [float(a) for a in amps]
-        dev = self.device
         with full_f32():
             if noise_init is None:
                 assert real_zero is not None
-                mu, logvar = self.encode(to_model_layout(real_zero, dev))
-                z_vae = reparameterize(
-                    mu, logvar, train,
-                    None if eps is None else to_model_layout(eps, dev),
-                    generator)
+                mu, logvar = self.encode(self._local(real_zero))
+                if eps is not None:
+                    eps = self._local(eps)
+                elif self.mesh is not None:
+                    b = self.mesh.global_batch(mu.shape[0])
+                    eps = self._draw(
+                        (b, mu.shape[1], *np.shape(real_zero)[1:-1]),
+                        mu.dtype, generator)
+                z_vae = reparameterize(mu, logvar, train, eps, generator)
                 stats = (mu, logvar)
             else:
-                z_vae = to_model_layout(noise_init, dev)
+                z_vae = self._local(noise_init)
                 stats = None
 
             vae_out = torch.tanh(self.decoder(z_vae, train, update_stats))
 
             if sample_init is not None:
-                start_idx, x = sample_init[0], to_model_layout(sample_init[1],
-                                                               dev)
+                start_idx, x = sample_init[0], self._local(sample_init[1])
                 assert len(self.body) > start_idx, \
                     "Starting index must be lower than # of body blocks"
             else:
@@ -202,8 +242,13 @@ class GeneratorHPVAEGAN(nn.Module):
             x_up = self._upscale(x, idx + 1)
             if mode == "rand" and self._stage_has_noise(idx):
                 if noises is not None:
-                    noise = to_model_layout(noises[idx], x_up.device,
-                                            x_up.dtype)
+                    noise = self._local(noises[idx], x_up.dtype)
+                elif self.mesh is not None:
+                    b = self.mesh.global_batch(x_up.shape[0])
+                    shape = (self.pyramid.shape3d if self.ndim == 3
+                             else self.pyramid.shape2d)(idx + 1)
+                    noise = self._draw((b, x_up.shape[1], *shape),
+                                       x_up.dtype, generator)
                 else:
                     noise = generate_noise(ref=x_up, generator=generator)
                 # f32, as the JAX package's f32 amps make it

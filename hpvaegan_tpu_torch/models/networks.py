@@ -9,6 +9,10 @@ module takes its input channel count explicitly (PyTorch modules own their
 weights at construction), and ``dtype``, the compute dtype of its convs
 (None: f32; ``torch.bfloat16`` under ``--bf16``), as the JAX modules take
 flax's ``dtype``.
+
+Under a mesh (``parallel.mesh.attach``; the JAX modules' ``mesh`` field,
+``networks.py:206-221, 239-281``) every conv and BatchNorm of a module
+runs on this rank's block (``models/blocks.py``).
 """
 from __future__ import annotations
 
@@ -162,7 +166,12 @@ class WDiscriminator(nn.Module):
     on K1 under ``pconv``.  ``forward(x, use_kernels=False)`` runs the
     same weights on stock convs only: the counterpart of the JAX
     package's ``D.clone(pconv=False, pfuse=False)``, which the WGAN-GP's
-    double backprop uses (``train/steps.py:316-323``)."""
+    double backprop uses (``train/steps.py:316-323``).  Under a ``mesh``
+    the K1 body convs run K4; K2 has no mesh partitioning (as in the
+    JAX package), so a fused critic under a mesh raises
+    (``--spmd`` turns ``--pfuse`` off, ``core/config.py``)."""
+
+    mesh = None
 
     def __init__(self, nc_im: int, nfc: int, ker_size: int, num_layer: int,
                  ndim: int = 2, pconv: bool = False, pfuse: bool = False,
@@ -186,6 +195,9 @@ class WDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True
                 ) -> torch.Tensor:
+        if use_kernels and self.pfuse and self.mesh is not None:
+            raise ValueError("the fused critic pair (K2) has no mesh "
+                             "partitioning: build the critic without pfuse")
         x = self.head(x)
         i = 0
         while i < self.num_layer:

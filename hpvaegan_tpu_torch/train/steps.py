@@ -31,6 +31,18 @@ Every draw can be handed in: ``eps`` (the rec forward's reparameterization
 draw), ``noises`` (the stage noises), ``alpha`` (the GP's scalar);
 whatever is not handed in is drawn from ``generator``.  Inputs are NTHWC
 (NHWC) arrays or tensors, as ``GeneratorHPVAEGAN.apply`` takes them.
+
+Under a mesh (the models' ``mesh``, ``parallel.mesh.attach``; the JAX
+steps' ``mesh=``, ``steps.py:131-146``) every input and draw stays whole,
+as the single-process step has it, and is cut to this rank's block where
+it is used (``Mesh.shard``); the losses are this rank's shares of the
+global means (``losses.py``), each rank backpropagates its share, and
+every parameter's gradient is summed over the mesh in one all-reduce
+before the clip and Adam (``_update``; the ``psum`` that ``shard_map``'s
+transpose inserts, ``steps.py:68-71``).  The parameters then stay the
+same on every rank without a broadcast.  The metrics returned are the
+whole step's (the shares summed over the mesh).  ``--pfuse`` stays off
+under ``--spmd`` (``core/config.py``), as K2 has no mesh partitioning.
 """
 from __future__ import annotations
 
@@ -39,9 +51,10 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from .. import full_f32
-from ..losses import calc_gradient_penalty, kl_criterion, mse
+from ..losses import calc_gradient_penalty, global_mean, kl_criterion, mse
 from ..models.blocks import SNConv
 from ..models.generators import to_model_layout
+from ..parallel.mesh import shard
 from .optim import clip_grad_norm_
 
 __all__ = ["update_g_spectral", "update_d_spectral", "calibrate",
@@ -65,10 +78,32 @@ def _tensor(t, device) -> torch.Tensor:
     return torch.as_tensor(t, dtype=torch.float32, device=device)
 
 
-def _update(params, opt, grad_clip: Optional[float]) -> None:
+def _local(t, device, mesh) -> torch.Tensor:
+    """A whole NTHWC (NHWC) input as an f32 tensor, cut to this rank's
+    block under a mesh."""
+    t = _tensor(t, device)
+    return shard(t, mesh, 2 if t.dim() == 5 else 1)
+
+
+def _update(params, opt, grad_clip: Optional[float], mesh=None) -> None:
+    params = list(params)
+    if mesh is not None:
+        mesh.sum_grads(params)
     if grad_clip is not None:
         clip_grad_norm_(params, grad_clip)
     opt.step()
+
+
+def _whole(metrics: Dict[str, torch.Tensor], mesh
+           ) -> Dict[str, torch.Tensor]:
+    """The metrics detached; under a mesh each is the sum of the ranks'
+    shares (one all-reduce), in its own dtype."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if mesh is None:
+        return metrics
+    total = mesh.all_sum(torch.stack([v.float() for v in metrics.values()]))
+    return {k: total[i].to(v.dtype)
+            for i, (k, v) in enumerate(metrics.items())}
 
 
 def calibrate(G, real, real_zero, amps: Sequence[float], eps=None,
@@ -76,31 +111,33 @@ def calibrate(G, real, real_zero, amps: Sequence[float], eps=None,
     """Noise-amp probe (train_video.py:131-145): a rec forward in train
     mode that updates the BatchNorm statistics; returns
     ``sqrt(MSE(real, reconstruction))``."""
+    mesh = G.mesh
     with full_f32(), torch.no_grad():
         out, _, _ = G.apply(amps, real_zero=real_zero, mode="rec", train=True,
                             eps=eps, generator=generator, update_stats=True)
-        return mse(out, _tensor(real, G.device)).sqrt()
+        err = mse(out, _local(real, G.device, mesh), mesh)
+        return _whole({"mse": err}, mesh)["mse"].sqrt()
 
 
 def vae_step(G, opt_g, cfg, real, real_zero, amps: Sequence[float],
              eps=None, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
     """One VAE-phase step (``steps.py:211-240``)."""
-    dev = G.device
-    real, real_zero = _tensor(real, dev), _tensor(real_zero, dev)
+    dev, mesh = G.device, G.mesh
     with full_f32():
         update_g_spectral(G)
         G.zero_grad(set_to_none=True)
         generated, generated_vae, (mu, logvar) = G.apply(
             amps, real_zero=real_zero, mode="rec", train=True, eps=eps,
             generator=generator, update_stats=True)
-        kl = kl_criterion(mu, logvar)
-        rec_vae = mse(generated, real) + mse(generated_vae, real_zero)
+        kl = kl_criterion(mu, logvar, mesh)
+        rec_vae = (mse(generated, _local(real, dev, mesh), mesh)
+                   + mse(generated_vae, _local(real_zero, dev, mesh), mesh))
         total = cfg.rec_weight * rec_vae + cfg.kl_weight * kl
         total.backward()
-        _update(G.parameters(), opt_g, cfg.grad_clip)
-    return {"loss": total.detach(), "rec_vae_loss": rec_vae.detach(),
-            "kl_loss": kl.detach()}
+        _update(G.parameters(), opt_g, cfg.grad_clip, mesh)
+    return _whole({"loss": total, "rec_vae_loss": rec_vae, "kl_loss": kl},
+                  mesh)
 
 
 def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
@@ -110,11 +147,14 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
              ) -> Dict[str, torch.Tensor]:
     """One GAN-phase step: the critic step with the WGAN-GP, then the
     generator step against the updated critic (``steps.py:264-374``)."""
-    dev = G.device
-    real, real_zero = _tensor(real, dev), _tensor(real_zero, dev)
-    noise_init = _tensor(noise_init, dev)
-    if noises is None:
-        noises = G.draw_stage_noises(real.shape[0], generator)
+    dev, mesh = G.device, G.mesh
+    if D.mesh is not mesh:
+        raise ValueError("the generator and the critic are on different "
+                         "meshes")
+    if noises is None:   # drawn whole, as the single-process step does
+        noises = G.draw_stage_noises(len(real), generator)
+    real = _local(real, dev, mesh)
+    real_zero, noise_init = _tensor(real_zero, dev), _tensor(noise_init, dev)
     with full_f32():
         update_g_spectral(G)
         update_d_spectral(D)
@@ -127,13 +167,13 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
         nb = x_real.shape[0]
         D.zero_grad(set_to_none=True)
         out = D(torch.cat([x_real, x_fake]))
-        errD_real = -out[:nb].mean()
-        errD_fake = out[nb:].mean()
+        errD_real = -global_mean(out[:nb], mesh)
+        errD_fake = global_mean(out[nb:], mesh)
         gp = calc_gradient_penalty(lambda x: D(x, use_kernels=False),
                                    x_real, x_fake, cfg.lambda_grad, alpha,
-                                   generator)
+                                   generator, mesh)
         (errD_real + errD_fake + gp).backward()
-        opt_d.step()
+        _update(D.parameters(), opt_d, None, mesh)
 
         # ---- generator step with the UPDATED, frozen critic ----
         D.requires_grad_(False)
@@ -146,13 +186,14 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
             fake_g, _, _ = G.apply(amps, noise_init=noise_init, mode="rand",
                                    train=True, noises=noises,
                                    update_stats=True)
-            rec = mse(generated, real)
-            errG = -D(to_model_layout(fake_g)).mean() * cfg.disc_loss_weight
+            rec = mse(generated, real, mesh)
+            errG = -global_mean(D(to_model_layout(fake_g)),
+                                mesh) * cfg.disc_loss_weight
             total = cfg.rec_weight * rec + errG
             total.backward()
         finally:
             D.requires_grad_(True)
-        _update(G.parameters(), opt_g, cfg.grad_clip)
-    return {"loss": total.detach(), "rec_loss": rec.detach(),
-            "errG": errG.detach(), "errD_real": errD_real.detach(),
-            "errD_fake": errD_fake.detach(), "gradient_penalty": gp.detach()}
+        _update(G.parameters(), opt_g, cfg.grad_clip, mesh)
+    return _whole({"loss": total, "rec_loss": rec, "errG": errG,
+                   "errD_real": errD_real, "errD_fake": errD_fake,
+                   "gradient_penalty": gp}, mesh)

@@ -50,9 +50,20 @@ iteration 5 with ``torch.profiler`` (CPU, and CUDA on the card), as the
 JAX trainer traces its window (``:216-231``), and writes a Chrome trace
 to ``<profile dir>/scale_<s>/trace.json``.
 
+Under a mesh (``G.mesh``, attached by the CLI under ``--spmd
+--mesh-shape``; ``trainer.py:129-140``) every rank runs ``train_scale``
+in lockstep: the critic joins the generator's mesh, every stage's shape
+is checked against K4's gate (``pconv_spmd_ok``) before the first step,
+the loader's whole batches go to the steps, which cut each rank's block;
+the critic warm start is read by rank 0 and broadcast (``:43-54``); only
+rank 0 writes files (``utils/saver.py``) and traces; ``--visualize``
+runs its forwards on every rank and gathers the samples whole
+(``multihost.fetch``, ``:491-494``) before rank 0 writes the grids; every
+scale ends by checking that the ranks still hold the same weights, and
+at a barrier (``:464-465``).
+
 Waiting for their ROADMAP items: ``--scan-steps`` and the other
-fast-path options (Queue 1 item 9); the memory ladder (item 8); SPMD
-(item 12).
+fast-path options (Queue 1 item 9); the memory ladder (item 8).
 """
 from __future__ import annotations
 
@@ -65,6 +76,9 @@ import torch
 
 from ..data.loader import make_loader
 from ..models.registry import make_discriminator
+from ..ops.kernels.conv3d_spmd import pconv_spmd_ok
+from ..parallel import multihost
+from ..parallel.mesh import attach, check_replicated
 from ..utils.profiling import StepTimer
 from ..utils.saver import load_critic
 from ..utils.tools import create_progressbar, seeded_generator
@@ -104,6 +118,19 @@ def _calibrate_amp(cfg, G, real, real_zero, scale_idx: int,
     return rmse
 
 
+def _check_mesh_shapes(cfg, G, mesh) -> None:
+    """Raise before the first step when a stage of this scale cannot be
+    split over the mesh (K4's gate, ``conv3d_spmd.pconv_spmd_ok``)."""
+    shape = G.pyramid.shape3d if G.ndim == 3 else G.pyramid.shape2d
+    for s in range(cfg.scale_idx + 1):
+        whole = (cfg.batch_size, *shape(s), 64)
+        if len(whole) == 5 and not pconv_spmd_ok(whole, (3, 3, 3, 64, 64),
+                                                  mesh):
+            raise ValueError(f"stage {s} of shape {whole} does not split "
+                             f"over the {mesh.shape} mesh (the batch over "
+                             f"data, at least one H row a spatial rank)")
+
+
 def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
                 saver=None, summary=None, D_prev=None,
                 seed: Optional[int] = None,
@@ -133,6 +160,9 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     dev = G.device
     gan_phase = cfg.vae_levels < scale_idx + 1
     seed = int(cfg.manualSeed or 0) if seed is None else int(seed)
+    mesh = G.mesh
+    if mesh is not None:
+        _check_mesh_shapes(cfg, G, mesh)
     # the reference clips over every generator parameter, frozen or not
     G.requires_grad_(True)
 
@@ -154,6 +184,7 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
         D.reset_parameters(torch.Generator().manual_seed(
             seed * 1000 + 101 + scale_idx))
         D.to(dev)
+        attach(D, mesh)
         if mid is not None:
             D.load_state_dict(mid["dvars"])
         elif dataset is not None and cfg.netG and \
@@ -162,13 +193,13 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
             # resumed from, as the JAX trainer does (trainer.py:111-113),
             # on the first GAN scale too: no VAE scale writes a critic, so
             # there the file is missing and load_critic raises
-            load_critic(os.path.join(cfg.resume_dir,
-                                     f"netD_{scale_idx - 1}"), D)
+            _warm_start(D, os.path.join(cfg.resume_dir,
+                                        f"netD_{scale_idx - 1}"))
         elif cfg.vae_levels < scale_idx:
             # warm start from the previous GAN scale (train_video.py:50-52)
             if dataset is not None:
-                load_critic(os.path.join(saver.experiment_dir,
-                                         f"netD_{scale_idx - 1}"), D)
+                _warm_start(D, os.path.join(saver.experiment_dir,
+                                            f"netD_{scale_idx - 1}"))
             elif D_prev is not None:
                 D.load_state_dict(D_prev.state_dict())
         opt_d = build_d_optimizer(cfg, D)
@@ -190,7 +221,11 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     save_interval = int(cfg.save_interval)
     history, amps = [], None
     profiler = None
-    profile_done = not cfg.profile_dir
+    # under a mesh rank 0 alone traces: the ranks would share the path
+    profile_done = not cfg.profile_dir or not multihost.is_primary()
+    # every rank of a mesh samples (the forwards are collectives); the
+    # ranks without a summary write nothing
+    visualize = cfg.visualize and (summary is not None or mesh is not None)
     try:
         for it in range(start_it, cfg.niter):
             if not profile_done and profiler is None and it >= 5:
@@ -240,8 +275,7 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
                                cfg.Noise_Amps[scale_idx], metrics, gan_phase)
             if callback is not None:
                 callback("step", it, metrics)
-            if summary is not None and cfg.visualize and \
-                    it % cfg.print_interval == 0:
+            if visualize and it % cfg.print_interval == 0:
                 t0 = time.perf_counter()
                 write_s = _visualize(cfg, G, amps, real, real_zero,
                                      _z_init_shape(cfg, G),
@@ -265,6 +299,12 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
         bar.close()
 
     try:
+        if mesh is not None:
+            # the summed gradients keep the ranks equal: a scale that ends
+            # otherwise is a fault, not a state to save
+            check_replicated(G)
+            if D is not None:
+                check_replicated(D)
         if saver is not None:
             watchdog.beat(f"scale {scale_idx} checkpoint save")
             amps_now = list(cfg.Noise_Amps)
@@ -282,9 +322,20 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
                                        "opt_d": opt_d.state_dict()},
                                       f"netD_{scale_idx}", blocking=True)
             saver.wait()
+        # no rank starts the next scale (nor reads this scale's critic)
+        # before rank 0 has written this one's files
+        multihost.barrier(f"end of scale {scale_idx}")
     finally:
         watchdog.stop()
     return G, D, history
+
+
+def _warm_start(D, path: str) -> None:
+    """The critic from ``path``: rank 0 reads the file, the other ranks
+    take its values by broadcast (no shared file system needed)."""
+    if multihost.is_primary():
+        load_critic(path, D)
+    multihost.broadcast_pytree(D.state_dict())
 
 
 def _start_profiler(dev: torch.device):
@@ -328,10 +379,16 @@ def _visualize(cfg, G, amps, real, real_zero, noise_shape, generator,
                summary, iteration: int) -> float:
     """3 independent rand-mode samples and a reconstruction -> the five
     grids (``trainer.py:471-503``; reference train_video.py:225-241).
-    BatchNorm uses each batch's own statistics and writes none.  Returns
-    the seconds spent encoding and writing the grids (the samples are on
-    the host by then)."""
-    dev = G.device
+    BatchNorm uses each batch's own statistics and writes none.  Under a
+    mesh every rank samples its blocks and the samples are gathered whole
+    (``multihost.fetch``); a rank without ``summary`` writes nothing.
+    Returns the seconds spent encoding and writing the grids (the samples
+    are on the host by then)."""
+    dev, mesh = G.device, G.mesh
+
+    def host(t):
+        return multihost.fetch(t, mesh, 2 if t.dim() == 5 else 1)
+
     with torch.inference_mode():
         fakes, fake_vaes = [], []
         for _ in range(3):
@@ -339,13 +396,16 @@ def _visualize(cfg, G, amps, real, real_zero, noise_shape, generator,
                                 device=dev)
             fake, fake_vae, _ = G.apply(amps, noise_init=noise, mode="rand",
                                         train=True, generator=generator)
-            fakes.append(_host(fake))
-            fake_vaes.append(_host(fake_vae))
+            fakes.append(host(fake))
+            fake_vaes.append(host(fake_vae))
         generated, generated_vae, _ = G.apply(
             amps, real_zero=real_zero, mode="rec", train=True,
             generator=generator)
-    grids = [(_host(real), "Real"), (_host(generated), "Generated"),
-             (_host(generated_vae), "Generated VAE"),
+        generated, generated_vae = host(generated), host(generated_vae)
+    if summary is None:
+        return 0.0
+    grids = [(_host(real), "Real"), (generated, "Generated"),
+             (generated_vae, "Generated VAE"),
              (np.concatenate(fakes), "Fake var"),
              (np.concatenate(fake_vaes), "Fake VAE var")]
     viz = (summary.visualize_video if G.ndim == 3

@@ -29,6 +29,11 @@ are optax's) and raises.
 
 ``restore_generator`` and ``apply_resume`` replay stage growth before
 loading, as ``hpvaegan_tpu/serving.py:154-160`` and ``saver.py:50-89`` do.
+
+Under several ranks (``--distributed``) only rank 0 touches the
+experiment tree, as in the JAX package (``saver.py:113-140``): the run id
+is rank 0's (``multihost.agree``), the other ranks keep the paths and
+every write of theirs is a no-op.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import multihost
 from . import convert
 from .msgpack_reader import is_msgpack_file, read_file
 
@@ -153,23 +159,30 @@ class Saver:
 
     def __init__(self, cfg, clip_name: str, run_id: Optional[int] = None):
         self.cfg = cfg
+        self.primary = multihost.is_primary()
         self.directory = os.path.join(cfg.run_dir, clip_name, cfg.checkname)
         if run_id is None:
             runs = sorted(glob.glob(os.path.join(self.directory,
                                                  "experiment_*")),
                           key=lambda p: int(p.rsplit("_", 1)[-1]))
             run_id = int(runs[-1].rsplit("_", 1)[-1]) + 1 if runs else 0
+            # rank 0's id: its glob sees the tree it writes
+            run_id = multihost.agree(run_id)
         self.experiment_dir = os.path.join(self.directory,
                                            f"experiment_{run_id}")
         self.eval_dir = os.path.join(self.experiment_dir, "eval")
-        os.makedirs(self.eval_dir, exist_ok=True)
+        if self.primary:
+            os.makedirs(self.eval_dir, exist_ok=True)
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="saver")
         self._pending: Optional[Future] = None
 
     def save_checkpoint(self, state: Any, filename: str,
                         blocking: bool = False) -> None:
-        """Copy ``state`` to the host now, write it in the background."""
+        """Copy ``state`` to the host now, write it in the background
+        (rank 0 only)."""
+        if not self.primary:
+            return
         host_state = _to_host(state)
         self.wait()
         self._pending = self._pool.submit(
@@ -189,6 +202,8 @@ class Saver:
                                          filename))
 
     def save_json(self, obj: Any, filename: str) -> None:
+        if not self.primary:
+            return
         with open(os.path.join(self.experiment_dir, filename), "w") as f:
             json.dump(obj, f)
 

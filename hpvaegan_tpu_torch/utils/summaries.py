@@ -8,7 +8,8 @@ neptune either-or routing as the JAX package, written through
 with the card lacks.  Images become uint8 as tensorboardX's ``image()``
 makes them (x 255, then a truncating cast), and a batch of clips is tiled
 as its ``utils._prepare_video`` tiles it before the GIF is encoded.
-Inputs are channels-last.
+Inputs are channels-last.  Under several ranks only rank 0 opens one (the
+training CLI hands the others None, as the JAX CLI does).
 """
 from __future__ import annotations
 

@@ -21,6 +21,11 @@ import hpvaegan_tpu_torch.serving
 import hpvaegan_tpu_torch.ops.kernels.conv3d
 import hpvaegan_tpu_torch.ops.kernels.conv3d_pack
 import hpvaegan_tpu_torch.ops.kernels.conv3d_fuse
+import hpvaegan_tpu_torch.ops.kernels.conv3d_spmd
+import hpvaegan_tpu_torch.parallel
+import hpvaegan_tpu_torch.parallel.distributed
+import hpvaegan_tpu_torch.parallel.mesh
+import hpvaegan_tpu_torch.parallel.multihost
 import hpvaegan_tpu_torch.losses
 import hpvaegan_tpu_torch.train.trainer
 import hpvaegan_tpu_torch.utils.convert

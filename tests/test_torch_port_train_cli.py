@@ -3,8 +3,10 @@ in-process with ``--no-cuda`` on the tiny configuration of
 tests/test_train_video_e2e.py:11-33: the JAX e2e's file set and amps,
 ``config.json`` with the JAX snapshot's keys, ``--netG`` resume with
 growth replay and the ``Z_init_size`` quirk, an exact ``netG_mid`` resume
-(the property of tests/test_save_interval.py:67), and every flag whose
-feature is not ported raising."""
+(the property of tests/test_save_interval.py:67), every flag whose
+feature is not ported raising, ``--spmd`` or ``--mesh-shape`` alone
+training in one process, and ``--distributed`` without a launcher
+raising.  The sharded CLI runs are in test_torch_port_spmd_cli.py."""
 import json
 import logging
 import os
@@ -205,11 +207,37 @@ def test_netG_mid_resume_ends_with_the_uninterrupted_weights(clip,
 @pytest.mark.parametrize("flag", [
     ["--scan-steps", "2"],
     ["--fast-grads"], ["--fused-forwards"], ["--hoist-prefix"], ["--remat"],
-    ["--remat-blocks"], ["--gp-chunked"], ["--spmd"], ["--mesh-shape", "2x1"],
-    ["--distributed"], ["--compile-ahead"], ["--wpack"]])
+    ["--remat-blocks"], ["--gp-chunked"], ["--compile-ahead"], ["--wpack"]])
 def test_unported_flags_raise_naming_their_roadmap_item(clip, tmp_path, flag):
     with pytest.raises(NotImplementedError, match=f"{flag[0]}.*ROADMAP"):
         _run(clip, tmp_path, *flag)
+    assert not os.path.exists(os.path.join(str(tmp_path), "test_video"))
+
+
+@pytest.mark.parametrize("flag", [["--spmd"], ["--mesh-shape", "2x1"]])
+def test_spmd_or_mesh_shape_alone_trains_in_one_process(clip, first_run,
+                                                        tmp_path, flag):
+    """As in the JAX trainer (``trainer.py:131``), a mesh needs both
+    flags: either alone trains in this process (the callback sees every
+    scale's steps) and writes the plain run's weights."""
+    scales = set()
+    _run(clip, tmp_path, "--vae-levels", "2", *flag,
+         callback=lambda s, e, i, m: scales.add(s))
+    assert scales == set(range(5))
+    ref = _load(os.path.join(_exp(first_run[0]), "netG"))["gvars"]
+    got = _load(os.path.join(_exp(tmp_path), "netG"))["gvars"]
+    for k, v in ref.items():
+        assert torch.equal(v, got[k]), k
+
+
+def test_distributed_without_a_launcher_raises_naming_the_variables(
+        clip, tmp_path, monkeypatch):
+    for var in ("HPVAEGAN_COORDINATOR", "HPVAEGAN_NUM_PROCESSES",
+                "HPVAEGAN_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="HPVAEGAN_COORDINATOR.*"
+                       "HPVAEGAN_NUM_PROCESSES.*HPVAEGAN_PROCESS_ID"):
+        _run(clip, tmp_path, "--distributed")
     assert not os.path.exists(os.path.join(str(tmp_path), "test_video"))
 
 

@@ -1,0 +1,253 @@
+"""Rank programs for the tests of the port's sharded path: groups of gloo
+CPU ranks, each rank a fresh interpreter that imports torch and the port
+only (never JAX).
+
+    python tests/torch_port_ranks.py <programs> <rank> <world> <port> <dir>
+
+runs each of the comma-separated ``PROGRAMS[program](mesh_shapes, dir)``
+as rank ``rank`` of ``world`` and writes their results, one dict, to
+``<dir>/<programs>_<world>_<rank>.pt``.
+The test process writes the inputs into ``dir`` first (``inputs.pt``) and
+holds the results against JAX.  ``start_ranks`` starts a group and
+``wait_ranks`` waits for it with a time limit, so a mismatched
+collective fails instead of hanging.
+"""
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESHES = {2: [(1, 2), (2, 1)], 4: [(2, 2)]}
+TIMEOUT_S = 240
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(program: str, world: int, workdir) -> list:
+    """Start the ``world`` ranks of ``program`` (one intra-op thread
+    each); returns the processes."""
+    port = str(_free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), program, str(rank),
+         str(world), port, str(workdir)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+
+
+def wait_ranks(procs, timeout: float = TIMEOUT_S) -> None:
+    """Wait for every rank; kill them all and raise with every rank's
+    output if one fails or the group outlives ``timeout``."""
+    outs, failed = [], False
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+            failed = True
+        outs.append(out)
+        failed = failed or p.returncode != 0
+    if failed:
+        raise RuntimeError("\n".join(f"--- rank {i} (code {p.returncode}):\n"
+                                     f"{o}" for i, (p, o) in
+                                     enumerate(zip(procs, outs))))
+
+
+def results(program: str, world: int, workdir) -> list:
+    import torch
+    return [torch.load(os.path.join(str(workdir),
+                                    f"{program}_{world}_{rank}.pt"),
+                       weights_only=False) for rank in range(world)]
+
+
+def record_grads(opt, module, into: dict):
+    """``opt`` whose ``step`` first copies the gradients it is about to
+    apply into ``into``, by parameter name of ``module``."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    step = opt.step
+
+    def recorded(*a, **kw):
+        into.update({names[id(p)]: p.grad.clone()
+                     for group in opt.param_groups
+                     for p in group["params"] if p.grad is not None})
+        return step(*a, **kw)
+    opt.step = recorded
+    return opt
+
+
+# ---------------------------------------------------------------------------
+# the programs (run inside a rank)
+# ---------------------------------------------------------------------------
+
+def program_k4(meshes, workdir):
+    """K4 (``conv3d64_spmd``, and its plain twin) forward and gradients of
+    ``sum(y * cos(y))`` on each mesh, for every input of ``inputs.pt``."""
+    import torch
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4
+    from hpvaegan_tpu_torch.parallel import make_mesh
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"))
+    out = {}
+    for shape in meshes:
+        mesh = make_mesh(shape)
+        for name, (x, w, b) in inputs["k4"].items():
+            for fn in (k4.conv3d64_spmd, k4.conv3d64_spmd_plain):
+                xl = mesh.shard(x, 2).requires_grad_(True)
+                wl, bl = w.clone().requires_grad_(True), \
+                    b.clone().requires_grad_(True)
+                k4.counts.reset()
+                y = fn(xl, wl, bl, mesh)
+                (y * torch.cos(y)).sum().backward()
+                out[(shape, name, fn.__name__)] = dict(
+                    y=y.detach(), dx=xl.grad, dw=wl.grad, db=bl.grad,
+                    plain_calls=k4.counts.plain_calls,
+                    block=mesh.block(x.shape[2]),
+                    rows=mesh.batch_rows(x.shape[0]))
+    return out
+
+
+def program_halo(meshes, workdir):
+    """The halo exchange in float64: ``<E x, y>`` and ``<x, E^T y>`` over
+    the mesh, and ``gradgradcheck`` through a haloed stock conv."""
+    import torch
+    from hpvaegan_tpu_torch.models.blocks import _stock_conv
+    from hpvaegan_tpu_torch.ops.kernels.conv3d_spmd import halo
+    from hpvaegan_tpu_torch.parallel import make_mesh
+    from hpvaegan_tpu_torch.parallel.distributed import all_reduce_
+    out = {}
+    for shape in meshes:
+        mesh = make_mesh(shape)
+        if mesh.n_spatial == 1:
+            continue
+        g = torch.Generator().manual_seed(100 + mesh.rank)
+        for h_whole in (7, 9):
+            h0, h1 = mesh.block(h_whole)
+            x = torch.randn((2, 3, h1 - h0, 4, 5), dtype=torch.float64,
+                            generator=g, requires_grad=True)
+            y = torch.randn((2, 3, h1 - h0 + 2, 4, 5), dtype=torch.float64,
+                            generator=g)
+            ex = halo(x, mesh, 2)
+            (ety,) = torch.autograd.grad((ex * y).sum(), x)
+            sums = torch.stack([(ex * y).sum(), (x * ety).sum()]).detach()
+            out[(shape, h_whole, "adjoint")] = all_reduce_(sums)
+
+        # gradgradcheck on one live rank at a time: the other ranks feed
+        # constant rows and weigh their own output by 0, so the live
+        # rank's numerical derivatives see all that its analytical ones do
+        for live in range(mesh.n_spatial):
+            gen = torch.Generator().manual_seed(7)
+            w = torch.randn((1, 1, 3, 3, 3), dtype=torch.float64,
+                            generator=gen, requires_grad=True)
+            x = torch.randn((1, 1, 2, 2, 3), dtype=torch.float64,
+                            generator=gen, requires_grad=True)
+            const = torch.randn((1, 1, 2, 2, 3), dtype=torch.float64,
+                                generator=gen)
+            weight = 1.0 if mesh.spatial_index == live else 0.0
+
+            def f(x, w):
+                xin = x if weight else const + 0.0 * x
+                y = _stock_conv(xin, w, torch.zeros(1, dtype=w.dtype), 3, 1,
+                                1, None, mesh)
+                return weight * y
+
+            out[(shape, "gradgradcheck", live)] = \
+                torch.autograd.gradgradcheck(f, (x, w))
+    return out
+
+
+def program_steps(meshes, workdir):
+    """``vae_step`` and ``gan_step`` on each mesh from the inputs' weights
+    and draws: metrics, the gradients that reach Adam (summed over the
+    mesh), the parameters after the step, K4's calls."""
+    import torch
+    from hpvaegan_tpu_torch.core.config import Config
+    from hpvaegan_tpu_torch.models.networks import WDiscriminator
+    from hpvaegan_tpu_torch.models.registry import make_generator
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4
+    from hpvaegan_tpu_torch.parallel import attach, make_mesh
+    from hpvaegan_tpu_torch.parallel.mesh import state_digest
+    from hpvaegan_tpu_torch.train import optim, steps
+    inp = torch.load(os.path.join(workdir, "inputs.pt"),
+                     weights_only=False)
+
+    def generator(scale):
+        cfg = Config(**inp["cfg"])
+        cfg.ar, cfg.org_fps = inp["ar"], inp["org_fps"]
+        cfg.adjust_scales()
+        cfg.scale_idx = scale
+        G = make_generator("GeneratorHPVAEGAN", cfg, cfg.pyramid(), ndim=3)
+        G.init(torch.Generator().manual_seed(0))
+        for _ in range(scale):
+            G.init_next_stage()
+        G.load_state_dict(inp[f"G{scale}"])
+        return cfg, G.requires_grad_(True)
+
+    out = {}
+    for shape in meshes:
+        mesh = make_mesh(shape)
+        k4.counts.reset()
+        scale = inp["vae_scale"]
+        cfg, G = generator(scale)
+        attach(G, mesh)
+        grads = {}
+        opt_g = record_grads(optim.build_g_optimizer(cfg, G, scale), G,
+                             grads)
+        metrics = steps.vae_step(G, opt_g, cfg, *inp["vae_data"],
+                                 inp["vae_amps"], eps=inp["vae_eps"])
+        out[(shape, "vae")] = dict(
+            metrics={k: float(v) for k, v in metrics.items()}, grads=grads,
+            state=G.state_dict(), digest=state_digest(G),
+            k4_calls=k4.counts.plain_calls)
+
+        k4.counts.reset()
+        scale = inp["gan_scale"]
+        cfg, G = generator(scale)
+        D = WDiscriminator(3, 64, 3, cfg.num_layer, ndim=3, pconv=True)
+        D.load_state_dict(inp["D"])
+        attach(G, mesh)
+        attach(D, mesh)
+        g_grads, d_grads = {}, {}
+        opt_g = record_grads(optim.build_g_optimizer(cfg, G, scale), G,
+                             g_grads)
+        opt_d = record_grads(optim.build_d_optimizer(cfg, D), D, d_grads)
+        real, real_zero, noise_init = inp["gan_data"]
+        metrics = steps.gan_step(G, D, opt_g, opt_d, cfg, real, real_zero,
+                                 noise_init, inp["gan_amps"],
+                                 noises=inp["gan_noises"],
+                                 eps=inp["gan_eps"], alpha=inp["gan_alpha"])
+        out[(shape, "gan")] = dict(
+            metrics={k: float(v) for k, v in metrics.items()},
+            grads=g_grads, d_grads=d_grads, state=G.state_dict(),
+            d_state=D.state_dict(),
+            digest=torch.cat([state_digest(G), state_digest(D)]),
+            k4_calls=k4.counts.plain_calls)
+    return out
+
+
+PROGRAMS = {"k4": program_k4, "halo": program_halo, "steps": program_steps}
+
+
+def main(argv) -> None:
+    program, rank, world, port, workdir = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(1)
+    from hpvaegan_tpu_torch.parallel import maybe_initialize
+    maybe_initialize(True, coordinator_address=f"127.0.0.1:{port}",
+                     num_processes=world, process_id=rank, timeout_s=120)
+    out = {}
+    for name in program.split(","):
+        out.update(PROGRAMS[name](MESHES[world], workdir))
+    torch.save(out, os.path.join(workdir, f"{program}_{world}_{rank}.pt"))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
