@@ -110,10 +110,34 @@ Phases; any failure exits non-zero and prints no result:
        the first scale-9 GAN step's metrics and its gradients before the
        update held against a single-process ``train_scale`` from the same
        scale-8 checkpoint (no ``--pfuse``, which ``--spmd`` turns off);
-9. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
+9. evaluation on the card: ``cli.generate --svfid`` on the runs of 6 and
+   6b (four rand samples each, the C3D trunk built afresh in each call,
+   its random weights drawn as the JAX package draws them) and
+   ``svfid(...)`` on the same samples, against the real top-scale clip
+   (13x144x256): every score finite and > 0, the real clip against
+   itself below 1e-3 of the smallest, 90 K1 launches a call (the
+   sampler's; C3D runs cuDNN); the card's C3D statistics of the real
+   clip and one sample's SVFID against the CPU's (within 1e-4 of the
+   largest entry, SVFID within 1e-3); ms a scored sample with the
+   trunk's build and without;
+10. the 2D image path at full width: frame 0 of the clip's frames file
+   written as a PNG by the port's writer; the 2D generator at full
+   widths on a small pyramid on the card against the CPU (the tests' f32
+   bar); ``cli.train_image`` on the PNG at the default geometry (nfc 64,
+   latent 128, 5 layers, ten scales from 18x33 to 144x256) with
+   ``--niter 2 --visualize``, f32 and ``--bf16``: each scale's seconds
+   and peak memory, the file set, ten amps, the event file (every step's
+   scalars, five image values a scale); ``cli.generate --image-path ...
+   --sifid --metrics`` in rand and rec modes and at ``--inject-scale
+   5``: four PNGs each read back equal to their samples, finite values
+   in [-1, 1], the SIFID line, ms a batch; no kernel launched (the 2D
+   convs are stock);
+11. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
    in bf16 and K4 in both, each with its launches over the main-path
    runs, and K3's three instances with their own phase's), the card
    line, and last ``{"ok": true, "device": {...}}``.
+
+Phases 9 and 10 run after 7b, before 8.
 """
 from __future__ import annotations
 
@@ -1248,10 +1272,11 @@ def experiment_dir(run_dir) -> Path:
     return Path(run_dir) / "wingsuit" / "DEBUG" / "experiment_0"
 
 
-def check_events(exp: Path, want_scalars: dict) -> None:
+def check_events(exp: Path, want_scalars: dict,
+                 n_images: int = VIS_IMAGES) -> None:
     """The event file of a --visualize CLI run: every step's scalars
     (``want_scalars[scale]`` values an iteration, both iterations) and
-    the ten image values of every scale at iteration 0."""
+    the ``n_images`` image values of every scale at iteration 0."""
     from collections import Counter
 
     from hpvaegan_tpu_torch.utils.tb_events import read_events
@@ -1272,7 +1297,7 @@ def check_events(exp: Path, want_scalars: dict) -> None:
           f"{read_s:.3f} s)", flush=True)
     want_s = Counter({(s, it): n for s, n in want_scalars.items()
                       for it in range(2)})
-    want_i = Counter({(s, 0): VIS_IMAGES for s in want_scalars})
+    want_i = Counter({(s, 0): n_images for s in want_scalars})
     if scalars != want_s or images != want_i:
         fail(f"the event file holds scalars {dict(scalars)} and images "
              f"{dict(images)}, want {dict(want_s)} and {dict(want_i)}")
@@ -1622,6 +1647,336 @@ def serve_cli_main_path(dev, seed: int, exp: Path, out_dir: Path):
                               if k not in ("conv3d64_fwd", "plain")):
         fail(f"the server launched {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9: evaluation on the card; phase 10: the 2D image path
+# ---------------------------------------------------------------------------
+
+EVAL_LAYER, EVAL_SAMPLES = "conv3b", 4
+# the card's C3D statistics against the CPU's on the same clip: max |card -
+# CPU| <= STATS_TOL * max |CPU| over mu and over cov (f32 features, cuDNN
+# and the CPU's convs summing in other orders; float64 moments), and
+# SVFID within SVFID_TOL of the CPU's, relative
+STATS_TOL, SVFID_TOL = 1e-4, 1e-3
+IMAGE_NAME = "wingsuit_frame0"
+IMAGE_TOP = (144, 256)
+IMAGE_INJECT = 5
+IMAGE_FILES = (["netG", "Noise_Amps", "Noise_Amps.json", "config.json",
+                "logbook.txt", "eval"]
+               + [f"netD_{s}" for s in range(MAIN_CFG["vae_levels"],
+                                             SCALE + 1)])
+# --visualize of the 2D trainer: five grids, one image value each
+IMAGE_VIS_IMAGES = 5
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    import numpy as np
+    return float(np.max(np.abs(np.asarray(got) - ref))
+                 / max(float(np.max(np.abs(ref))), 1e-30))
+
+
+@contextlib.contextmanager
+def logged_lines():
+    """The messages logged at INFO and above inside the block."""
+    import logging
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    lines, root, handler = [], logging.getLogger(), Keep(logging.INFO)
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        yield lines
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def eval_main_path(dev, seed: int, runs: Path):
+    """Phase 9: SVFID at ``conv3b`` of four rand samples of each of
+    phase 6's runs (f32 and bf16) against the real top-scale clip (13 x
+    144 x 256), through ``cli.generate --svfid`` (the trunk built afresh
+    in each call) and through ``svfid(...)`` on the same samples; every
+    score finite and > 0, the real clip against itself below 1e-3 of the
+    smallest; the card's C3D statistics of the real clip and the SVFID
+    of one sample against the CPU's.  Returns the launches of the two
+    generate calls (the sampler's K1; C3D runs cuDNN)."""
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.cli import generate
+    from hpvaegan_tpu_torch.eval import _svfid, svfid
+    from hpvaegan_tpu_torch.eval.c3d import random_c3d_params
+
+    reset_counts()
+    real, scored = None, {}
+    for bf16 in (False, True):
+        name = f"eval {dtype_name(bf16)}"
+        k1 = "conv3d64_fwd_bf16" if bf16 else "conv3d64_fwd"
+        argv = ["--netG", str(experiment_dir(runs / dtype_name(bf16))
+                              / "netG"),
+                "--output-dir", str(runs / "eval" / dtype_name(bf16)),
+                "--batch-size", str(BATCH), "--manualSeed", str(seed),
+                "--num-samples", str(EVAL_SAMPLES), "--svfid"]
+        _svfid._trunk.cache_clear()   # each call builds its trunk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = all_counts()
+        t0 = time.perf_counter()
+        with logged_lines() as lines:
+            res = generate.main(argv)
+        wall = time.perf_counter() - t0
+        now = all_counts()
+        launched = {k: now[k] - before[k] for k in now}
+        scores = res["metrics"]["svfid"]["per_sample"]
+        eval_ms = res["eval_ms"]["svfid"]
+        said = [x for x in lines if x.startswith(
+            f"SVFID[{EVAL_LAYER}] (RANDOM C3D — relative only): mean")]
+        print(f"{name}: generate --svfid {wall:.3f} s in all, ms a batch "
+              f"{[round(t, 3) for t in res['batch_ms']]}; SVFID "
+              f"{eval_ms:.3f} ms for {len(scores)} samples, "
+              f"{eval_ms / max(len(scores), 1):.3f} ms a scored sample with "
+              f"the trunk's build; per sample {scores}; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev)} bytes; log {said}",
+              flush=True)
+        want = {**{k: 0 for k in launched}, k1: 2 * 5 * SCALE}
+        if launched != want:
+            fail(f"{name} launched {launched}, want {want}")
+        if (len(scores) != EVAL_SAMPLES or len(said) != 1
+                or not all(math.isfinite(s) and s > 0 for s in scores)):
+            fail(f"{name}: scores {scores}, log lines {said}")
+        if real is None:
+            sess = generate.open_session(generate.build_parser().parse_args(
+                argv), generate.build_parser, argv)
+            real = sess.real_clip(SCALE)
+            del sess
+            if real.shape != (*TOP_SHAPE[1:4], 3):
+                fail(f"the real clip has shape {real.shape}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = svfid(real, list(res["samples"]), feature_layer=EVAL_LAYER,
+                       device=dev)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        print(f"{name}: svfid(...) on the same samples, trunk built: "
+              f"{warm_ms:.3f} ms, {warm_ms / EVAL_SAMPLES:.3f} ms a scored "
+              f"sample; per sample {direct['per_sample']}", flush=True)
+        if not np.allclose(direct["per_sample"], scores, rtol=1e-6, atol=0):
+            fail(f"{name}: svfid(...) gives {direct['per_sample']}, the CLI "
+                 f"{scores}")
+        scored[bf16] = (res["samples"], scores)
+    launches = all_counts()
+
+    self_score = svfid(real, [real], device=dev)["per_sample"][0]
+    smallest = min(min(s) for _, s in scored.values())
+    print(f"eval: SVFID of the real clip against itself {self_score:.6e}, "
+          f"the smallest sample score {smallest:.4f}", flush=True)
+    if not abs(self_score) < 1e-3 * smallest:
+        fail(f"SVFID(real, real) = {self_score}, not below 1e-3 of "
+             f"{smallest}")
+
+    # the card against the CPU on the real clip and one f32 sample
+    trunk = _svfid._trunk(EVAL_LAYER, 0, "", _svfid._device_key(dev))
+    params = random_c3d_params(EVAL_LAYER, 0)
+    fake = scored[False][0][0]
+    stats = {}
+    for where, model in (("card", trunk), ("cpu", params)):
+        t0 = time.perf_counter()
+        stats[where] = [_svfid.c3d_feature_stats(model, x, EVAL_LAYER,
+                                                 device="cpu")
+                        for x in (real, fake)]
+        print(f"eval: C3D statistics of two clips on the {where}: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    (mu_c, cov_c), (mu_fc, cov_fc) = stats["card"]
+    (mu_h, cov_h), (mu_fh, cov_fh) = stats["cpu"]
+    err_mu, err_cov = rel_err(mu_c, mu_h), rel_err(cov_c, cov_h)
+    s_card = _svfid.frechet_distance(mu_c, cov_c, mu_fc, cov_fc)
+    s_cpu = _svfid.frechet_distance(mu_h, cov_h, mu_fh, cov_fh)
+    err_s = abs(s_card - s_cpu) / abs(s_cpu)
+    print(f"eval: card vs CPU on the real clip: mu {err_mu:.3e}, cov "
+          f"{err_cov:.3e} (of the max, bar {STATS_TOL}); SVFID of sample 0 "
+          f"card {s_card:.6f}, CPU {s_cpu:.6f}, relative {err_s:.3e} (bar "
+          f"{SVFID_TOL}); the CLI said {scored[False][1][0]:.6f}", flush=True)
+    if err_mu > STATS_TOL or err_cov > STATS_TOL or err_s > SVFID_TOL:
+        fail("the card's C3D statistics disagree with the CPU's")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def image_config(**over):
+    from hpvaegan_tpu_torch.core.config import Config
+    cfg = Config(**{**MAIN_CFG, "video_path": "", "pconv_all": False,
+                    "image_path": f"{IMAGE_NAME}.png", **over})
+    cfg.ar = CLIP_AR
+    cfg.adjust_scales()
+    return cfg
+
+
+def check_image_card_against_cpu(dev, seed: int) -> None:
+    """The 2D generator at full widths on a small pyramid, on the card
+    (cuDNN) and on the CPU, on the same weights and draws: the tests'
+    f32 bar.  No kernel runs."""
+    import copy
+
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.models.registry import make_generator
+
+    cfg = image_config(img_size=48, min_size=24, max_size=48)
+    scale, pyr = cfg.stop_scale, cfg.pyramid2d()
+    gen = torch.Generator().manual_seed(seed)
+    G = make_generator(cfg.generator, cfg, pyr, ndim=2)
+    G.init(gen)
+    for _ in range(scale):
+        G.init_next_stage(gen)
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((BATCH, *pyr.shape2d(0), cfg.latent_dim),
+                            dtype=np.float32)
+    noises = [rng.standard_normal((BATCH, *pyr.shape2d(i + 1), 3),
+                                  dtype=np.float32) for i in range(scale)]
+    amps = [1.0] + [cfg.noise_amp] * scale
+    outs = {}
+    reset_counts()
+    for name, model in (("cpu", G), ("cuda", copy.deepcopy(G).to(dev))):
+        with torch.inference_mode():
+            out, _, _ = model.apply(amps, noise_init=z, mode="rand",
+                                    train=True, noises=noises)
+            outs[name] = out.float().cpu().numpy()
+    err = float(np.max(np.abs(outs["cuda"] - outs["cpu"])))
+    print(f"2D card vs CPU path (f32), {pyr.shape2d(scale)} at scale "
+          f"{scale}: max_abs_err {err:.3e}; launches {all_counts()}",
+          flush=True)
+    if not np.allclose(outs["cuda"], outs["cpu"], rtol=RTOL, atol=ATOL):
+        fail(f"the 2D generator on the card disagrees with the CPU path "
+             f"(max_abs_err {err:.3e})")
+
+
+def image_main_path(dev, seed: int, work: Path):
+    """Phase 10: frame 0 of the clip's frames file as a PNG (the port's
+    writer), ``cli.train_image`` on it at the default geometry (ten
+    scales, 18 x 33 to 144 x 256, nfc 64, latent 128, 5 layers) with
+    ``--niter 2 --visualize``, in f32 and under ``--bf16``, then
+    ``cli.generate --image-path ... --sifid --metrics`` in rand and rec
+    modes and at ``--inject-scale 5``: the file set, ten amps, the event
+    file, each PNG read back equal to its sample, the SIFID line.  The
+    2D models hold no kernel: returns the launches, all zero."""
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.cli import generate, train_image
+    from hpvaegan_tpu_torch.utils.logger import kept_logging
+    from hpvaegan_tpu_torch.utils.png import encode_png, read_png
+
+    with np.load(ROOT / "data" / "vids" / "wingsuit.frames.npz") as data:
+        frame = np.asarray(data["frames"][0], np.uint8)
+    image = work / f"{IMAGE_NAME}.png"
+    image.write_bytes(encode_png(frame))
+    if frame.shape != (*TOP_SHAPE[2:4], 3) or not np.array_equal(
+            read_png(str(image)), frame):
+        fail(f"the frame PNG does not read back ({frame.shape})")
+    check_image_card_against_cpu(dev, seed)
+
+    reset_counts()
+    console = io.StringIO()
+    for bf16 in (False, True):
+        name = f"image CLI {dtype_name(bf16)}"
+        run_dir = work / dtype_name(bf16)
+        state = {"t": 0.0, "scale": {}, "steps": {}}
+
+        def mark():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            state["t"] = time.perf_counter()
+
+        def on_event(scale, event, it, info):
+            torch.cuda.synchronize()
+            s = state["scale"].setdefault(scale, [0.0, 0])
+            s[0] += time.perf_counter() - state["t"]
+            s[1] = max(s[1], torch.cuda.max_memory_allocated(dev))
+            if event == "step":
+                state["steps"][scale] = state["steps"].get(scale, 0) + 1
+            if not all(math.isfinite(float(v)) for v in info.values()):
+                fail(f"{name} scale {scale} {event} {it}: {info}")
+            mark()
+
+        flags = (["--image-path", str(image), "--niter", "2",
+                  "--manualSeed", str(seed), "--run-dir", str(run_dir),
+                  "--visualize"] + (["--bf16"] if bf16 else []))
+        with kept_logging():
+            mark()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(console):
+                cfg = train_image.main(flags, callback=on_event)
+            wall = time.perf_counter() - t0
+        for scale, (secs, peak) in sorted(state["scale"].items()):
+            print(f"{name} scale {scale} {cfg.pyramid2d().shape2d(scale)}: "
+                  f"{secs:.4f} s (calibration, 2 steps, --visualize), peak "
+                  f"memory {peak} bytes", flush=True)
+        exp = Path(run_dir) / IMAGE_NAME / "DEBUG" / "experiment_0"
+        missing = [n for n in IMAGE_FILES if not (exp / n).exists()]
+        with open(exp / "Noise_Amps.json") as f:
+            amps = json.load(f)["noise_amps"]
+        print(f"{name}: {wall:.3f} s for {cfg.stop_scale + 1} scales; files "
+              f"{sorted(p.name for p in exp.iterdir())}; amps {amps}",
+              flush=True)
+        if (missing or cfg.stop_scale != SCALE or len(amps) != SCALE + 1
+                or amps[0] != 1.0 or not all(math.isfinite(a) for a in amps)
+                or cfg.pyramid2d().shape2d(SCALE) != IMAGE_TOP
+                or state["steps"] != {s: 2 for s in range(SCALE + 1)}):
+            fail(f"the {name} run is incomplete: missing {missing}, amps "
+                 f"{amps}, steps {state['steps']}")
+        check_events(exp, {s: 3 if s < MAIN_CFG["vae_levels"] else 5
+                           for s in range(SCALE + 1)},
+                     n_images=IMAGE_VIS_IMAGES)
+
+        for mode, extra in (("rand", []), ("rec", ["--mode", "rec"]),
+                            (f"inject {IMAGE_INJECT}",
+                             ["--inject-scale", str(IMAGE_INJECT)])):
+            out_dir = work / "generate" / f"{dtype_name(bf16)}_{mode[:6]}"
+            t0 = time.perf_counter()
+            with logged_lines() as lines:
+                res = generate.main(
+                    ["--netG", str(exp / "netG"), "--image-path",
+                     str(image), "--output-dir", str(out_dir),
+                     "--batch-size", str(BATCH), "--manualSeed", str(seed),
+                     "--num-samples", "4", "--sifid", "--metrics", *extra])
+            wall = time.perf_counter() - t0
+            said = [x for x in lines if x.startswith(
+                "SIFID[pool1] (RANDOM stem — relative only): mean")]
+            samples = res["samples"]
+            metrics = {k: v for k, v in res["metrics"].items()
+                       if k != "sifid"}
+            print(f"image generate {dtype_name(bf16)} {mode}: {wall:.3f} s "
+                  f"in all, ms a batch "
+                  f"{[round(t, 3) for t in res['batch_ms']]}, PNG write ms "
+                  f"{[round(t, 3) for t in res['write_ms']]}, SIFID "
+                  f"{res['eval_ms']['sifid']:.3f} ms, metrics {metrics}, "
+                  f"log {said}", flush=True)
+            stem = "inject" if mode.startswith("inject") else "sample"
+            if (len(res["paths"]) != 4 or len(said) != 1
+                    or samples.shape != (4, *IMAGE_TOP, 3)
+                    or not np.all(np.isfinite(samples))
+                    or np.abs(samples).max() > 1.0
+                    or sorted(p.name for p in out_dir.iterdir())
+                    != [f"{stem}_{i}.png" for i in range(4)]):
+                fail(f"image generate {mode}: {res['paths']}, "
+                     f"{samples.shape}, log {said}")
+            for path, s in zip(res["paths"], samples):
+                want = np.uint8((np.clip(s, -1, 1) + 1.0) * 127.5)
+                if not np.array_equal(read_png(path), want):
+                    fail(f"{path} does not hold its sample")
+            sifid = res["metrics"]["sifid"]["per_sample"]
+            if not all(math.isfinite(v) and v > 0 for v in sifid):
+                fail(f"image generate {mode}: SIFID {sifid}")
+    print(f"the image runs logged {console.getvalue().count(chr(10))} "
+          f"console lines", flush=True)
+    launched = all_counts()
+    if any(launched.values()):
+        fail(f"the 2D path launched {launched}: its convs are stock")
+    torch.cuda.empty_cache()
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -2263,6 +2618,9 @@ def main() -> None:
                 runs / "generate", bf16)
         paths["serve f32"] = serve_cli_main_path(             # phase 7b
             dev, args.seed, experiment_dir(runs / "f32"), runs / "serve")
+        paths["eval"] = eval_main_path(dev, args.seed, runs)  # phase 9
+    with tempfile.TemporaryDirectory() as work:               # phase 10
+        paths["image"] = image_main_path(dev, args.seed, Path(work))
     torch.cuda.empty_cache()
     k4_rows, paths["sharded CLI"] = sharded_main_path(dev, args.seed)  # 8
     rows += k4_rows

@@ -9,16 +9,20 @@ explicit flag wins over it) and writes novel samples (``--mode rand``),
 reconstructions (``--mode rec``) or injections of the real clip refined
 from a pyramid level upward (``--inject-scale``), batched over seeds, as
 ``sample_{i}.avi`` / ``inject_{i}.avi`` (uncompressed, see
-``utils/video_io.py``) into ``--output-dir`` (default ``<ckpt dir>/eval``).
-``--h/w/t-factor`` sample at a multiple of the training geometry, and
-``--metrics`` logs the diversity (rand, inject) or the reconstruction
-PSNR (rec).  It samples on the card; ``--no-cuda`` on the CPU.
+``utils/video_io.py``), or ``.png`` for a 2D model (``--image-path``, or
+an image run's snapshot), into ``--output-dir`` (default ``<ckpt
+dir>/eval``).  ``--h/w/t-factor`` sample at a multiple of the training
+geometry, and ``--metrics`` logs the diversity (rand, inject) or the
+reconstruction PSNR (rec).  ``--svfid`` (3D) and ``--sifid`` (2D) score
+the samples against the real sample at the checkpoint's scale on the
+session's device (``eval/``), with the JAX CLI's log lines.  It samples
+on the card; ``--no-cuda`` on the CPU.
 
 The parser is the JAX CLI's, flag for flag.  Batch ``i`` draws from
 ``seeded_generator(manualSeed, 1000 + i)`` (inject: ``3000 + i``) where
 the JAX CLI folds the same numbers into its root key.  Not ported yet,
-and raising before anything is written: ``--svfid``/``--sifid`` (ROADMAP
-Queue 1 item 10), 2D models (item 5), ``--mesh-shape`` (item 12).
+and raising before anything is written: ``--mesh-shape`` (ROADMAP Queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .. import resolve_device
-from ..eval import diversity_score, reconstruction_psnr
+from ..eval import diversity_score, reconstruction_psnr, sifid, svfid
 from ..serving import (SamplerSession, apply_snapshot, config_from_cli_args,
                        explicit_cli_keys)
 from ..utils.tools import seeded_generator
@@ -52,15 +56,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", action="store_true", default=False,
                    help="report diversity (rand) / PSNR (rec) metrics")
     p.add_argument("--svfid", action="store_true", default=False,
-                   help="SVFID of the samples vs the real clip (not ported "
-                        "yet: ROADMAP Queue 1 item 10)")
+                   help="SVFID of the samples vs the real clip")
     p.add_argument("--c3d-weights", type=str, default="",
                    help="torch C3D Sports-1M checkpoint for --svfid")
     p.add_argument("--svfid-layer", type=str, default="conv3b",
                    help="C3D tap layer for --svfid (conv1..conv5b)")
     p.add_argument("--sifid", action="store_true", default=False,
-                   help="SIFID of the samples vs the real image (not ported "
-                        "yet: ROADMAP Queue 1 item 10)")
+                   help="SIFID of the samples vs the real image")
     p.add_argument("--inception-weights", type=str, default="",
                    help="torchvision inception_v3 state dict for --sifid")
     p.add_argument("--sifid-layer", type=str, default="pool1",
@@ -106,14 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise for a flag whose feature the port lacks, before any work."""
-    if args.svfid or args.sifid:
-        raise NotImplementedError(
-            f"{'--svfid' if args.svfid else '--sifid'} is not ported yet "
-            f"(ROADMAP Queue 1 item 10: eval)")
-    if args.image_path:
-        raise NotImplementedError(
-            "--image-path: 2D image sampling is not ported yet (ROADMAP "
-            "Queue 1 item 5)")
     if args.mesh_shape:
         raise NotImplementedError(
             "--mesh-shape: sampling over several cards is not ported yet "
@@ -133,16 +127,51 @@ def open_session(args, build, argv=None) -> SamplerSession:
                    user_chose_source=bool(args.video_path
                                           or args.image_path))
     cfg.adjust_scales()
+    ndim = 3 if cfg.video_path else 2
+    if args.svfid and ndim != 3:
+        raise ValueError("--svfid is a video metric (needs --video-path)")
+    if args.sifid and ndim != 2:
+        raise ValueError("--sifid is an image metric (needs --image-path)")
     return SamplerSession(cfg, batch_size=args.batch_size,
                           manual_seed=args.manualSeed,
                           h_factor=args.h_factor, w_factor=args.w_factor,
                           t_factor=args.t_factor, device=device)
 
 
+def report_svfid(sess: SamplerSession, args, samples) -> dict:
+    """SVFID of generated clips against the real clip at the
+    checkpoint's scale (shapes need not match: the statistics are per
+    position), logged as the JAX CLI logs it."""
+    res = svfid(sess.real_clip(sess.scale), samples,
+                weights_path=args.c3d_weights,
+                feature_layer=args.svfid_layer, device=sess.device)
+    tag = "" if res["pretrained"] else " (RANDOM C3D — relative only)"
+    logging.info(f"SVFID[{res['feature_layer']}]{tag}: "
+                 f"mean {res['mean']:.4f}  per-sample "
+                 f"{[round(s, 4) for s in res['per_sample']]}")
+    return res
+
+
+def report_sifid(sess: SamplerSession, args, samples) -> dict:
+    """SIFID of generated images against the real image at the
+    checkpoint's scale, logged as the JAX CLI logs it."""
+    res = sifid(sess.real_clip(sess.scale), samples,
+                weights_path=args.inception_weights, tap=args.sifid_layer,
+                device=sess.device)
+    tag = "" if res["pretrained"] else " (RANDOM stem — relative only)"
+    logging.info(f"SIFID[{res['tap']}]{tag}: "
+                 f"mean {res['mean']:.4f}  per-sample "
+                 f"{[round(s, 4) for s in res['per_sample']]}")
+    return res
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Generate as the command line says.  Returns what was written:
     ``paths``, the ``samples`` array, ``batch_ms`` (each batch's sampler
-    call, output on the host), ``write_ms`` (each file) and ``metrics``."""
+    call, output on the host), ``write_ms`` (each file), ``metrics``
+    (with the ``svfid``/``sifid`` result dicts when asked for) and
+    ``eval_ms`` (each of those scores' wall time, its trunk's build
+    included)."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     sess = open_session(args, build_parser, argv)
@@ -203,6 +232,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             val = diversity_score(result["samples"])
             logging.info(f"sample diversity (mean pairwise L1): {val:.4f}")
             result["metrics"]["diversity"] = val
+    result["eval_ms"] = {}
+    for name, asked, report in (("svfid", args.svfid, report_svfid),
+                                ("sifid", args.sifid, report_sifid)):
+        if asked:
+            t0 = time.perf_counter()
+            result["metrics"][name] = report(sess, args, samples)
+            result["eval_ms"][name] = (time.perf_counter() - t0) * 1e3
     return result
 
 

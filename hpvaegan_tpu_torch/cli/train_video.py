@@ -99,12 +99,14 @@ def _free_port() -> int:
 
 
 def spawn_ranks(argv: Sequence[str], n: int, no_cuda: bool,
-                poll_s: float = 0.2) -> None:
-    """Run this CLI as ``n`` ranks on this host: fresh interpreters given
-    ``argv`` plus ``--distributed`` and the launcher's environment, one a
-    card (gloo CPU ranks under ``--no-cuda``, which share the host's cores
-    unless ``OMP_NUM_THREADS`` says otherwise).  Waits for all; when one
-    fails the others are stopped and RuntimeError names it."""
+                poll_s: float = 0.2,
+                module: str = "hpvaegan_tpu_torch.cli.train_video") -> None:
+    """Run the CLI ``module`` (this one by default) as ``n`` ranks on this
+    host: fresh interpreters given ``argv`` plus ``--distributed`` and the
+    launcher's environment, one a card (gloo CPU ranks under
+    ``--no-cuda``, which share the host's cores unless
+    ``OMP_NUM_THREADS`` says otherwise).  Waits for all; when one fails
+    the others are stopped and RuntimeError names it."""
     if not no_cuda:
         resolve_device("cuda")
         cards = torch.cuda.device_count()
@@ -127,8 +129,8 @@ def spawn_ranks(argv: Sequence[str], n: int, no_cuda: bool,
                 env.setdefault("OMP_NUM_THREADS",
                                str(max(1, (os.cpu_count() or 1) // n)))
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "hpvaegan_tpu_torch.cli.train_video",
-                 *argv, "--distributed"], env=env))
+                [sys.executable, "-m", module, *argv, "--distributed"],
+                env=env))
         while True:
             codes = [p.poll() for p in procs]
             failed = [(i, c) for i, c in enumerate(codes) if c]

@@ -16,7 +16,8 @@ uninterrupted run would have:
   (``loader.py:51-81``): permutations keyed ``[seed, 2, epoch]``, flips
   drawn by the dataset from ``[seed, 3, it]``.
 
-Both give the JAX loaders' batches under the same flags.  The JAX
+Both give the JAX loaders' batches under the same flags, for the video
+dataset (NTHWC clips) and the image datasets (NHWC images) alike.  The JAX
 package's default keeps the frame store on the device and gathers inside
 the step; here the store stays on the host and each batch is copied, from
 pinned memory with ``non_blocking=True`` (ROADMAP Queue 1 item 9 has the
@@ -84,8 +85,8 @@ _PREFETCH = 2   # batches assembled ahead of the step
 
 
 class BatchLoader:
-    """Infinite iterator over ``(real, real_zero)`` float32 NTHWC tensors
-    on ``device``, assembled two batches ahead by one thread."""
+    """Infinite iterator over ``(real, real_zero)`` float32 NTHWC (NHWC)
+    tensors on ``device``, assembled two batches ahead by one thread."""
 
     def __init__(self, dataset, batch_size: int, seed: int, scale_idx: int,
                  device="cpu", stream: str = "cache",
@@ -117,8 +118,8 @@ class BatchLoader:
                                    perm_memo)
             return ds.batch(np.random.default_rng([self._seed, 3, it]),
                             indices, self.scale_idx)
-        n_start = len(ds.zero_scale_frames) - ds.cfg.fps_lcm
-        idxs, flips = cache_row(self._seed, it, n, n_start, self.batch_size,
+        idxs, flips = cache_row(self._seed, it, n, ds.n_starts,
+                                self.batch_size,
                                 bool(ds.cfg.hflip), perm_memo)
         return ds.pairs(idxs, flips, self.scale_idx)
 

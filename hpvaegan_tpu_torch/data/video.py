@@ -171,6 +171,12 @@ class SingleVideoDataset:
         return (len(self.zero_scale_frames) - self.cfg.fps_lcm) \
             * self.cfg.data_rep
 
+    @property
+    def n_starts(self) -> int:
+        """Distinct start frames: the loader's cache stream takes indices
+        modulo this (``device_cache_views``' ``n_start``)."""
+        return len(self.zero_scale_frames) - self.cfg.fps_lcm
+
     def get(self, idx: int, hflip: bool, scale_idx: Optional[int] = None
             ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """One (T, H, W, C) clip; plus the zero-scale pair for

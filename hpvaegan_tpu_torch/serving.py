@@ -30,11 +30,17 @@ array, and numpy has no bf16, so the port returns the same values as
 float32.  ``write_sample`` writes a clip as an uncompressed AVI
 (``utils/video_io.py``; the JAX package writes MJPG through OpenCV).
 
-It serves 3D ``GeneratorHPVAEGAN`` checkpoints in the port's own format
-and the JAX package's flax-msgpack ``netG`` (``utils/saver.py``
-``restore_generator`` tells them apart by their first byte).  The 2D
-image path and the baselines (ROADMAP Queue 1 items 5 and 7) and a
-sharded batch (``mesh_shape``, item 12) raise.
+A 2D session (the config names an image, no video;
+``hpvaegan_tpu/serving.py:163-175, 256-266``) reads the image as the JAX
+session does (``data/image.py``: a PNG directly, another format from its
+frames file), which sets the aspect ratio; its samples are NHWC images,
+written as PNG (``utils/saver.write_png``).
+
+It serves 2D and 3D ``GeneratorHPVAEGAN`` checkpoints in the port's own
+format and the JAX package's flax-msgpack ``netG`` (``utils/saver.py``
+``restore_generator`` tells them apart by their first byte).  The
+baselines (ROADMAP Queue 1 item 7) and a sharded batch (``mesh_shape``,
+item 12) raise.
 """
 from __future__ import annotations
 
@@ -52,10 +58,11 @@ import torch
 from . import resolve_device
 from .core.config import Config
 from .core.pyramid import ScaledPyramid
+from .data.image import SingleImageDataset
 from .data.video import SingleVideoDataset
 from .models.registry import make_generator
 from .tools.decode_frames import frames_path
-from .utils.saver import restore_generator
+from .utils.saver import restore_generator, write_png
 from .utils.video_io import write_avi
 
 __all__ = ["SNAPSHOT_KEYS", "apply_snapshot", "config_from_cli_args",
@@ -186,16 +193,19 @@ class SamplerSession:
                 "no source clip/image configured: pass --video-path/"
                 "--image-path, or keep the training config.json snapshot "
                 "next to the --netG checkpoint")
-        if not cfg.video_path:
-            raise NotImplementedError(
-                "2D image sampling is not ported yet: ROADMAP Queue 1 item 5")
-        self.ndim = 3
+        self.ndim = 3 if cfg.video_path else 2
 
         if not os.path.isfile(cfg.netG):
             raise RuntimeError(f"=> no <G> checkpoint found at '{cfg.netG}'")
-        cfg.ar, cfg.org_fps = read_geometry(cfg.netG)
-        cfg.fps_lcm = reduce(math.lcm, cfg.sampling_rates)
-        self.train_pyramid = pyramid = cfg.pyramid()
+        self._dataset = None
+        if self.ndim == 3:
+            cfg.ar, cfg.org_fps = read_geometry(cfg.netG)
+            cfg.fps_lcm = reduce(math.lcm, cfg.sampling_rates)
+            pyramid = cfg.pyramid()
+        else:
+            self._dataset = SingleImageDataset(cfg)   # sets cfg.ar
+            pyramid = self._dataset.pyramid
+        self.train_pyramid = pyramid
 
         # weights are built and loaded on the CPU, then moved: the growth
         # replay's stage init draws from a CPU generator either way
@@ -216,40 +226,46 @@ class SamplerSession:
         self.generator = torch.Generator(device=self.device).manual_seed(
             manual_seed)
 
-        t0, h0, w0 = pyramid.shape3d(0)
-        self.noise_shape = (self.batch_size, t0, h0, w0, cfg.latent_dim)
-        self._dataset = None
+        self.noise_shape = (self.batch_size,
+                            *(pyramid.shape3d(0) if self.ndim == 3
+                              else pyramid.shape2d(0)), cfg.latent_dim)
         self._rec_input = None
 
     # ---- the clip (rec and inject modes) ----
 
     @property
-    def dataset(self) -> SingleVideoDataset:
+    def dataset(self):
         """The training clip at the training geometry, opened from its
-        frames file on first use."""
+        frames file on first use (3D), or the image (2D)."""
         if self._dataset is None:
             self._dataset = SingleVideoDataset(self.cfg, self.train_pyramid)
         return self._dataset
 
     def has_frames(self) -> bool:
-        """Is the clip's frames file there (rec and inject need it)?"""
-        return os.path.isfile(frames_path(self.cfg.video_path))
+        """Is the real sample there (rec and inject need it)?  A 2D
+        session has read its image already."""
+        return (self.ndim == 2
+                or os.path.isfile(frames_path(self.cfg.video_path)))
+
+    def _real(self, scale: int):
+        """(current, zero-scale or None) real sample at ``scale``: the
+        first window of the clip, or the image, unflipped."""
+        if self.ndim == 2:
+            return self.dataset.get(0, scale, hflip=False)
+        self.dataset.generate_frames(scale)
+        return self.dataset.get(0, hflip=False, scale_idx=scale)
 
     def real_clip(self, scale: int) -> np.ndarray:
-        """The real clip (T, H, W, 3) at pyramid level ``scale``: the
-        first window of the clip, unflipped."""
-        self.dataset.generate_frames(scale)
-        cur, _ = self.dataset.get(0, hflip=False, scale_idx=scale)
-        return cur
+        """The real clip (T, H, W, 3), or image (H, W, 3), at pyramid
+        level ``scale``."""
+        return self._real(scale)[0]
 
     def rec_input(self):
         """``(real_zero batch, real current-scale clip)``: the rec-mode
         conditioning input, the real sample's zero-scale clip repeated to
         the batch.  Cached after first use (JAX ``serving.py:226-248``)."""
         if self._rec_input is None:
-            self.dataset.generate_frames(self.scale)
-            cur, zero = self.dataset.get(0, hflip=False,
-                                         scale_idx=self.scale)
+            cur, zero = self._real(self.scale)
             if zero is None:
                 zero = cur
             self._rec_input = (np.stack([zero] * self.batch_size), cur)
@@ -281,12 +297,13 @@ class SamplerSession:
                           generator: Optional[torch.Generator] = None, *,
                           eps=None) -> np.ndarray:
         """One rec-mode batch from the real zero-scale clip ``real_zero``
-        ((T,H,W,3) for one clip, repeated to the batch, or a batch);
-        by default the clip's own (``rec_input``)."""
+        ((T,H,W,3) for one clip, or (H,W,3) for one image, repeated to
+        the batch, or a batch); by default the clip's own
+        (``rec_input``)."""
         if real_zero is None:
             real_zero = self.rec_input()[0]
         real_zero = np.asarray(real_zero, np.float32)
-        if real_zero.ndim == 4:
+        if real_zero.ndim == self.ndim + 1:
             real_zero = np.stack([real_zero] * self.batch_size)
         g = self._generator(generator)
         with torch.inference_mode():
@@ -314,7 +331,13 @@ class SamplerSession:
 
     def write_sample(self, frame: np.ndarray, path_base: str) -> str:
         """A [-1, 1] clip (T, H, W, 3) -> ``path_base + ".avi"``,
-        uncompressed at the top scale's frame rate.  Returns the path."""
+        uncompressed at the top scale's frame rate, or an image (H, W, 3)
+        -> ``path_base + ".png"``, clipped to [-1, 1] first.  Returns the
+        path."""
+        if self.ndim == 2:
+            path = path_base + ".png"
+            write_png(np.clip(frame, -1, 1), path)
+            return path
         path = path_base + ".avi"
         write_avi(frame, path, self.pyramid.fps(self.scale))
         return path

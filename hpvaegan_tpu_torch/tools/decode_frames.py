@@ -1,6 +1,7 @@
-"""Decode a clip once into the frames file the port's dataset reads.
+"""Decode a clip or an image once into the frames file the port reads.
 
     python -m hpvaegan_tpu_torch.tools.decode_frames data/vids/wingsuit.avi
+    python -m hpvaegan_tpu_torch.tools.decode_frames photo.jpg
 
 writes ``data/vids/wingsuit.frames.npz`` beside the clip: ``frames``
 (N, H, W, 3) uint8 RGB at the clip's own size, every frame, and ``fps``.
@@ -9,6 +10,13 @@ does up to the resize: OpenCV's decode, BGR -> RGB, the 500-null-read
 guard.  The per-scale resize happens in the dataset
 (``hpvaegan_tpu_torch/data/video.py``), which needs no OpenCV, so a clip
 decoded here trains on a machine without it.
+
+An image (a file with an extension of ``IMAGE_EXTENSIONS``) becomes
+``<image stem>.frames.npz`` with one frame, RGB uint8, and ``fps`` 0: the
+frames file that ``data/image.py`` reads for a format other than PNG,
+which the port reads itself (``utils/png.py``).  The JAX package decodes
+images with imageio; OpenCV decodes PNG and BMP to the same pixels, and a
+JPEG possibly a level off where the two carry different libjpeg builds.
 
 This is the port's only module that imports ``cv2``.
 """
@@ -19,7 +27,11 @@ import os
 
 import numpy as np
 
-__all__ = ["frames_path", "decode_frames"]
+__all__ = ["frames_path", "decode_frames", "decode_image",
+           "IMAGE_EXTENSIONS"]
+
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff",
+                    ".webp")
 
 
 def frames_path(video_path: str) -> str:
@@ -58,14 +70,34 @@ def decode_frames(video_path: str, out: str = "") -> str:
     return out
 
 
+def decode_image(image_path: str, out: str = "") -> str:
+    """Decode ``image_path`` into a one-frame frames file (RGB, alpha
+    dropped, gray spread to three channels); returns the file written."""
+    import cv2
+
+    if not os.path.isfile(image_path):
+        raise FileNotFoundError(image_path)
+    image = cv2.imread(image_path, cv2.IMREAD_COLOR)
+    if image is None:
+        raise RuntimeError(f"OpenCV cannot decode {image_path}")
+    out = out or frames_path(image_path)
+    tmp = out + ".tmp.npz"
+    np.savez_compressed(
+        tmp, frames=cv2.cvtColor(image, cv2.COLOR_BGR2RGB)[None].astype(
+            np.uint8), fps=np.float64(0.0))
+    os.replace(tmp, out)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("video_path")
+    ap.add_argument("path", help="a clip, or an image")
     ap.add_argument("--out", default="",
-                    help="output file (default: <clip stem>.frames.npz "
-                         "beside the clip)")
+                    help="output file (default: <stem>.frames.npz beside "
+                         "the input)")
     args = ap.parse_args(argv)
-    print(decode_frames(args.video_path, args.out))
+    image = os.path.splitext(args.path)[1].lower() in IMAGE_EXTENSIONS
+    print((decode_image if image else decode_frames)(args.path, args.out))
 
 
 if __name__ == "__main__":

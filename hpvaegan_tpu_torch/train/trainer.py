@@ -2,8 +2,9 @@
 ``hpvaegan_tpu/train/trainer.py:65-468``; reference train_video.py:25-258).
 
 Its parts: the VAE/GAN switch (``trainer.py:70``); the ``Z_init_size``
-quirk (``:73-81``); a fresh critic per GAN scale, warm-started from the
-previous GAN scale's (``:100-118``); fresh optimizers per scale; the
+quirk at 3D, the scale-0 shape at 2D (``:73-81``); a fresh critic per
+GAN scale, warm-started from the previous GAN scale's (``:100-118``);
+fresh optimizers per scale; the
 noise-amp calibration at the scale's first iteration (``noise_amp =
 noise_amp_init * rmse / batch_size``, ``:239-261``), or the reuse of an
 amp already calibrated when a resume lands in the scale (``:241-247``);
@@ -166,9 +167,10 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     # the reference clips over every generator parameter, frozen or not
     G.requires_grad_(True)
 
-    if dataset is not None and G.ndim == 3 and \
-            not getattr(cfg, "Z_init_size", None):
-        h0, w0 = G.pyramid.shape2d(0)
+    h0, w0 = G.pyramid.shape2d(0)
+    if G.ndim == 2:   # every scale (train_image.py:137-139)
+        cfg.Z_init_size = [cfg.batch_size, h0, w0, cfg.latent_dim]
+    elif dataset is not None and not getattr(cfg, "Z_init_size", None):
         # the reference's quirk: the td of the FIRST scale trained
         cfg.Z_init_size = [cfg.batch_size, cfg.td, h0, w0, cfg.latent_dim]
 
@@ -358,7 +360,7 @@ def _stop_profiler(profiler, profile_dir: str, scale_idx: int) -> None:
 def _write_scalars(summary, scale_idx: int, it: int, noise_amp: float,
                    metrics: dict, gan_phase: bool) -> None:
     """The JAX trainer's scalars of one iteration (``trainer.py:382-421``;
-    the reference's ``Video/Scale {s}`` tags)."""
+    the reference's ``Video/Scale {s}`` tags, in the 2D trainer too)."""
     tag = f"Video/Scale {scale_idx}"
     summary.add_scalar(f"{tag}/noise_amp", noise_amp, it)
     names = ((("rec loss", "rec_loss"), ("errG", "errG"),

@@ -1,8 +1,9 @@
 """JAX package variables -> the port's modules (no JAX counterpart).
 
-Input is the JAX package's generator variables (``load_generator``) or
-critic variables (``load_discriminator``) as nested dicts of numpy
-arrays.  The generator's are
+Input is the JAX package's generator variables (``load_generator``),
+critic variables (``load_discriminator``) or the eval trunks' parameter
+trees (``load_feature_convs``: C3D, the Inception stem) as nested dicts
+of numpy arrays.  The generator's are
 ``{"encode": vars, "decoder": vars, "body": [vars, ...]}``
 (``hpvaegan_tpu/models/generators.py:145-164``), each ``vars`` a flax
 variable dict with ``params`` and, where the module has them,
@@ -27,7 +28,8 @@ import torch
 from ..models.blocks import ConvBlock, ConvND, SNConv
 
 __all__ = ["load_conv", "load_conv_block", "load_snconv", "load_encoder",
-           "load_conv_stack", "load_generator", "load_discriminator"]
+           "load_conv_stack", "load_generator", "load_discriminator",
+           "load_feature_convs"]
 
 
 def _t(a) -> torch.Tensor:
@@ -121,3 +123,15 @@ def load_discriminator(D, dvars: Mapping[str, Any]) -> None:
     for i, block in enumerate(D.body):
         load_snconv(block, p[f"block{i}"], s[f"block{i}"])
     load_conv(D.tail, p["tail"]["conv"])
+
+
+def load_feature_convs(m, tree: Mapping[str, Any]) -> None:
+    """Fill the convs of an eval trunk (``eval/c3d.C3D``,
+    ``eval/_sifid.InceptionStem``) from its parameter tree
+    ``{"params": {name: {"kernel": (*k, I, O), "bias": (O,)}}}``; every
+    conv of ``m`` must be in the tree."""
+    p = tree["params"]
+    for name in m.layers:
+        conv = getattr(m, name)
+        _copy(conv.weight, _t(_kernel_to_oi(np.asarray(p[name]["kernel"]))))
+        _copy(conv.bias, _t(p[name]["bias"]))

@@ -30,6 +30,11 @@ are optax's) and raises.
 ``restore_generator`` and ``apply_resume`` replay stage growth before
 loading, as ``hpvaegan_tpu/serving.py:154-160`` and ``saver.py:50-89`` do.
 
+``VideoSaver`` and ``ImageSaver`` name the tree after the clip or the
+image (``saver.py:211-230``); ``ImageSaver.save_image`` writes a PNG
+(``write_png``, ``utils/png.py``) where the JAX saver calls
+``cv2.imwrite``.
+
 Under several ranks (``--distributed``) only rank 0 touches the
 experiment tree, as in the JAX package (``saver.py:113-140``): the run id
 is rank 0's (``multihost.agree``), the other ranks keep the paths and
@@ -50,9 +55,11 @@ import torch
 from ..parallel import multihost
 from . import convert
 from .msgpack_reader import is_msgpack_file, read_file
+from .png import encode_png
 
 __all__ = ["save_generator", "restore_file", "restore_generator",
-           "load_critic", "apply_resume", "Saver", "VideoSaver"]
+           "load_critic", "apply_resume", "Saver", "VideoSaver",
+           "ImageSaver", "write_png"]
 
 
 def _to_host(tree: Any) -> Any:
@@ -212,3 +219,29 @@ class VideoSaver(Saver):
     def __init__(self, cfg, run_id: Optional[int] = None):
         clip_name = ".".join(os.path.basename(cfg.video_path).split(".")[:-1])
         super().__init__(cfg, clip_name, run_id)
+
+
+def write_png(array: np.ndarray, path: str) -> None:
+    """A [-1, 1] RGB image (H, W, 3) -> ``path`` as an RGB PNG of
+    ``uint8((x + 1) * 127.5)``, the truncating cast of the JAX package's
+    ``cv2.imwrite`` (``hpvaegan_tpu/utils/saver.py:225-230``, whose
+    RGB -> BGR swap cv2 undoes on writing)."""
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"{path}: the port writes images as PNG only")
+    img = np.uint8((np.asarray(array, np.float32) + 1.0) * 127.5)
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+class ImageSaver(Saver):
+    """The experiment tree of an image run: the clip name is the image's
+    (or the directory's) name up to its last dot."""
+
+    def __init__(self, cfg, run_id: Optional[int] = None):
+        clip_name = ".".join(os.path.basename(cfg.image_path).split(".")[:-1])
+        super().__init__(cfg, clip_name, run_id)
+
+    def save_image(self, array: np.ndarray, filename: str) -> None:
+        if not self.primary:
+            return
+        write_png(array, os.path.join(self.eval_dir, filename))

@@ -3,7 +3,7 @@
 The JAX package writes its summaries through tensorboardX
 (``hpvaegan_tpu/utils/summaries.py:40-41``), and its clips as GIFs through
 moviepy.  The machine with the card has neither, so the port writes the
-event file format itself, from numpy, ``zlib`` and ``struct``:
+event file format itself, from numpy and ``struct``:
 
 * TFRecord framing: u64 length, masked CRC32C of the length, payload,
   masked CRC32C of the payload.  CRC32C runs table-driven in numpy over
@@ -15,7 +15,7 @@ event file format itself, from numpy, ``zlib`` and ``struct``:
   ``summary`` (5).  A ``Summary.Value`` holds ``tag`` (1) and either
   ``simple_value`` (2, float) or ``image`` (4: height, width, colorspace,
   ``encoded_image_string``);
-* images as PNG (filter 0 rows, one zlib stream);
+* images as PNG (``utils/png.py`` ``encode_png``, filter 0 rows);
 * clips as animated GIF on a fixed 6 x 7 x 6 colour cube (each channel
   within 26/255 of the frame), LZW-coded with literal 9-bit codes only and
   a CLEAR code every 254 symbols, so the code width never grows and a
@@ -34,9 +34,10 @@ import re
 import socket
 import struct
 import time
-import zlib
 
 import numpy as np
+
+from .png import encode_png
 
 __all__ = ["crc32c", "masked_crc32c", "clean_tag", "encode_png",
            "encode_gif", "EventFileWriter", "read_events"]
@@ -159,24 +160,6 @@ def _scalar_value(tag: str, value: float) -> bytes:
 
 
 # ---- image formats ----
-
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """(H, W, C) uint8, C in 1, 3, 4 -> PNG bytes."""
-    h, w, c = img.shape
-    color = {1: 0, 3: 2, 4: 6}[c]
-    raw = np.zeros((h, 1 + w * c), np.uint8)   # filter type 0 a row
-    raw[:, 1:] = np.ascontiguousarray(img, np.uint8).reshape(h, w * c)
-    return (b"\x89PNG\r\n\x1a\n"
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
-                                              0, 0, 0))
-            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + _png_chunk(b"IEND", b""))
-
 
 _GIF_LEVELS = (6, 7, 6)          # the colour cube: R, G, B levels
 _GIF_CLEAR, _GIF_END = 256, 257

@@ -3,9 +3,10 @@ with ``--no-cuda``, on the tiny 3D run that the JAX CLI trained and on
 the port's own: the 3D counterparts of tests/test_generate_cli.py (rand
 samples distinct, rec with ``--metrics``, ``--inject-scale`` and its range
 check, ``--h-factor``, the snapshot alone, an explicit flag winning over
-it, a missing checkpoint), the flags not ported yet raising before
-anything is written, the card required without ``--no-cuda``, and the
-parser equal to the JAX CLI's."""
+it, a missing checkpoint), ``--mesh-shape`` (not ported yet) raising
+before anything is written, ``--svfid``, ``--sifid`` and ``--image-path``
+running, the card required without ``--no-cuda``, and the parser equal
+to the JAX CLI's."""
 import logging
 import os
 import re
@@ -15,12 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+import hpvaegan_tpu.eval as je
 from hpvaegan_tpu.cli import generate as jgenerate
 from hpvaegan_tpu_torch.cli import generate
 from hpvaegan_tpu_torch.eval import diversity_score, reconstruction_psnr
 from hpvaegan_tpu_torch.utils.video_io import to_uint8
-from torch_port_runs import (make_clip, one_torch_thread, port_run,
-                             shared_jax_run)
+from torch_port_runs import (make_clip, make_image, one_torch_thread,
+                             port_image_run, port_run, shared_jax_run)
 
 TOP = (13, 12, 16)      # (T, H, W) of the tiny runs' top scale, scale 4
 
@@ -155,9 +157,7 @@ def test_missing_checkpoint_fails(runs, tmp_path):
         _gen("/does/not/exist", tmp_path, "--video-path", "clip.avi")
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--svfid"], 10), (["--sifid"], 10), (["--mesh-shape", "2"], 12),
-    (["--image-path", "img.png"], 5)])
+@pytest.mark.parametrize("flag,item", [(["--mesh-shape", "2"], 12)])
 def test_unported_flags_raise_naming_their_roadmap_item(runs, tmp_path,
                                                        flag, item):
     out = tmp_path / "out"
@@ -165,6 +165,50 @@ def test_unported_flags_raise_naming_their_roadmap_item(runs, tmp_path,
                        match=f"{flag[0]}.*ROADMAP Queue 1 item {item}"):
         _gen(runs["port"], out, *flag)
     assert not out.exists()
+
+
+@pytest.fixture(scope="module")
+def image_run(tmp_path_factory):
+    image = make_image(tmp_path_factory.mktemp("image"))
+    return image, os.path.join(port_image_run(
+        image, tmp_path_factory.mktemp("irun")), "netG")
+
+
+@pytest.mark.parametrize("flag", ["--svfid", "--sifid", "--image-path"])
+def test_eval_and_image_flags_run(runs, image_run, tmp_path, caplog, flag):
+    """The flags that raised before eval and the 2D path were ported:
+    ``--svfid`` scores the 3D samples (the JAX CLI's log line, the JAX
+    package's SVFID of the same samples), ``--sifid`` the 2D ones, and
+    ``--image-path`` samples a 2D run into PNGs."""
+    caplog.set_level(logging.INFO)
+    image, netG = image_run
+    if flag == "--svfid":
+        res = _gen(runs["port"], tmp_path, "--svfid", "--num-samples", "2")
+        line = (r"SVFID\[conv3b\] \(RANDOM C3D — relative only\): mean "
+                r"([0-9.]+)  per-sample \[")
+        real = generate.open_session(generate.build_parser().parse_args(
+            ["--netG", runs["port"], "--no-cuda"]), generate.build_parser,
+            ["--netG", runs["port"], "--no-cuda"]).real_clip(4)
+        want = je.svfid(real, list(res["samples"]))
+    elif flag == "--sifid":
+        res = _gen(netG, tmp_path, "--sifid", "--image-path", image,
+                   "--num-samples", "2")
+        line = (r"SIFID\[pool1\] \(RANDOM stem — relative only\): mean "
+                r"([0-9.]+)  per-sample \[")
+        want = None
+    else:
+        res = _gen(netG, tmp_path, "--image-path", image, "--num-samples",
+                   "3")
+        assert res["paths"] == [str(tmp_path / f"sample_{i}.png")
+                                for i in range(3)]
+        assert res["samples"].shape == (3, 16, 16, 3)
+        return
+    value = float(_logged(caplog, line))
+    got = res["metrics"][flag[2:]]
+    assert got["pretrained"] is False and len(got["per_sample"]) == 2
+    assert value == pytest.approx(got["mean"], abs=1e-4) and value > 0
+    if want is not None:
+        np.testing.assert_allclose(got["mean"], want["mean"], rtol=1e-4)
 
 
 def test_without_no_cuda_the_cli_needs_a_card(runs, tmp_path):

@@ -661,3 +661,111 @@ def test_coalesced_requests_on_card_are_distinct(cuda_device, tmp_path):
     for i in range(4):
         for j in range(i + 1, 4):
             assert np.abs(clips[i] - clips[j]).mean() > 0, (i, j)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", ["conv2", "conv3b"])
+def test_c3d_features_on_card_match_the_cpu(cuda_device, layer):
+    """The random C3D trunk's statistics and SVFID on the card against
+    the CPU's (f32 features, float64 moments): within 1e-4 of the
+    largest entry, SVFID within 1e-3."""
+    from hpvaegan_tpu_torch.eval import _svfid, svfid
+    from hpvaegan_tpu_torch.eval.c3d import random_c3d_params
+    rng = np.random.default_rng(1)
+    clips = [np.tanh(rng.standard_normal((8, 40, 48, 3))).astype(np.float32)
+             for _ in range(2)]
+    params = random_c3d_params(layer, 0)
+    for clip in clips:
+        card = _svfid.c3d_feature_stats(params, clip, layer,
+                                        device=cuda_device)
+        cpu = _svfid.c3d_feature_stats(params, clip, layer, device="cpu")
+        for got, want in zip(card, cpu):
+            assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    got = svfid(clips[0], clips[1:], feature_layer=layer,
+                device=cuda_device)["mean"]
+    want = svfid(clips[0], clips[1:], feature_layer=layer,
+                 device="cpu")["mean"]
+    assert got > 0 and abs(got - want) <= 1e-3 * want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tap", ["Conv2d_2a_3x3", "pool1"])
+def test_stem_features_on_card_match_the_cpu(cuda_device, tap):
+    from hpvaegan_tpu_torch.eval import _sifid, sifid
+    rng = np.random.default_rng(2)
+    images = [np.tanh(rng.standard_normal((72, 96, 3))).astype(np.float32)
+              for _ in range(2)]
+    params = _sifid.random_stem_params(tap, 0)
+    for image in images:
+        card = _sifid.image_feature_stats(params, image, tap,
+                                          device=cuda_device)
+        cpu = _sifid.image_feature_stats(params, image, tap, device="cpu")
+        for got, want in zip(card, cpu):
+            assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    got = sifid(images[0], images[1:], tap=tap, device=cuda_device)["mean"]
+    want = sifid(images[0], images[1:], tap=tap, device="cpu")["mean"]
+    assert got > 0 and abs(got - want) <= 1e-3 * want
+
+
+def _image_checkpoint(run_dir):
+    """A full-width 2D run's files from random weights on a small pyramid:
+    netG and config.json, beside a PNG of the image."""
+    import json
+    import os
+
+    from hpvaegan_tpu_torch.utils.png import encode_png
+    from hpvaegan_tpu_torch.utils.saver import save_generator
+    os.makedirs(run_dir)
+    image = os.path.join(str(run_dir), "frame.png")
+    rng = np.random.default_rng(3)
+    with open(image, "wb") as f:
+        f.write(encode_png(rng.integers(0, 256, (36, 64, 3), np.uint8)))
+    cfg = Config(image_path=image, nfc=64, latent_dim=128, num_layer=5,
+                 vae_levels=3, img_size=48, min_size=24, max_size=48)
+    cfg.ar = 36 / 64
+    cfg.adjust_scales()
+    G = make_generator(cfg.generator, cfg, cfg.pyramid2d(), ndim=2)
+    gen = torch.Generator().manual_seed(4)
+    G.init(gen)
+    for _ in range(cfg.stop_scale):
+        G.init_next_stage(gen)
+    netG = os.path.join(str(run_dir), "netG")
+    save_generator(netG, G, cfg.stop_scale,
+                   [1.0] + [0.1] * cfg.stop_scale)
+    with open(os.path.join(str(run_dir), "config.json"), "w") as f:
+        json.dump(cfg.snapshot_dict(), f)
+    return netG
+
+
+@pytest.mark.gpu
+def test_2d_session_batches_match_the_cpu_path_on_card(cuda_device,
+                                                       tmp_path):
+    """A 2D SamplerSession (stock convs: no kernel runs) on the card and
+    on the CPU, on the same draws: the tests' f32 bar."""
+    from hpvaegan_tpu_torch.serving import SamplerSession, apply_snapshot
+    netG = _image_checkpoint(tmp_path / "run")
+
+    def batches(device):
+        cfg = Config(netG=netG)
+        apply_snapshot(cfg, netG, explicit=set(), user_chose_source=False)
+        cfg.adjust_scales()
+        sess = SamplerSession(cfg, batch_size=2, device=device)
+        pyr, rng = sess.pyramid, np.random.default_rng(5)
+        noises = [rng.standard_normal((2, *pyr.shape2d(i + 1), 3)).astype(
+            np.float32) for i in range(sess.scale)]
+        noise = rng.standard_normal(sess.noise_shape).astype(np.float32)
+        eps = rng.standard_normal((2, *pyr.shape2d(0), 128)).astype(
+            np.float32)
+        return {"rand": sess.sample_batch(noise=noise, noises=noises),
+                "rec": sess.reconstruct_batch(eps=eps)}
+
+    cp.counts.reset()
+    card = batches(cuda_device)
+    torch.cuda.synchronize()
+    assert cp.counts.fwd_launches == 0 and cp.counts.plain_calls == 0
+    cpu = batches("cpu")
+    for mode in ("rand", "rec"):
+        # the top of the 48-px pyramid at the image's aspect ratio
+        assert card[mode].shape == cpu[mode].shape == (2, 27, 48, 3)
+        np.testing.assert_allclose(card[mode], cpu[mode], rtol=RTOL,
+                                   atol=ATOL)

@@ -36,6 +36,13 @@ import hpvaegan_tpu_torch.cli.train_video
 import hpvaegan_tpu_torch.cli.generate
 import hpvaegan_tpu_torch.cli.serve
 import hpvaegan_tpu_torch.eval
+import hpvaegan_tpu_torch.eval.c3d
+import hpvaegan_tpu_torch.eval.jax_init
+import hpvaegan_tpu_torch.eval._svfid
+import hpvaegan_tpu_torch.eval._sifid
+import hpvaegan_tpu_torch.data.image
+import hpvaegan_tpu_torch.cli.train_image
+import hpvaegan_tpu_torch.utils.png
 import hpvaegan_tpu_torch.utils.summaries
 import hpvaegan_tpu_torch.utils.video_io
 import hpvaegan_tpu_torch.tools.decode_frames

@@ -6,6 +6,7 @@ import math
 import numpy as np
 import pytest
 
+import hpvaegan_tpu.eval as je
 from hpvaegan_tpu.eval import metrics as jm
 from hpvaegan_tpu_torch import eval as pe
 from hpvaegan_tpu_torch.eval import metrics as pm
@@ -21,9 +22,12 @@ def _arrays(seed, shape):
 
 
 def test_the_package_exports_only_the_three_metrics():
-    assert sorted(pe.__all__) == ["diversity_score", "psnr",
-                                  "reconstruction_psnr"]
-    assert not hasattr(pe, "svfid") and not hasattr(pe, "sifid")
+    """The JAX package's exports: the three numpy metrics, and SVFID,
+    SIFID and their Frechet distance."""
+    assert sorted(pe.__all__) == sorted(je.__all__) == [
+        "diversity_score", "frechet_distance", "psnr",
+        "reconstruction_psnr", "sifid", "svfid"]
+    assert callable(pe.svfid) and callable(pe.sifid)
 
 
 @pytest.mark.parametrize("seed,shape", list(enumerate(SHAPES)))
