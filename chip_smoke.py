@@ -76,6 +76,13 @@ Phases; any failure exits non-zero and prints no result:
    ``SamplerSession`` (45 K1 launches, finite values in [-1, 1]);
 6b. the same CLI run under ``--bf16``: 137/4/80/75 bf16 launches and no
    f32 one per scale-9 GAN step;
+6c. reproducible training, f32 and bf16: the CLI of 6/6b again on the
+   same seed (``--save-interval 1``, no ``--visualize``), its ``netG``
+   and ``netD_9`` bit-equal to 6's; the same run stopped right after its
+   ``netG_mid`` write at scale 2 (the last whose T is scale 0's: the GAN
+   steps draw their latent at the T of the first scale a process trains,
+   the reference's quirk) and resumed from it through scale 9, bit-equal
+   to the uninterrupted run; every scale-9 step's seconds printed;
 7. ``python -m hpvaegan_tpu_torch.cli.generate`` in-process on the runs
    of 6 and 6b, on the card: rand (4 samples, ``--metrics``), rec
    (``--metrics``), ``--inject-scale 5`` and rand at ``--w-factor 1.5``;
@@ -132,12 +139,31 @@ Phases; any failure exits non-zero and prints no result:
    5``: four PNGs each read back equal to their samples, finite values
    in [-1, 1], the SIFID line, ms a batch; no kernel launched (the 2D
    convs are stock);
-11. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
+11. ``GeneratorVAE_nb`` at full width: one VAE and one GAN step of the
+   full-width model on a small pyramid, the card against the CPU path
+   (phase 5's bars); ``cli.train_video --generator GeneratorVAE_nb
+   --pconv --pconv-all --pfuse --niter 2`` on the clip, f32 and
+   ``--bf16``, ten scales, a scale-9 GAN step launching what 6's does
+   (137/4/80/75: the stage stack and the critic are the same), with its
+   seconds and peak memory; then ``cli.generate`` as in phase 7 on each
+   run (rand, rec, ``--inject-scale 5``, ``--w-factor 1.5``);
+12. the baselines at full width: one ``GeneratorCSG`` baseline step on a
+   small pyramid, card against CPU; ``cli.train_video_baselines``
+   (``GeneratorCSG``, the SN critic, ``--pconv --pfuse --niter 2``), f32
+   and ``--bf16``, ten scales, 3 K1-fwd, 6 K2, 15 K1-dx and 10 K1-dw a
+   scale-9 step (the VALID stages have no route; the critic runs apart on
+   the real and the fake batch, and frozen on the generator's fake), the
+   file set with ``Z_init``, in f32 a ``--netG`` resume that reloads
+   ``Z_init``; ``cli.generate`` rand and rec (from ``Z_init``) on each,
+   no launch, ``--inject-scale`` raising; one f32 ``GeneratorSG`` +
+   ``WDiscriminatorBaselines`` run, which launches no kernel;
+13. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
    in bf16 and K4 in both, each with its launches over the main-path
    runs, and K3's three instances with their own phase's), the card
    line, and last ``{"ok": true, "device": {...}}``.
 
-Phases 9 and 10 run after 7b, before 8.
+Phases 6c, 11 and 12 run after 6b, before 7; phases 9 and 10 after 7b,
+before 8.
 """
 from __future__ import annotations
 
@@ -1443,6 +1469,421 @@ def train_cli_main_path(dev, seed: int, run_dir, bf16: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: reproducible training; phases 11 and 12: GeneratorVAE_nb and
+# the baselines through the CLIs
+# ---------------------------------------------------------------------------
+
+class _Stop(Exception):
+    """Ends a CLI run from its callback (phase 6c's interrupted run)."""
+
+
+# launches of one scale-9 step of the baselines under --pconv --pfuse
+# (CSG/SG convs are VALID: no route; the SN critic runs apart on the real
+# and the fake batch, two K2 pairs and one K1 block each, and once on the
+# generator's fake, frozen)
+BASELINE_STEP_LAUNCHES = {
+    "conv3d64_fwd": 3,
+    "conv3d64_pair": 6,
+    # 5 a critic forward's backward (2 a pair + 1), three forwards
+    "conv3d64_dx": 15,
+    # 5 a critic forward of the critic step
+    "conv3d64_dw": 10,
+}
+BASELINE_FILES = (["Z_init", "netG", "Noise_Amps", "Noise_Amps.json",
+                   "config.json", "logbook.txt", "eval"]
+                  + [f"netD_{s}" for s in range(SCALE + 1)])
+
+
+def step_launches(per_step: dict, bf16: bool) -> dict:
+    """Every counter: ``per_step`` of this dtype's kernels, 0 elsewhere."""
+    sfx = "_bf16" if bf16 else ""
+    return {**{k: 0 for k in all_counts()},
+            **{f"{k}{sfx}": n for k, n in per_step.items()}}
+
+
+def run_cli(main, flags, name: str, dev, want_step=None, stop=None):
+    """One training CLI run in-process, its console kept out of the
+    output: every calibration and step printed with its wall time, peak
+    memory and launches; no plain call anywhere; each scale-9 step's
+    launches equal to ``want_step`` (when given).  ``stop(scale, event,
+    it)`` may raise ``_Stop`` to end the run.  Returns ``(cfg or None,
+    steps per scale, scale-9 step seconds)``."""
+    import torch
+    from hpvaegan_tpu_torch.utils.logger import kept_logging
+
+    state = {"t": 0.0, "counts": None, "steps": {}, "s9": []}
+    out = sys.stdout
+
+    def mark():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state["t"], state["counts"] = time.perf_counter(), all_counts()
+
+    def on_event(scale, event, it, info):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - state["t"]
+        now = all_counts()
+        delta = {k: now[k] - state["counts"][k] for k in now}
+        peak = torch.cuda.max_memory_allocated(dev)
+        values = {k: float(v) for k, v in info.items()}
+        print(f"{name} scale {scale} {event} {it}: {wall:.4f} s, {values}, "
+              f"peak memory {peak} bytes, launches "
+              f"{ {k: v for k, v in delta.items() if v} }", file=out,
+              flush=True)
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"{name} scale {scale} {event} {it}: a value is not finite")
+        if delta["plain"]:
+            fail(f"{name}: the plain versions ran {delta['plain']} times")
+        if event == "step":
+            state["steps"][scale] = state["steps"].get(scale, 0) + 1
+            if scale == SCALE:
+                state["s9"].append(wall)
+                if want_step is not None and delta != want_step:
+                    fail(f"a scale-{scale} step of the {name} run launched "
+                         f"{delta}, want {want_step}")
+        if stop is not None:
+            stop(scale, event, it)
+        mark()
+
+    cfg = None
+    with kept_logging(), contextlib.redirect_stdout(io.StringIO()):
+        mark()
+        try:
+            cfg = main(flags, callback=on_event)
+        except _Stop:
+            pass
+    return cfg, state["steps"], state["s9"]
+
+
+def load_state(path: Path, key: str) -> dict:
+    import torch
+    return torch.load(path, map_location="cpu", weights_only=True)[key]
+
+
+def bit_equal(what: str, a: Path, b: Path) -> None:
+    """``netG``'s weights or a ``netD_<s>``'s, bit for bit."""
+    key = "gvars" if a.name.startswith("netG") else "dvars"
+    sa, sb = load_state(a, key), load_state(b, key)
+    import torch
+    differ = [k for k in sa if k not in sb or not torch.equal(sa[k], sb[k])]
+    if differ or set(sa) != set(sb):
+        fail(f"{what}: {a} and {b} differ in {len(differ)} of {len(sa)} "
+             f"tensors, first {differ[:4]}")
+    print(f"{what}: {a.parent.parent.name}/{a.parent.name}/{a.name} and "
+          f"{b.parent.parent.name}/{b.parent.name}/{b.name} bit-equal "
+          f"({len(sa)} tensors)", flush=True)
+
+
+# the scale phase 6c interrupts and resumes: the last whose T equals
+# scale 0's.  The GAN steps draw their latent at the T of the first scale
+# a process trains (the reference's Z_init_size quirk, kept by the JAX
+# package, trainer.py:73-78), so a resume at scale 3-9 (T 5-13) draws
+# other latents than the run it resumes, in either package
+MID_SCALE = 2
+
+
+def repro_main_path(dev, seed: int, runs: Path, bf16: bool):
+    """Phase 6c: the CLI of phase 6 again on the same seed (no
+    ``--visualize``, ``--save-interval 1``), its ``netG`` and ``netD_9``
+    bit-equal to phase 6's run; then the same run stopped right after
+    its ``netG_mid`` write at scale ``MID_SCALE`` and resumed from it,
+    through the GAN scales to scale 9, ending bit-equal to the
+    uninterrupted one.  Returns the launches of the three runs."""
+    from hpvaegan_tpu_torch.cli import train_video
+    dt = dtype_name(bf16)
+    want = step_launches(GAN_STEP_LAUNCHES, bf16)
+    first = experiment_dir(runs / dt)
+    flags = (["--video-path", str(ROOT / MAIN_CFG["video_path"]),
+              "--niter", "2", "--pconv", "--pconv-all", "--pfuse",
+              "--manualSeed", str(seed), "--save-interval", "1"]
+             + (["--bf16"] if bf16 else []))
+    reset_counts()
+    t0 = time.perf_counter()
+    _, steps, s9 = run_cli(train_video.main, flags + [
+        "--run-dir", str(runs / f"{dt}_again")], f"CLI {dt} again", dev,
+        want)
+    again = experiment_dir(runs / f"{dt}_again")
+    print(f"CLI {dt} again: {time.perf_counter() - t0:.3f} s, steps "
+          f"{steps}, scale-9 GAN steps {[round(s, 4) for s in s9]} s",
+          flush=True)
+    for name in ("netG", f"netD_{SCALE}"):
+        bit_equal(f"two {dt} CLI runs of seed {seed}", first / name,
+                  again / name)
+
+    def stop(scale, event, it):
+        if scale == MID_SCALE and event == "step" and it == 0:
+            raise _Stop
+
+    mid_dir = runs / f"{dt}_mid"
+    run_cli(train_video.main, flags + ["--run-dir", str(mid_dir)],
+            f"CLI {dt} interrupted", dev, want, stop=stop)
+    mid = experiment_dir(mid_dir) / "netG_mid"
+    import torch
+    raw = torch.load(mid, map_location="cpu", weights_only=True)
+    if (raw["scale"], raw["iteration"]) != (MID_SCALE, 1):
+        fail(f"{mid}: scale {raw['scale']} iteration {raw['iteration']}")
+    _, steps, s9 = run_cli(train_video.main, flags + [
+        "--run-dir", str(mid_dir), "--netG", str(mid)],
+        f"CLI {dt} resumed from netG_mid", dev, want)
+    want_steps = {MID_SCALE: 1, **{s: 2 for s in range(MID_SCALE + 1,
+                                                         SCALE + 1)}}
+    if steps != want_steps:
+        fail(f"the netG_mid resume ran steps {steps}, want {want_steps}")
+    resumed = mid_dir / "wingsuit" / "DEBUG" / "experiment_1"
+    for name in ("netG", f"netD_{SCALE}"):
+        bit_equal(f"{dt} netG_mid resume against the uninterrupted run",
+                  again / name, resumed / name)
+    return all_counts()
+
+
+def check_step_card_against_cpu(dev, seed: int, name: str, step: str,
+                                bf16: bool) -> None:
+    """One step of the full-width ``name`` model on a small pyramid, on
+    the card and on the CPU path, from the same weights and draws: the
+    metrics, BatchNorm statistics and spectral u/v agree at phase 5's
+    bars.  ``step``: ``"vae"`` or ``"gan"`` (``GeneratorVAE_nb``), or
+    ``"baseline"`` (``GeneratorCSG`` with the SN critic)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.models.registry import make_discriminator
+    from hpvaegan_tpu_torch.train import optim, steps
+
+    base = name in ("GeneratorCSG", "GeneratorSG")
+    cfg = main_config(img_size=48, min_size=24, max_size=48, bf16=bf16,
+                      generator=name, pconv=True, pfuse=True,
+                      pconv_all=not base)
+    scale = 1 if step == "vae" else cfg.vae_levels
+    cfg.scale_idx = scale
+    pyr = cfg.pyramid()
+    G = build_generator(cfg, scale, seed).requires_grad_(True)
+    D = None
+    if step != "vae":
+        D = make_discriminator(cfg.discriminator, cfg, 3)
+        D.reset_parameters(torch.Generator().manual_seed(seed + 1))
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    real = np.tanh(draw(BATCH, *pyr.shape3d(scale), 3))
+    real_zero = np.tanh(draw(BATCH, *pyr.shape3d(0), 3))
+    amps = [1.0] + [cfg.noise_amp] * scale
+    if base:
+        z = draw(BATCH, *pyr.shape3d(0), 3)
+        noise_init = draw(BATCH, *pyr.shape3d(0), 3)
+        noises = [None] + [draw(*G._noise_shape(i, BATCH))
+                           for i in range(1, len(G.body))]
+    else:
+        noise_init = draw(BATCH, *pyr.shape3d(0), cfg.latent_dim)
+        noises = [draw(BATCH, *pyr.shape3d(i + 1), 3) for i in range(scale)]
+        eps = (draw(BATCH, 1, 1, 1, cfg.latent_dim),
+               rng.uniform(size=(BATCH, *pyr.shape3d(0), 1)).astype(
+                   np.float32))
+        latents = (draw(BATCH, 1, 1, 1, cfg.latent_dim),
+                   rng.integers(0, 2, (BATCH, *pyr.shape3d(0), 1)).astype(
+                       np.float32))
+    runs = {}
+    for where, g, d in (("cpu", G, D),
+                        ("cuda", copy.deepcopy(G).to(dev),
+                         None if D is None else copy.deepcopy(D).to(dev))):
+        reset_counts()
+        opt_g = optim.build_g_optimizer(cfg, g, scale)
+        if step == "vae":
+            metrics = steps.vae_step(g, opt_g, cfg, real, real_zero, amps,
+                                     eps=eps)
+        elif step == "gan":
+            metrics = steps.gan_step(g, d, opt_g,
+                                     optim.build_d_optimizer(cfg, d), cfg,
+                                     real, real_zero, noise_init, amps,
+                                     noises=noises, eps=eps, alpha=0.37,
+                                     latents=latents)
+        else:
+            metrics = steps.baseline_step(g, d, opt_g,
+                                          optim.build_d_optimizer(cfg, d),
+                                          cfg, real, noise_init, z, amps,
+                                          noises=noises, alphas=[0.37])
+        bufs = {f"G.{k}": v.cpu().numpy() for k, v in g.named_buffers()}
+        if d is not None:
+            bufs.update({f"D.{k}": v.cpu().numpy()
+                         for k, v in d.named_buffers()})
+        runs[where] = ({k: float(v) for k, v in metrics.items()}, bufs)
+        print(f"small-pyramid {name} {step} step on {where} "
+              f"({dtype_name(bf16)}): {runs[where][0]}, launches "
+              f"{ {k: v for k, v in all_counts().items() if v} }",
+              flush=True)
+    (m_cpu, b_cpu), (m_gpu, b_gpu) = runs["cpu"], runs["cuda"]
+    worst = 0.0
+    for key in list(m_cpu) + list(b_cpu):
+        a = np.asarray(m_gpu[key] if key in m_gpu else b_gpu[key])
+        b = np.asarray(m_cpu[key] if key in m_cpu else b_cpu[key])
+        err = float(np.max(np.abs(a - b)))
+        if bf16:
+            ok = err <= BF16_MODEL_BAR * max(1.0, float(np.abs(b).max()))
+        else:
+            ok = np.allclose(a, b, rtol=RTOL, atol=ATOL)
+        if not ok:
+            fail(f"{name} {step} step on the card disagrees with the CPU "
+                 f"path in {key}: {err:.3e}")
+        worst = max(worst, err)
+    print(f"card vs CPU {name} {step} step ({dtype_name(bf16)}) at scale "
+          f"{scale} {pyr.shape3d(scale)}: metrics, BN statistics and u/v "
+          f"agree, max_abs_err {worst:.3e}", flush=True)
+
+
+def vae_nb_main_path(dev, seed: int, runs: Path, bf16: bool):
+    """Phase 11: ``GeneratorVAE_nb`` at full width, the card against the
+    CPU on one VAE and one GAN step, ``cli.train_video --generator
+    GeneratorVAE_nb`` on the clip with ``--pconv --pconv-all --pfuse
+    --niter 2`` (ten scales; a scale-9 GAN step launches what the main
+    path's does), then ``cli.generate`` rand, rec and inject from level
+    5 on the run.  Returns the launches of the CLI run and of generate."""
+    from hpvaegan_tpu_torch.cli import train_video
+    dt = dtype_name(bf16)
+    for step in ("vae", "gan"):
+        check_step_card_against_cpu(dev, seed, "GeneratorVAE_nb", step,
+                                    bf16)
+    run_dir = runs / f"vae_nb_{dt}"
+    flags = (["--video-path", str(ROOT / MAIN_CFG["video_path"]),
+              "--generator", "GeneratorVAE_nb", "--niter", "2", "--pconv",
+              "--pconv-all", "--pfuse", "--manualSeed", str(seed),
+              "--run-dir", str(run_dir)] + (["--bf16"] if bf16 else []))
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg, steps, s9 = run_cli(train_video.main, flags,
+                             f"VAE_nb CLI {dt}", dev,
+                             step_launches(GAN_STEP_LAUNCHES, bf16))
+    exp = experiment_dir(run_dir)
+    missing = [n for n in CLI_FILES if not (exp / n).exists()]
+    print(f"VAE_nb CLI {dt}: {time.perf_counter() - t0:.3f} s for ten "
+          f"scales, scale-9 GAN steps {[round(s, 4) for s in s9]} s, files "
+          f"{sorted(p.name for p in exp.iterdir())}", flush=True)
+    if missing or steps != {s: 2 for s in range(SCALE + 1)} or \
+            cfg.generator != "GeneratorVAE_nb":
+        fail(f"the VAE_nb {dt} run is incomplete: missing {missing}, "
+             f"steps {steps}")
+    launched = all_counts()
+    gen = generate_main_path(dev, seed, exp, runs / f"vae_nb_gen_{dt}",
+                             bf16)
+    return {k: launched[k] + gen[k] for k in launched}
+
+
+def generate_baseline(dev, seed: int, exp: Path, out_dir: Path, dt: str):
+    """``cli.generate`` rand (4 samples) and rec (2, from the run's
+    ``Z_init``) on a baselines run: the AVIs read back, no launch (the
+    baselines' convs have no route); ``--inject-scale`` raises."""
+    from hpvaegan_tpu_torch.cli import generate
+    top_hw = TOP_SHAPE[2:4]
+    reset_counts()
+    for mode, n in (("rand", 4), ("rec", 2)):
+        t0 = time.perf_counter()
+        res = generate.main(["--netG", str(exp / "netG"), "--output-dir",
+                             str(out_dir / mode), "--mode", mode,
+                             "--num-samples", str(n), "--batch-size",
+                             str(BATCH), "--manualSeed", str(seed),
+                             "--metrics"])
+        wall = time.perf_counter() - t0
+        print(f"generate baselines {dt} {mode}: {wall:.3f} s in all, ms a "
+              f"batch "
+              f"{[round(t, 3) for t in res['batch_ms']]}, metrics "
+              f"{res['metrics']}", flush=True)
+        check_clips(f"generate baselines {mode}", res["paths"],
+                    res["samples"], top_hw)
+        if len(res["paths"]) != n:
+            fail(f"generate baselines {mode} wrote {res['paths']}")
+    try:
+        generate.main(["--netG", str(exp / "netG"), "--inject-scale", "5"])
+    except ValueError as e:
+        print(f"generate baselines --inject-scale 5 raises: {e}", flush=True)
+    else:
+        fail("generate --inject-scale on a baseline did not raise")
+    if any(all_counts().values()):
+        fail(f"generate on a baseline launched {all_counts()}")
+
+
+def baselines_main_path(dev, seed: int, runs: Path):
+    """Phase 12: ``cli.train_video_baselines`` at full width on the clip:
+    ``GeneratorCSG`` with the SN critic under ``--pconv --pfuse --niter
+    2``, f32 and ``--bf16``, ten scales (the launches of a scale-9 step
+    checked), the file set with ``Z_init``, in f32 a ``--netG`` resume
+    that reloads ``Z_init`` and one card-against-CPU step on a small
+    pyramid; ``cli.generate`` rand and rec on each run; then one f32
+    ``GeneratorSG`` + ``WDiscriminatorBaselines`` run, which launches no
+    kernel.  Returns the launches of the runs."""
+    import torch
+    from hpvaegan_tpu_torch.cli import train_video_baselines as tvb
+    check_step_card_against_cpu(dev, seed, "GeneratorCSG", "baseline",
+                                False)
+    total = {k: 0 for k in all_counts()}
+
+    def add():
+        for k, v in all_counts().items():
+            total[k] += v
+
+    base = ["--video-path", str(ROOT / MAIN_CFG["video_path"]), "--niter",
+            "2", "--manualSeed", str(seed)]
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        run_dir = runs / f"csg_{dt}"
+        flags = base + ["--pconv", "--pfuse", "--run-dir", str(run_dir)] + (
+            ["--bf16"] if bf16 else [])
+        reset_counts()
+        t0 = time.perf_counter()
+        cfg, steps, s9 = run_cli(tvb.main, flags, f"CSG CLI {dt}", dev,
+                                 step_launches(BASELINE_STEP_LAUNCHES,
+                                               bf16))
+        add()
+        exp = experiment_dir(run_dir)
+        missing = [n for n in BASELINE_FILES if not (exp / n).exists()]
+        with open(exp / "Noise_Amps.json") as f:
+            amps = json.load(f)["noise_amps"]
+        print(f"CSG CLI {dt}: {time.perf_counter() - t0:.3f} s for ten "
+              f"scales, scale-9 steps {[round(s, 4) for s in s9]} s, amps "
+              f"{amps}", flush=True)
+        if (missing or steps != {s: 2 for s in range(SCALE + 1)}
+                or len(amps) != SCALE + 1 or amps[0] != 1.0
+                or not all(math.isfinite(a) for a in amps)):
+            fail(f"the CSG {dt} run is incomplete: missing {missing}, "
+                 f"steps {steps}, amps {amps}")
+        if not bf16:
+            reset_counts()
+            _, steps, _ = run_cli(tvb.main, flags + ["--netG",
+                                                     str(exp / "netG")],
+                                  f"CSG CLI {dt} resumed", dev,
+                                  step_launches(BASELINE_STEP_LAUNCHES,
+                                                bf16))
+            add()
+            z0 = load_state(exp / "Z_init", "data")
+            z1 = load_state(exp.parent / "experiment_1" / "Z_init", "data")
+            if steps != {SCALE: 2} or not torch.equal(z0, z1):
+                fail(f"the --netG resume ran {steps} and kept Z_init: "
+                     f"{torch.equal(z0, z1)}")
+            print(f"CSG --netG resume: scale {SCALE} retrained, Z_init "
+                  f"reloaded bit-equal", flush=True)
+        generate_baseline(dev, seed, exp, runs / f"csg_gen_{dt}", dt)
+    run_dir = runs / "sg_f32"
+    reset_counts()
+    t0 = time.perf_counter()
+    _, steps, s9 = run_cli(tvb.main, base + [
+        "--generator", "GeneratorSG", "--discriminator",
+        "WDiscriminatorBaselines", "--run-dir", str(run_dir)],
+        "SG + WDiscriminatorBaselines CLI f32", dev,
+        step_launches({}, False))
+    print(f"SG + WDiscriminatorBaselines CLI f32: "
+          f"{time.perf_counter() - t0:.3f} s for ten scales, scale-9 steps "
+          f"{[round(s, 4) for s in s9]} s, no kernel launched (the "
+          f"BatchNorm critic and the VALID stages have no route)",
+          flush=True)
+    if steps != {s: 2 for s in range(SCALE + 1)} or any(
+            all_counts().values()):
+        fail(f"the SG run: steps {steps}, launches {all_counts()}")
+    generate_baseline(dev, seed, experiment_dir(run_dir), runs / "sg_gen",
+                      "f32")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the sampling CLI; phase 7b: the server
 # ---------------------------------------------------------------------------
 
@@ -2612,6 +3053,14 @@ def main() -> None:
         for bf16 in (False, True):                           # phases 6, 6b
             paths[f"training CLI {dtype_name(bf16)}"] = train_cli_main_path(
                 dev, args.seed, runs / dtype_name(bf16), bf16)
+        for bf16 in (False, True):                           # phase 6c
+            paths[f"reproducible CLI {dtype_name(bf16)}"] = repro_main_path(
+                dev, args.seed, runs, bf16)
+        for bf16 in (False, True):                           # phase 11
+            paths[f"VAE_nb {dtype_name(bf16)}"] = vae_nb_main_path(
+                dev, args.seed, runs, bf16)
+        paths["baselines"] = baselines_main_path(dev, args.seed,  # 12
+                                                 runs)
         for bf16 in (False, True):                           # phase 7
             paths[f"generate {dtype_name(bf16)}"] = generate_main_path(
                 dev, args.seed, experiment_dir(runs / dtype_name(bf16)),

@@ -21,7 +21,7 @@ import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "full_f32"]
+__all__ = ["resolve_device", "full_f32", "deterministic"]
 
 
 @contextlib.contextmanager
@@ -43,6 +43,28 @@ def full_f32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Run stock convs on cuDNN's deterministic algorithms inside the
+    block.
+
+    cuDNN's default choice for an f32 conv's weight gradient sums in an
+    order that changes from run to run, so two f32 training runs of the
+    same seeds drifted apart from their first step on the card (the first
+    gradients to differ are those of the stock 3 -> 64 head convs; the
+    port's own kernels reduce in a fixed order).  The JAX package's
+    training is reproducible, and so is the port's inside this block, in
+    f32 and bf16; the training steps hold it around every step.  The
+    previous setting comes back on exit."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = old
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -114,10 +114,14 @@ def check_ported(args) -> None:
             "(ROADMAP Queue 1 item 12)")
 
 
-def open_session(args, build, argv=None) -> SamplerSession:
+def open_session(args, build, argv=None,
+                 check_metrics: bool = True) -> SamplerSession:
     """The snapshot-configured session of parsed ``args`` (``build`` is
     the parser factory that parsed them), on the card unless
-    ``--no-cuda``."""
+    ``--no-cuda``.  ``check_metrics``: refuse ``--svfid`` on a 2D model
+    and ``--sifid`` on a 3D one, as the JAX generate CLI does; the server,
+    which scores nothing, takes and ignores both, as the JAX server
+    does."""
     check_ported(args)
     device = resolve_device("cpu" if args.no_cuda else "cuda")
     cfg = config_from_cli_args(args)
@@ -128,9 +132,9 @@ def open_session(args, build, argv=None) -> SamplerSession:
                                           or args.image_path))
     cfg.adjust_scales()
     ndim = 3 if cfg.video_path else 2
-    if args.svfid and ndim != 3:
+    if check_metrics and args.svfid and ndim != 3:
         raise ValueError("--svfid is a video metric (needs --video-path)")
-    if args.sifid and ndim != 2:
+    if check_metrics and args.sifid and ndim != 2:
         raise ValueError("--sifid is an image metric (needs --image-path)")
     return SamplerSession(cfg, batch_size=args.batch_size,
                           manual_seed=args.manualSeed,
@@ -182,6 +186,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     inject = args.inject_scale >= 0
     if inject:
+        if not sess.is_triple:   # as the JAX CLI (generate.py:178-179)
+            raise ValueError("--inject-scale requires GeneratorHPVAEGAN")
         s0 = args.inject_scale
         stages = len(sess.G.body)
         if s0 >= stages:

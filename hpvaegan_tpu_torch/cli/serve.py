@@ -447,7 +447,9 @@ def make_server(argv: Optional[Sequence[str]] = None):
     """``(server, args)`` as the command line says: the session (on the
     card unless ``--no-cuda``), the server around it, warmed up."""
     args = build_parser().parse_args(argv)
-    sess = open_session(args, build_parser, argv)
+    # the server scores nothing: --svfid/--sifid parse and are ignored
+    # on either ndim, as in the JAX server
+    sess = open_session(args, build_parser, argv, check_metrics=False)
     out_dir = args.output_dir or os.path.join(os.path.dirname(args.netG),
                                               "serve")
     server = Server(sess, out_dir, default_num=args.num_samples,

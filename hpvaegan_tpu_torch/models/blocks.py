@@ -47,10 +47,14 @@ H over ``spatial``):
   count (``Mesh.all_sum``), the biased variance over the global count,
   so the running buffers move identically on every rank.
 
-This slice ports what ``GeneratorHPVAEGAN`` uses: zero padding, the
-torch-default init, conv -> BN -> LeakyReLU blocks and LeakyReLU SN convs.
-The JAX package's baseline-only options (N(0, 0.02) init, blocks without
-norm, reflect padding, PReLU) come with the slices that use them.
+Initialisation (``init_mode``): ``"torch"``, PyTorch's default, for
+every module of ``GeneratorHPVAEGAN``, ``GeneratorVAE_nb`` and the SN
+critic; ``"n002"``, the baselines' ``weights_init``
+(``blocks.py:69-76``, networks_3d.py:9-15): conv kernels N(0, 0.02) and
+BatchNorm scales N(1, 0.02), the conv biases keeping PyTorch's default
+uniform.  A ``ConvBlock`` may leave out its BatchNorm (``use_norm``), as
+the baselines' critic head does.  Zero padding only: the JAX package's
+reflect padding and PReLU are set by no model of the zoo.
 """
 from __future__ import annotations
 
@@ -67,6 +71,7 @@ from ..ops.kernels.conv3d_spmd import conv3d64_spmd, halo
 __all__ = [
     "torch_kernel_init",
     "torch_bias_init",
+    "n002_kernel_init",
     "activation",
     "ConvND",
     "ConvBlock",
@@ -103,6 +108,19 @@ def torch_bias_init(fan_in: int):
         bias.uniform_(-bound, bound, generator=generator)
 
     return init
+
+
+@torch.no_grad()
+def n002_kernel_init(weight: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> None:
+    """The baselines' ``weights_init``: N(0, 0.02) (networks_3d.py:9-15)."""
+    weight.normal_(0.0, 0.02, generator=generator)
+
+
+def _check_init_mode(init_mode: str) -> str:
+    if init_mode not in ("torch", "n002"):
+        raise ValueError(f"unknown init_mode {init_mode!r} (torch|n002)")
+    return init_mode
 
 
 # ---------------------------------------------------------------------------
@@ -185,17 +203,20 @@ class ConvND(nn.Module):
     route of ``blocks.py:164-186`` without its TPU-only gates.  The route
     is fixed at construction (``kernel_route``) and decides the weight
     layout; under a ``mesh`` the K1 route runs K4.  ``dtype``: the
-    compute dtype (None: f32)."""
+    compute dtype (None: f32).  ``init_mode``: ``"torch"`` or
+    ``"n002"`` (the kernel N(0, 0.02), the bias PyTorch's default)."""
 
     mesh = None
 
     def __init__(self, in_features: int, features: int, ker_size: int,
                  padding: int, ndim: int = 2, stride: int = 1,
-                 pconv: bool = False, dtype: Optional[torch.dtype] = None):
+                 pconv: bool = False, dtype: Optional[torch.dtype] = None,
+                 init_mode: str = "torch"):
         super().__init__()
         self.in_features, self.features = in_features, features
         self.ker_size, self.padding, self.ndim = ker_size, padding, ndim
         self.stride, self.dtype = stride, dtype
+        self.init_mode = _check_init_mode(init_mode)
         self.kernel_route = pconv and k1_geometry(
             ndim, ker_size, stride, padding, in_features, features)
         k = (ker_size,) * ndim
@@ -207,7 +228,10 @@ class ConvND(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         fan_in = self.ker_size ** self.ndim * self.in_features
-        torch_kernel_init(self.weight, fan_in, generator)
+        if self.init_mode == "n002":
+            n002_kernel_init(self.weight, generator)
+        else:
+            torch_kernel_init(self.weight, fan_in, generator)
         torch_bias_init(fan_in)(self.bias, generator)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
@@ -233,7 +257,8 @@ class ConvND(nn.Module):
 
 class _BatchNorm(nn.Module):
     """BatchNorm with torch defaults (eps 1e-5), in f32 whatever its input
-    (flax ``BatchNorm(dtype=jnp.float32)``).  Train mode uses the batch
+    (flax ``BatchNorm(dtype=jnp.float32)``); its scale starts at 1, or
+    N(1, 0.02) under ``init_mode="n002"``.  Train mode uses the batch
     statistics; with ``update_stats`` it also moves the running buffers
     towards them as flax does: ``ra = 0.9 ra + 0.1 batch`` with the
     biased batch variance.  Under a ``mesh`` the batch statistics are
@@ -241,8 +266,9 @@ class _BatchNorm(nn.Module):
 
     mesh = None
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, init_mode: str = "torch"):
         super().__init__()
+        self.init_mode = _check_init_mode(init_mode)
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -250,7 +276,10 @@ class _BatchNorm(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        self.weight.fill_(1.0)
+        if self.init_mode == "n002":   # N(1, 0.02), blocks.py:74-76
+            self.weight.normal_(1.0, 0.02, generator=generator)
+        else:
+            self.weight.fill_(1.0)
         self.bias.zero_()
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
@@ -303,24 +332,31 @@ class _BatchNorm(nn.Module):
 
 class ConvBlock(nn.Module):
     """Conv (in ``dtype``) -> BatchNorm (f32) -> LeakyReLU(0.2)
-    (networks_3d.py:48-56): the output is f32."""
+    (networks_3d.py:48-56): the output is f32.  Without ``use_norm`` the
+    LeakyReLU takes the conv's output, in the compute dtype.
+    ``init_mode`` initialises the conv and the norm (see ``ConvND``)."""
 
     def __init__(self, in_features: int, features: int, ker_size: int,
                  padding: int, ndim: int = 2, stride: int = 1,
-                 pconv: bool = False, dtype: Optional[torch.dtype] = None):
+                 pconv: bool = False, dtype: Optional[torch.dtype] = None,
+                 use_norm: bool = True, init_mode: str = "torch"):
         super().__init__()
         self.conv = ConvND(in_features, features, ker_size, padding, ndim,
-                           stride, pconv=pconv, dtype=dtype)
-        self.norm = _BatchNorm(features)
+                           stride, pconv=pconv, dtype=dtype,
+                           init_mode=init_mode)
+        self.norm = _BatchNorm(features, init_mode) if use_norm else None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.conv.reset_parameters(generator)
-        self.norm.reset_parameters(generator)
+        if self.norm is not None:
+            self.norm.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False) -> torch.Tensor:
-        return activation(self.norm(self.conv(x), train, update_stats),
-                          "lrelu")
+        y = self.conv(x)
+        if self.norm is not None:
+            y = self.norm(y, train, update_stats)
+        return activation(y, "lrelu")
 
 
 # ---------------------------------------------------------------------------

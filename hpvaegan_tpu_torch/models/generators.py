@@ -1,4 +1,7 @@
-"""``GeneratorHPVAEGAN`` (port of ``hpvaegan_tpu/models/generators.py:119-265``).
+"""The generators (port of ``hpvaegan_tpu/models/generators.py``):
+``GeneratorHPVAEGAN`` (``:119-265``), its Bernoulli-gated variant
+``GeneratorVAE_nb`` (``:315-416``) and the baselines ``GeneratorCSG``
+(ConSinGAN, ``:418-483``) and ``GeneratorSG`` (SinGAN, ``:486-541``).
 
 The JAX generator is a functional object over an explicit ``gvars`` tree;
 here it is an ``nn.Module`` that owns ``encode``, ``decoder`` and a growing
@@ -38,6 +41,26 @@ every rank of the ring, and keeps the rank's block of the result
 ``apply_prefix``, ``apply_suffix`` and ``apply_fused`` serve
 ``--hoist-prefix`` and ``--fused-forwards`` and wait for ROADMAP Queue 1
 item 9.
+
+``GeneratorVAE_nb`` is ``GeneratorHPVAEGAN`` with the ``EncodeVAE_nb``
+encoder: its decoder reads ``z_norm * z_bern``, a global Gaussian latent
+``(b, latent, 1, 1, 1)`` times a spatial Bernoulli map ``(b, 1, T, H,
+W)``; it injects noise at every stage in rand mode, and its refinement
+detach at ``vae_levels`` ignores ``train_all`` (a reference quirk,
+PARITY.md).  Its draws are injectable as the others: ``eps`` is the pair
+``(eps_norm, eps_bern)`` of the rec forward (``reparameterize`` and
+``reparameterize_bern``), ``noise_init_norm``/``noise_init_bern`` the
+rand forward's latents (``draw_latents``).
+
+The baselines have no encoder: a shared head and tail around a growing
+body of VALID-conv stages (``GeneratorCSG``), or a body of whole VALID
+sub-generators with a tanh between them (``GeneratorSG``); both start
+with their first stage, grow by copying the last, and take image-channel
+``noise_init`` (the fixed ``Z_init`` in rec mode).  In rand mode the
+previous stage's output is resized to the stage's size plus the VALID
+convs' shrink, and noise (``noises[idx]``, shaped like that resize) is
+added with ``amps[idx]``; in rec mode the upscale is zero-padded instead.
+They return the sample alone, not a triple (``returns_triple``).
 """
 from __future__ import annotations
 
@@ -53,9 +76,13 @@ from ..core.pyramid import Pyramid
 from ..ops.noise import generate_noise
 from ..ops.resize import interpolate_2d, interpolate_3d
 from ..parallel.mesh import attach
-from .networks import Decoder, EncodeVAE, Stage, reparameterize
+from .blocks import ConvBlock, ConvND
+from .networks import (CSGStage, Decoder, EncodeVAE, EncodeVAE_nb, SGStage,
+                       Stage, pad_spatial, reparameterize,
+                       reparameterize_bern)
 
-__all__ = ["GeneratorHPVAEGAN", "to_model_layout", "to_public_layout"]
+__all__ = ["GeneratorHPVAEGAN", "GeneratorVAE_nb", "GeneratorCSG",
+           "GeneratorSG", "to_model_layout", "to_public_layout"]
 
 
 def to_model_layout(t, device=None, dtype=None) -> torch.Tensor:
@@ -82,10 +109,12 @@ def to_public_layout(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 4, 1) if t.dim() == 5 else t.permute(0, 2, 3, 1)
 
 
-class GeneratorHPVAEGAN(nn.Module):
-    """The core model (networks_3d.py:325-406 / networks_2d.py:188-269)."""
+class _PyramidModule(nn.Module):
+    """What every generator shares: the pyramid, the compute dtype, the
+    mesh, the inter-stage resize and the placement of inputs and draws."""
 
     mesh = None
+    returns_triple = True
 
     def __init__(self, cfg, pyramid: Pyramid, ndim: int):
         super().__init__()
@@ -94,9 +123,53 @@ class GeneratorHPVAEGAN(nn.Module):
         self.ndim = ndim
         # the convs' compute dtype (None: f32)
         self.dtype = torch.bfloat16 if getattr(cfg, "bf16", False) else None
-        self.encode = EncodeVAE(cfg.nc_im, cfg.latent_dim, cfg.nfc,
-                                cfg.ker_size, cfg.enc_blocks, ndim,
-                                dtype=self.dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def _shape(self, index: int) -> Tuple[int, ...]:
+        return (self.pyramid.shape3d(index) if self.ndim == 3
+                else self.pyramid.shape2d(index))
+
+    def _upscale(self, x: torch.Tensor, index: int) -> torch.Tensor:
+        return self._resize(x, self._shape(index))
+
+    def _resize(self, x: torch.Tensor, size) -> torch.Tensor:
+        h_dim = self.ndim   # H of an NCDHW / NCHW tensor
+        if self.mesh is not None:
+            x = self.mesh.gather_h(x, h_dim)
+        if self.ndim == 3:
+            x = interpolate_3d(x, size)
+        else:
+            x = interpolate_2d(x, size)
+        return x if self.mesh is None else self.mesh.slice_h(x, h_dim)
+
+    def _local(self, t, dtype=None) -> torch.Tensor:
+        """A whole NTHWC (NHWC) input in the model layout on this module's
+        device, cut to this rank's block under a mesh."""
+        x = to_model_layout(t, self.device, dtype)
+        if self.mesh is None:
+            return x
+        fmt = (torch.channels_last_3d if x.dim() == 5
+               else torch.channels_last)
+        return self.mesh.shard(x, self.ndim).contiguous(memory_format=fmt)
+
+    def _draw(self, shape, dtype, generator) -> torch.Tensor:
+        """N(0, 1) of the whole ``shape`` (model layout) from
+        ``generator``, cut to this rank's block under a mesh."""
+        noise = generate_noise(size=shape, dtype=dtype, generator=generator,
+                               device=self.device)
+        return noise if self.mesh is None else self.mesh.shard(noise,
+                                                               self.ndim)
+
+
+class GeneratorHPVAEGAN(_PyramidModule):
+    """The core model (networks_3d.py:325-406 / networks_2d.py:188-269)."""
+
+    def __init__(self, cfg, pyramid: Pyramid, ndim: int):
+        super().__init__(cfg, pyramid, ndim)
+        self.encode = self._encoder()
         self.decoder = Decoder(cfg.latent_dim, cfg.nfc, cfg.nc_im,
                                cfg.ker_size, cfg.padd_size, cfg.num_layer,
                                ndim, dtype=self.dtype)
@@ -105,9 +178,10 @@ class GeneratorHPVAEGAN(nn.Module):
         # networks_3d.py:398)
         self.noise_all_stages = (ndim == 2)
 
-    @property
-    def device(self) -> torch.device:
-        return self.decoder.tail.weight.device
+    def _encoder(self) -> nn.Module:
+        cfg = self.cfg
+        return EncodeVAE(cfg.nc_im, cfg.latent_dim, cfg.nfc, cfg.ker_size,
+                         cfg.enc_blocks, self.ndim, dtype=self.dtype)
 
     # -- lifecycle ---------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None
@@ -138,34 +212,6 @@ class GeneratorHPVAEGAN(nn.Module):
         return self
 
     # -- forward -----------------------------------------------------------
-    def _upscale(self, x: torch.Tensor, index: int) -> torch.Tensor:
-        h_dim = self.ndim   # H of an NCDHW / NCHW tensor
-        if self.mesh is not None:
-            x = self.mesh.gather_h(x, h_dim)
-        if self.ndim == 3:
-            x = interpolate_3d(x, self.pyramid.shape3d(index))
-        else:
-            x = interpolate_2d(x, self.pyramid.shape2d(index))
-        return x if self.mesh is None else self.mesh.slice_h(x, h_dim)
-
-    def _local(self, t, dtype=None) -> torch.Tensor:
-        """A whole NTHWC (NHWC) input in the model layout on this module's
-        device, cut to this rank's block under a mesh."""
-        x = to_model_layout(t, self.device, dtype)
-        if self.mesh is None:
-            return x
-        fmt = (torch.channels_last_3d if x.dim() == 5
-               else torch.channels_last)
-        return self.mesh.shard(x, self.ndim).contiguous(memory_format=fmt)
-
-    def _draw(self, shape, dtype, generator) -> torch.Tensor:
-        """N(0, 1) of the whole ``shape`` (model layout) from
-        ``generator``, cut to this rank's block under a mesh."""
-        noise = generate_noise(size=shape, dtype=dtype, generator=generator,
-                               device=self.device)
-        return noise if self.mesh is None else self.mesh.shard(noise,
-                                                               self.ndim)
-
     def apply(self, amps: Sequence[float], real_zero=None, noise_init=None,
               sample_init: Optional[Tuple[int, torch.Tensor]] = None,
               mode: str = "rec", train: bool = True,
@@ -181,7 +227,6 @@ class GeneratorHPVAEGAN(nn.Module):
         upscaled input; entries for stages without noise are ignored.
         Under a mesh the inputs are whole and the outputs this rank's
         blocks."""
-        amps = [float(a) for a in amps]
         with full_f32():
             if noise_init is None:
                 assert real_zero is not None
@@ -198,21 +243,32 @@ class GeneratorHPVAEGAN(nn.Module):
             else:
                 z_vae = self._local(noise_init)
                 stats = None
+            return self._decode_refine(amps, z_vae, stats, sample_init,
+                                       mode, train, noises, generator,
+                                       update_stats)
 
-            vae_out = torch.tanh(self.decoder(z_vae, train, update_stats))
-
-            if sample_init is not None:
-                start_idx, x = sample_init[0], self._local(sample_init[1])
-                assert len(self.body) > start_idx, \
-                    "Starting index must be lower than # of body blocks"
-            else:
-                start_idx, x = 0, vae_out
-
-            x = self._refinement_layers(start_idx, x, amps, mode, train,
-                                        noises, generator, update_stats)
+    def _decode_refine(self, amps, z_vae, stats, sample_init, mode, train,
+                       noises, generator, update_stats):
+        """The decoder on the latent ``z_vae`` (model layout), then the
+        refinement stages; returns ``apply``'s triple."""
+        amps = [float(a) for a in amps]
+        vae_out = torch.tanh(self.decoder(z_vae, train, update_stats))
+        if sample_init is not None:
+            start_idx, x = sample_init[0], self._local(sample_init[1])
+            assert len(self.body) > start_idx, \
+                "Starting index must be lower than # of body blocks"
+        else:
+            start_idx, x = 0, vae_out
+        x = self._refinement_layers(start_idx, x, amps, mode, train,
+                                    noises, generator, update_stats)
         if stats is not None:
             stats = tuple(to_public_layout(s) for s in stats)
         return to_public_layout(x), to_public_layout(vae_out), stats
+
+    def _detach_before(self, idx: int) -> bool:
+        """Is stage ``idx``'s input cut from the gradient (the VAE levels
+        frozen under the GAN phase, networks_3d.py:397)?"""
+        return self.cfg.vae_levels == idx + 1 and not self.cfg.train_all
 
     def _stage_has_noise(self, idx: int) -> bool:
         """Does stage ``idx`` inject noise in rand mode?"""
@@ -223,9 +279,7 @@ class GeneratorHPVAEGAN(nn.Module):
         """One rand-mode forward's stage noises, NTHWC (``None`` for the
         stages without noise): a list to hand to ``apply(noises=...)``,
         so that two forwards can share one draw."""
-        shape = (self.pyramid.shape3d if self.ndim == 3
-                 else self.pyramid.shape2d)
-        return [torch.randn((batch, *shape(idx + 1), self.cfg.nc_im),
+        return [torch.randn((batch, *self._shape(idx + 1), self.cfg.nc_im),
                             generator=generator, device=self.device,
                             dtype=self.dtype or torch.float32)
                 if self._stage_has_noise(idx) else None
@@ -237,7 +291,7 @@ class GeneratorHPVAEGAN(nn.Module):
                            generator: Optional[torch.Generator],
                            update_stats: bool) -> torch.Tensor:
         for idx in range(start_idx, len(self.body)):
-            if self.cfg.vae_levels == idx + 1 and not self.cfg.train_all:
+            if self._detach_before(idx):
                 x = x.detach()
             x_up = self._upscale(x, idx + 1)
             if mode == "rand" and self._stage_has_noise(idx):
@@ -245,9 +299,8 @@ class GeneratorHPVAEGAN(nn.Module):
                     noise = self._local(noises[idx], x_up.dtype)
                 elif self.mesh is not None:
                     b = self.mesh.global_batch(x_up.shape[0])
-                    shape = (self.pyramid.shape3d if self.ndim == 3
-                             else self.pyramid.shape2d)(idx + 1)
-                    noise = self._draw((b, x_up.shape[1], *shape),
+                    noise = self._draw((b, x_up.shape[1],
+                                        *self._shape(idx + 1)),
                                        x_up.dtype, generator)
                 else:
                     noise = generate_noise(ref=x_up, generator=generator)
@@ -258,3 +311,236 @@ class GeneratorHPVAEGAN(nn.Module):
             y = self.body[idx](x_in, train, update_stats)
             x = torch.tanh(y + x_up)
         return x
+
+
+class GeneratorVAE_nb(GeneratorHPVAEGAN):
+    """The Bernoulli-gated variant (networks_3d.py:409-485; JAX
+    ``generators.py:315-416``).  Its rec forward returns the stats
+    ``(mu, logvar, bern)``."""
+
+    def __init__(self, cfg, pyramid: Pyramid, ndim: int):
+        super().__init__(cfg, pyramid, ndim)
+        self.noise_all_stages = True   # both nb variants inject always
+
+    def _encoder(self) -> nn.Module:
+        cfg = self.cfg
+        return EncodeVAE_nb(cfg.nc_im, cfg.latent_dim, cfg.nfc,
+                            cfg.ker_size, cfg.enc_blocks, self.ndim,
+                            dtype=self.dtype)
+
+    def _detach_before(self, idx: int) -> bool:
+        # no train_all escape here (networks_3d.py:470-471)
+        return self.cfg.vae_levels == idx + 1
+
+    def draw_latents(self, noise_init,
+                     generator: Optional[torch.Generator] = None):
+        """The rand forward's latents for the geometry of ``noise_init``
+        (NTHWC, its values unused): ``z_norm ~ N(0, 1)`` of shape
+        ``(b, 1, .., 1, latent)`` and ``z_bern ~ Bernoulli(0.5)`` of shape
+        ``(b, *spatial, 1)``, in ``noise_init``'s dtype, on this module's
+        device (JAX ``generators.py:364-371``; the prior of the eval-mode
+        ``reparameterize``/``reparameterize_bern``)."""
+        shape = tuple(noise_init.shape)
+        dtype = (noise_init.dtype if isinstance(noise_init, torch.Tensor)
+                 else torch.float32)
+        kw = dict(device=self.device, dtype=dtype)
+        z_norm = torch.randn((shape[0], *(1,) * (len(shape) - 2),
+                              self.cfg.latent_dim), generator=generator,
+                             **kw)
+        z_bern = torch.bernoulli(torch.full((*shape[:-1], 1), 0.5, **kw),
+                                 generator=generator)
+        return z_norm, z_bern
+
+    def apply(self, amps: Sequence[float], real_zero=None, noise_init=None,
+              noise_init_norm=None, noise_init_bern=None,
+              sample_init: Optional[Tuple[int, torch.Tensor]] = None,
+              mode: str = "rec", train: bool = True,
+              noises: Optional[Sequence] = None, eps=None,
+              generator: Optional[torch.Generator] = None,
+              update_stats: bool = False):
+        """Returns ``(out, vae_out, (mu, logvar, bern) | None)``, NTHWC.
+
+        The decoder reads ``z_norm * z_bern``: from the encoded
+        ``real_zero`` reparameterized with ``eps = (eps_norm, eps_bern)``
+        (each drawn from ``generator`` when None), or, in rand mode, the
+        explicit ``noise_init_norm``/``noise_init_bern``, else
+        ``draw_latents(noise_init)``.  Stage noises as
+        ``GeneratorHPVAEGAN.apply``'s, at every stage."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "GeneratorVAE_nb under a mesh: its pooled latents are not "
+                "partitioned (train it in one process)")
+        with full_f32():
+            if noise_init_norm is None and noise_init is not None:
+                noise_init_norm, noise_init_bern = self.draw_latents(
+                    noise_init, generator)
+            if noise_init_norm is None:
+                assert real_zero is not None
+                mu, logvar, bern = self.encode(self._local(real_zero))
+                eps_norm, eps_bern = (None, None) if eps is None else eps
+                z_norm = reparameterize(
+                    mu, logvar, train,
+                    None if eps_norm is None else self._local(eps_norm),
+                    generator)
+                z_bern = reparameterize_bern(
+                    bern, train,
+                    None if eps_bern is None else self._local(eps_bern),
+                    generator)
+                stats = (mu, logvar, bern)
+            else:
+                z_norm = self._local(noise_init_norm)
+                z_bern = self._local(noise_init_bern)
+                stats = None
+            fmt = (torch.channels_last_3d if z_bern.dim() == 5
+                   else torch.channels_last)
+            z_vae = (z_norm * z_bern).contiguous(memory_format=fmt)
+            return self._decode_refine(amps, z_vae, stats, sample_init,
+                                       mode, train, noises, generator,
+                                       update_stats)
+
+
+class _Baseline(_PyramidModule):
+    """What the two baselines share: a body that starts with its first
+    stage and grows by copies of the last (``generators.py:467-472``),
+    image-channel noise, and rand/rec forwards whose stage ``idx >= 1``
+    reads the previous output resized to level ``idx`` plus the stage's
+    shrink (rand: with noise) or zero-padded (rec)."""
+
+    returns_triple = False
+    has_head_tail = False
+    # every spatial axis shrinks by 2 * shrink in a stage (set by subclass)
+    shrink = 0
+
+    def init(self, generator: Optional[torch.Generator] = None):
+        """Fresh weights from ``generator`` and a body of one stage."""
+        for m in self.children():
+            if not isinstance(m, nn.ModuleList):
+                m.reset_parameters(generator)
+        del self.body[1:]
+        self.body[0].reset_parameters(generator)
+        return self
+
+    def init_next_stage(self, generator: Optional[torch.Generator] = None):
+        """Append a copy of the last stage; ``generator`` is unused (the
+        baselines grow without a draw)."""
+        self.body.append(copy.deepcopy(self.body[-1]))
+        return self
+
+    def _check_mesh(self) -> None:
+        """The batch may be split over a mesh; H may not: the VALID convs
+        and the zero padding would need a halo that changes with every
+        conv."""
+        if self.mesh is not None and self.mesh.n_spatial > 1:
+            raise NotImplementedError(
+                f"{type(self).__name__} over a spatial mesh axis: its VALID "
+                f"convs are not partitioned along H (use a Dx1 mesh)")
+
+    def _noise_shape(self, idx: int, batch: int) -> Tuple[int, ...]:
+        """NTHWC shape of stage ``idx``'s rand-mode noise."""
+        size = tuple(d + 2 * self.shrink for d in self._shape(idx))
+        return (batch, *size, self._stage_channels)
+
+    def draw_stage_noises(self, batch: int,
+                          generator: Optional[torch.Generator] = None):
+        """One rand-mode forward's stage noises, NTHWC (``None`` for stage
+        0, which takes ``noise_init`` alone)."""
+        return [None] + [
+            torch.randn(self._noise_shape(idx, batch), generator=generator,
+                        device=self.device,
+                        dtype=self._noise_dtype or torch.float32)
+            for idx in range(1, len(self.body))]
+
+    def _stage_input(self, x, idx, amps, mode, noises, generator):
+        """(stage ``idx``'s input, the upscale ``x_up``) from the previous
+        output ``x``."""
+        x_up = self._upscale(x, idx)
+        if mode == "rand":
+            size = tuple(d + 2 * self.shrink for d in x_up.shape[2:])
+            x_pad = self._resize(x, size)
+            if noises is not None:
+                noise = self._local(noises[idx], x_pad.dtype)
+            elif self.mesh is not None:
+                b = self.mesh.global_batch(x_pad.shape[0])
+                noise = self._draw((b, x_pad.shape[1], *size), x_pad.dtype,
+                                   generator)
+            else:
+                noise = generate_noise(ref=x_pad, generator=generator)
+            # f32, as the JAX package's f32 amps make it
+            return x_pad.float() + noise.float() * amps[idx], x_up
+        return pad_spatial(x_up, self.shrink), x_up
+
+
+class GeneratorCSG(_Baseline):
+    """ConSinGAN-style baseline (networks_3d.py:213-269): a shared head
+    (``nc_im -> nfc``, one conv block) and tail (``nfc -> nc_im``), each on
+    its input zero-padded by 1, around the body of ``CSGStage``s; the
+    stage noises have ``nfc`` channels.  Returns ``tanh`` of the tail."""
+
+    has_head_tail = True
+
+    def __init__(self, cfg, pyramid: Pyramid, ndim: int = 3):
+        super().__init__(cfg, pyramid, ndim)
+        self.shrink = cfg.num_layer
+        self._stage_channels = cfg.nfc
+        # stage outputs are BatchNorm's, f32 under --bf16 too
+        self._noise_dtype = None
+        self.head = ConvBlock(cfg.nc_im, cfg.nfc, cfg.ker_size, 1, ndim,
+                              dtype=self.dtype, init_mode="n002")
+        self.body = nn.ModuleList([CSGStage(cfg.nfc, cfg.ker_size,
+                                            cfg.num_layer, ndim,
+                                            dtype=self.dtype)])
+        self.tail = ConvND(cfg.nfc, cfg.nc_im, cfg.ker_size, 1, ndim,
+                           dtype=self.dtype, init_mode="n002")
+
+    def apply(self, amps: Sequence[float], noise_init=None,
+              mode: str = "rand", train: bool = True,
+              noises: Optional[Sequence] = None,
+              generator: Optional[torch.Generator] = None,
+              update_stats: bool = False) -> torch.Tensor:
+        """The sample (NTHWC) from ``noise_init`` (rand: a fresh draw;
+        rec: the fixed ``Z_init``), in the compute dtype."""
+        self._check_mesh()
+        amps = [float(a) for a in amps]
+        with full_f32():
+            x = self.head(self._local(noise_init), train, update_stats)
+            x = self.body[0](pad_spatial(x, self.shrink), train,
+                             update_stats)
+            for idx in range(1, len(self.body)):
+                x_in, x_up = self._stage_input(x, idx, amps, mode, noises,
+                                               generator)
+                x = self.body[idx](x_in, train, update_stats) + x_up
+            return to_public_layout(torch.tanh(self.tail(x)))
+
+
+class GeneratorSG(_Baseline):
+    """SinGAN-style baseline (networks_3d.py:272-322): every stage a whole
+    VALID sub-generator (``SGStage``) on its input zero-padded by
+    ``num_layer + 2``, a tanh between stages and at the end; the stage
+    noises have ``nc_im`` channels."""
+
+    def __init__(self, cfg, pyramid: Pyramid, ndim: int = 3):
+        super().__init__(cfg, pyramid, ndim)
+        self.shrink = cfg.num_layer + 2
+        self._stage_channels = cfg.nc_im
+        # the resized input is the tanh of a stage's tail: compute dtype
+        self._noise_dtype = self.dtype
+        self.body = nn.ModuleList([SGStage(cfg.nfc, cfg.nc_im, cfg.ker_size,
+                                           cfg.num_layer, ndim,
+                                           dtype=self.dtype)])
+
+    def apply(self, amps: Sequence[float], noise_init=None,
+              mode: str = "rand", train: bool = True,
+              noises: Optional[Sequence] = None,
+              generator: Optional[torch.Generator] = None,
+              update_stats: bool = False) -> torch.Tensor:
+        """As ``GeneratorCSG.apply``."""
+        self._check_mesh()
+        amps = [float(a) for a in amps]
+        with full_f32():
+            x = self.body[0](pad_spatial(self._local(noise_init),
+                                         self.shrink), train, update_stats)
+            for idx in range(1, len(self.body)):
+                x_in, x_up = self._stage_input(torch.tanh(x), idx, amps,
+                                               mode, noises, generator)
+                x = self.body[idx](x_in, train, update_stats) + x_up
+            return to_public_layout(torch.tanh(x))

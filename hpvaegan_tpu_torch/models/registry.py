@@ -1,44 +1,38 @@
-"""String-dispatched model zoo (port of ``hpvaegan_tpu/models/registry.py``).
-
-The port has ``GeneratorHPVAEGAN`` and the SN ``WDiscriminator``; the
-other models of the JAX registry are named here and raise until their
-ROADMAP item lands.
-"""
+"""String-dispatched model zoo (port of ``hpvaegan_tpu/models/registry.py``):
+the four generators and the two critics of the JAX registry."""
 from __future__ import annotations
 
 import torch
 
 from ..core.pyramid import Pyramid
-from .generators import GeneratorHPVAEGAN
-from .networks import WDiscriminator
+from .generators import (GeneratorCSG, GeneratorHPVAEGAN, GeneratorSG,
+                         GeneratorVAE_nb)
+from .networks import WDiscriminator, WDiscriminatorBaselines
 
 __all__ = ["make_generator", "make_discriminator", "GENERATORS"]
 
-GENERATORS = {"GeneratorHPVAEGAN": GeneratorHPVAEGAN}
-
-# generators of the JAX package not ported yet -> their ROADMAP item
-_LATER = {
-    "GeneratorVAE_nb": "Queue 1 item 6 (GeneratorVAE_nb + EncodeVAE_nb)",
-    "GeneratorCSG": "Queue 1 item 7 (baselines)",
-    "GeneratorSG": "Queue 1 item 7 (baselines)",
+GENERATORS = {
+    "GeneratorHPVAEGAN": GeneratorHPVAEGAN,
+    "GeneratorVAE_nb": GeneratorVAE_nb,
+    "GeneratorCSG": GeneratorCSG,
+    "GeneratorSG": GeneratorSG,
 }
 
 
 def make_generator(name: str, cfg, pyramid: Pyramid, ndim: int):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP {_LATER[name]}")
     if name not in GENERATORS:
         raise ValueError(f"unknown generator: {name!r} "
-                         f"(have {sorted(GENERATORS) + sorted(_LATER)})")
+                         f"(have {sorted(GENERATORS)})")
     return GENERATORS[name](cfg, pyramid, ndim)
 
 
-def make_discriminator(name: str, cfg, ndim: int) -> WDiscriminator:
-    """The critic of ``hpvaegan_tpu/models/registry.py:36-46``: K1 under
-    ``--pconv`` or ``--pconv-all``, K2 pairs under ``--pfuse``, bf16
-    convs under ``--bf16`` (the generator reads ``cfg.bf16`` itself, as
-    ``generators.py:128`` does)."""
+def make_discriminator(name: str, cfg, ndim: int):
+    """The critic of ``hpvaegan_tpu/models/registry.py:36-52``: the SN
+    ``WDiscriminator`` with K1 under ``--pconv`` or ``--pconv-all`` and K2
+    pairs under ``--pfuse``, or the baselines' BatchNorm critic, which has
+    no kernel route; bf16 convs under ``--bf16`` (the generator reads
+    ``cfg.bf16`` itself, as ``generators.py:128`` does)."""
+    dtype = torch.bfloat16 if cfg.bf16 else None
     if name in ("WDiscriminator2D", "WDiscriminator3D"):
         expected = 2 if name.endswith("2D") else 3
         if expected != ndim:
@@ -46,9 +40,9 @@ def make_discriminator(name: str, cfg, ndim: int) -> WDiscriminator:
         return WDiscriminator(cfg.nc_im, cfg.nfc, cfg.ker_size,
                               cfg.num_layer, ndim,
                               pconv=bool(cfg.pconv or cfg.pconv_all),
-                              pfuse=bool(cfg.pfuse),
-                              dtype=torch.bfloat16 if cfg.bf16 else None)
+                              pfuse=bool(cfg.pfuse), dtype=dtype)
     if name == "WDiscriminatorBaselines":
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP Queue 1 item 7 (baselines)")
+        return WDiscriminatorBaselines(cfg.nc_im, cfg.nfc, cfg.ker_size,
+                                       cfg.padd_size, cfg.num_layer, ndim,
+                                       dtype=dtype)
     raise ValueError(f"unknown discriminator: {name!r}")

@@ -36,11 +36,16 @@ session does (``data/image.py``: a PNG directly, another format from its
 frames file), which sets the aspect ratio; its samples are NHWC images,
 written as PNG (``utils/saver.write_png``).
 
-It serves 2D and 3D ``GeneratorHPVAEGAN`` checkpoints in the port's own
+It serves every generator of the zoo, 2D and 3D, in the port's own
 format and the JAX package's flax-msgpack ``netG`` (``utils/saver.py``
-``restore_generator`` tells them apart by their first byte).  The
-baselines (ROADMAP Queue 1 item 7) and a sharded batch (``mesh_shape``,
-item 12) raise.
+``restore_generator`` tells them apart by their first byte):
+``GeneratorHPVAEGAN`` and ``GeneratorVAE_nb`` sample from latent-dim
+noise through the decoder (rand, rec, inject), the baselines
+``GeneratorCSG``/``GeneratorSG`` from image-channel noise (reference
+train_video_baselines.py:41), and reconstruct from the fixed ``Z_init``
+checkpointed beside ``netG`` (JAX ``serving.py:226-248``); they have no
+inject mode.  A sharded batch (``mesh_shape``, ROADMAP Queue 1 item 12)
+raises.
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ from .data.image import SingleImageDataset
 from .data.video import SingleVideoDataset
 from .models.registry import make_generator
 from .tools.decode_frames import frames_path
-from .utils.saver import restore_generator, write_png
+from .utils.saver import restore_file, restore_generator, write_png
 from .utils.video_io import write_avi
 
 __all__ = ["SNAPSHOT_KEYS", "apply_snapshot", "config_from_cli_args",
@@ -226,10 +231,14 @@ class SamplerSession:
         self.generator = torch.Generator(device=self.device).manual_seed(
             manual_seed)
 
+        # the HP-VAE-GAN family samples latent-dim noise through the
+        # decoder, the baselines image-channel noise
+        self.is_triple = G.returns_triple
         self.noise_shape = (self.batch_size,
                             *(pyramid.shape3d(0) if self.ndim == 3
-                              else pyramid.shape2d(0)), cfg.latent_dim)
-        self._rec_input = None
+                              else pyramid.shape2d(0)),
+                            cfg.latent_dim if self.is_triple else cfg.nc_im)
+        self._rec_input = self._z_init = None
 
     # ---- the clip (rec and inject modes) ----
 
@@ -263,13 +272,28 @@ class SamplerSession:
     def rec_input(self):
         """``(real_zero batch, real current-scale clip)``: the rec-mode
         conditioning input, the real sample's zero-scale clip repeated to
-        the batch.  Cached after first use (JAX ``serving.py:226-248``)."""
+        the batch, or, for the baselines, the ``Z_init`` checkpointed beside
+        ``netG`` (raises naming it when it is missing).  Cached after first
+        use (JAX ``serving.py:226-248``)."""
         if self._rec_input is None:
             cur, zero = self._real(self.scale)
             if zero is None:
                 zero = cur
-            self._rec_input = (np.stack([zero] * self.batch_size), cur)
+            self._rec_input = (np.stack([zero] * self.batch_size)
+                               if self.is_triple else self.z_init(), cur)
         return self._rec_input
+
+    def z_init(self) -> np.ndarray:
+        """The baselines' fixed reconstruction noise, read once from the
+        ``Z_init`` file beside ``netG`` (either package's); raises naming
+        the path when it is missing (JAX ``serving.py:240-244``)."""
+        if self._z_init is None:
+            z_path = os.path.join(os.path.dirname(self.cfg.netG), "Z_init")
+            if not os.path.exists(z_path):
+                raise RuntimeError(f"baselines rec mode needs {z_path}")
+            self._z_init = np.asarray(restore_file(z_path)["data"],
+                                      np.float32)
+        return self._z_init
 
     # ---- convenience entry points (one batch each) ----
 
@@ -277,20 +301,33 @@ class SamplerSession:
                    ) -> torch.Generator:
         return self.generator if generator is None else generator
 
+    def _apply(self, **kw) -> torch.Tensor:
+        """The generator's sample alone, whatever its family returns."""
+        out = self.G.apply(self.amps, train=True, **kw)
+        return out[0] if self.is_triple else out
+
+    @staticmethod
+    def _latent_kw(latents) -> dict:
+        """``GeneratorVAE_nb``'s explicit rand latents as ``apply``
+        arguments (none: drawn from the batch's generator)."""
+        if latents is None:
+            return {}
+        return {"noise_init_norm": latents[0], "noise_init_bern": latents[1]}
+
     def sample_batch(self, generator: Optional[torch.Generator] = None, *,
-                     noise=None, noises: Optional[Sequence] = None
-                     ) -> np.ndarray:
+                     noise=None, noises: Optional[Sequence] = None,
+                     latents=None) -> np.ndarray:
         """One rand-mode batch, NTHWC in [-1, 1], float32 (holding bf16
         values under ``bf16``): draw the latent ``noise`` (unless given),
-        run the pyramid (BatchNorm on batch statistics, as in training)."""
+        run the pyramid (BatchNorm on batch statistics, as in training).
+        ``latents``: ``GeneratorVAE_nb``'s ``(z_norm, z_bern)``."""
         g = self._generator(generator)
         with torch.inference_mode():
             if noise is None:
                 noise = torch.randn(self.noise_shape, generator=g,
                                     device=self.device)
-            out, _, _ = self.G.apply(self.amps, noise_init=noise,
-                                     mode="rand", train=True, noises=noises,
-                                     generator=g)
+            out = self._apply(noise_init=noise, mode="rand", noises=noises,
+                              generator=g, **self._latent_kw(latents))
             return out.float().cpu().numpy()
 
     def reconstruct_batch(self, real_zero: Optional[np.ndarray] = None,
@@ -299,34 +336,42 @@ class SamplerSession:
         """One rec-mode batch from the real zero-scale clip ``real_zero``
         ((T,H,W,3) for one clip, or (H,W,3) for one image, repeated to
         the batch, or a batch); by default the clip's own
-        (``rec_input``)."""
+        (``rec_input``).  For the baselines ``real_zero`` is their fixed
+        noise, by default the checkpointed ``Z_init`` (its batch is the
+        training batch), and the forward draws nothing."""
         if real_zero is None:
-            real_zero = self.rec_input()[0]
+            real_zero = (self.rec_input()[0] if self.is_triple
+                         else self.z_init())
         real_zero = np.asarray(real_zero, np.float32)
         if real_zero.ndim == self.ndim + 1:
             real_zero = np.stack([real_zero] * self.batch_size)
         g = self._generator(generator)
         with torch.inference_mode():
-            out, _, _ = self.G.apply(self.amps, real_zero=real_zero,
-                                     mode="rec", train=True, eps=eps,
-                                     generator=g)
+            if not self.is_triple:
+                out = self._apply(noise_init=real_zero, mode="rec")
+            else:
+                out = self._apply(real_zero=real_zero, mode="rec", eps=eps,
+                                  generator=g)
             return out.float().cpu().numpy()
 
     def inject_batch(self, x_init: np.ndarray, start: int,
                      generator: Optional[torch.Generator] = None, *,
-                     noises: Optional[Sequence] = None) -> np.ndarray:
+                     noises: Optional[Sequence] = None,
+                     latents=None) -> np.ndarray:
         """Refine the clips ``x_init`` (a batch at pyramid level
         ``start``) from stage ``start`` upward in rand mode, the decoder
-        fed zeros (JAX ``inject_fn``, ``serving.py:203-210``)."""
+        fed zeros (JAX ``inject_fn``, ``serving.py:203-210``); the
+        baselines have no such mode and raise."""
+        if not self.is_triple:
+            raise ValueError("--inject-scale requires GeneratorHPVAEGAN")
         x_init = np.asarray(x_init, np.float32)
         g = self._generator(generator)
         with torch.inference_mode():
             zeros = torch.zeros((x_init.shape[0], *self.noise_shape[1:]),
                                 device=self.device)
-            out, _, _ = self.G.apply(self.amps, noise_init=zeros,
-                                     sample_init=(start, x_init),
-                                     mode="rand", train=True, noises=noises,
-                                     generator=g)
+            out = self._apply(noise_init=zeros, sample_init=(start, x_init),
+                              mode="rand", noises=noises, generator=g,
+                              **self._latent_kw(latents))
             return out.float().cpu().numpy()
 
     def write_sample(self, frame: np.ndarray, path_base: str) -> str:
@@ -351,7 +396,7 @@ class SamplerSession:
             if mode == "rand":
                 self.sample_batch(g)
             elif mode == "rec":
-                if self.has_frames():
+                if self.has_frames() or not self.is_triple:
                     self.reconstruct_batch(None, g)
                 else:
                     t0, h0, w0 = self.train_pyramid.shape3d(0)

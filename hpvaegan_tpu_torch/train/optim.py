@@ -4,11 +4,16 @@
 The JAX package chains a global-norm clip before a grouped Adam whose
 frozen groups are ``set_to_zero`` (``optim.py:214-231``).  Here:
 
-* ``hpvaegan_group_plan`` is the same plan (``optim.py:73-107``);
+* ``hpvaegan_group_plan`` is the same plan (``optim.py:73-107``), and
+  ``baselines_group_plan`` the baselines' (``optim.py:110-131``;
+  reference train_video_baselines.py:55-70): the body's last
+  ``train_depth`` stages, the head while ``scale_idx < train_depth``,
+  the tail always at ``lr_g``;
 * ``build_g_optimizer`` is one ``torch.optim.Adam`` over the trainable
-  groups only (``b1 = beta1``, ``b2 = 0.999``, ``eps = 1e-8``, optax's
-  defaults and the same update rule), so frozen parameters are never
-  touched;
+  groups only of the generator's plan (``group_plan``: the baselines'
+  for ``GeneratorCSG``/``GeneratorSG``, whose trainer clips nothing),
+  with ``b1 = beta1``, ``b2 = 0.999``, ``eps = 1e-8`` (optax's defaults
+  and the same update rule), so frozen parameters are never touched;
 * ``clip_grad_norm_`` is optax's ``clip_by_global_norm``: ``g * c / |g|``
   once ``|g| >= c``, not ``torch.nn.utils.clip_grad_norm_``'s
   ``c / (|g| + 1e-6)``.  Without ``--fast-grads`` its norm covers the
@@ -24,7 +29,8 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 
-__all__ = ["hpvaegan_group_plan", "build_g_optimizer", "build_d_optimizer",
+__all__ = ["hpvaegan_group_plan", "baselines_group_plan", "group_plan",
+           "build_g_optimizer", "build_d_optimizer",
            "clip_grad_norm_", "ADAM_B2", "ADAM_EPS"]
 
 ADAM_B2 = 0.999
@@ -68,12 +74,44 @@ def hpvaegan_group_plan(
     return {"encode": enc, "decoder": enc}, body, lrs
 
 
+def baselines_group_plan(
+        cfg, scale_idx: int, n_body: int, has_head: bool
+) -> Tuple[Dict[str, str], List[str], Dict[str, float]]:
+    """LR-group plan for the SinGAN/ConSinGAN baselines
+    (train_video_baselines.py:55-70): body[:-train_depth] frozen, head only
+    while scale_idx-train_depth<0, tail always at lr_g."""
+    body = ["frozen"] * n_body
+    lrs: Dict[str, float] = {}
+    depth = min(cfg.train_depth, n_body)
+    for j, idx in enumerate(range(n_body - depth, n_body)):
+        body[idx] = f"b{j}"
+        lrs[f"b{j}"] = cfg.lr_g * (cfg.lr_scale ** (depth - 1 - j))
+
+    modules: Dict[str, str] = {}
+    if has_head:
+        if scale_idx - cfg.train_depth < 0:
+            modules["head"] = "head"
+            lrs["head"] = cfg.lr_g * (cfg.lr_scale ** scale_idx)
+        else:
+            modules["head"] = "frozen"
+        modules["tail"] = "tail"
+        lrs["tail"] = cfg.lr_g
+    return modules, body, lrs
+
+
+def group_plan(cfg, G, scale_idx: int):
+    """The plan of ``G``'s family: the baselines' or the HP-VAE-GAN's."""
+    if G.returns_triple:
+        return hpvaegan_group_plan(cfg, scale_idx, len(G.body))
+    return baselines_group_plan(cfg, scale_idx, len(G.body),
+                                G.has_head_tail)
+
+
 def _generator_groups(G, module_labels: Dict[str, str],
                       body_labels: List[str]) -> Dict[str, list]:
     """The generator's parameters by group label (``"frozen"`` included)."""
     groups: Dict[str, list] = {}
-    for name in ("encode", "decoder"):
-        label = module_labels.get(name, "frozen")
+    for name, label in module_labels.items():
         groups.setdefault(label, []).extend(getattr(G, name).parameters())
     for stage, label in zip(G.body, body_labels):
         groups.setdefault(label, []).extend(stage.parameters())
@@ -82,8 +120,7 @@ def _generator_groups(G, module_labels: Dict[str, str],
 
 def build_g_optimizer(cfg, G, scale_idx: int) -> torch.optim.Adam:
     """Fresh per-scale generator Adam over the plan's trainable groups."""
-    module_labels, body_labels, lrs = hpvaegan_group_plan(
-        cfg, scale_idx, len(G.body))
+    module_labels, body_labels, lrs = group_plan(cfg, G, scale_idx)
     groups = _generator_groups(G, module_labels, body_labels)
     return torch.optim.Adam(
         [{"params": groups[label], "lr": lr} for label, lr in lrs.items()],

@@ -1,10 +1,13 @@
-"""The per-scale training steps of the HP-VAE-GAN (port of
-``hpvaegan_tpu/train/steps.py:81-98, 201-374``).
+"""The per-scale training steps (port of ``hpvaegan_tpu/train/steps.py``):
+the HP-VAE-GAN's (``:81-98, 201-374``), for ``GeneratorHPVAEGAN`` and
+``GeneratorVAE_nb``, and the baselines' (``:475-576``, ``baseline_step``).
 
 Each step runs eagerly on the modules in place: spectral update, forward,
 ``backward``, clip and Adam.  The whole step is held in ``full_f32()``
 (forwards, both backward passes, the GP's ``create_graph`` backward and
-Adam), so no stock f32 conv falls back to cuDNN's default TF32.  Under
+Adam), so no stock f32 conv falls back to cuDNN's default TF32, and in
+``deterministic()``, so that two runs of the same draws end with the
+same bits (cuDNN's default f32 weight gradients do not).  Under
 ``cfg.bf16`` the models' convs compute in bf16 (the GP's stock critic
 too, on cuDNN), the cotangents reaching K1 and K2 are bf16 as the JAX
 package casts them, and the parameters, their gradients, the clip and
@@ -27,10 +30,36 @@ Semantics kept from the JAX package:
   weight gradient is computed for them (the JAX package differentiates
   only the generator's parameters there).
 
+``GeneratorVAE_nb`` (``steps.py:219-229``): its stats are the triple
+``(mu, logvar, bern)`` and the VAE step adds ``kl_bern_criterion(bern)``
+to the KL; both rand forwards of a GAN step read the same latents
+``(z_norm, z_bern)`` (the JAX step's one ``k_fake``), as they read the
+same stage noises.
+
 Every draw can be handed in: ``eps`` (the rec forward's reparameterization
-draw), ``noises`` (the stage noises), ``alpha`` (the GP's scalar);
-whatever is not handed in is drawn from ``generator``.  Inputs are NTHWC
-(NHWC) arrays or tensors, as ``GeneratorHPVAEGAN.apply`` takes them.
+draw; for ``GeneratorVAE_nb`` the pair ``(eps_norm, eps_bern)``),
+``noises`` (the stage noises), ``latents`` (``GeneratorVAE_nb``'s rand
+latents), ``alpha`` (the GP's scalar); whatever is not handed in is drawn
+from ``generator``.  Inputs are NTHWC (NHWC) arrays or tensors, as the
+generators' ``apply`` takes them.
+
+The baselines' step (``baseline_step``; reference
+train_video_baselines.py:120-173) is a pure GAN step:
+
+* ``Dsteps`` critic updates, each on a fake recomputed from the same
+  ``noise_init`` and stage noises (the generator's BatchNorm statistics
+  move in each), each with its own GP draw (``fold_in(k_gp, j)``);
+* the critic, either the SN ``WDiscriminator`` (the default, with its
+  kernel routes; its GP on stock convs, as the main step's) or the
+  BatchNorm ``WDiscriminatorBaselines``, runs on the real batch, then on
+  the fake, each forward moving its running statistics; its GP forward
+  moves none and keeps the whole batch (PARITY.md, remat note 2);
+* the generator step: ``errG`` on the rand forward against the updated,
+  frozen critic, plus ``alpha * MSE`` of the rec forward from the fixed
+  ``Z_init`` when ``alpha > 0``; its gradients are applied ``Gsteps``
+  times, Adam advancing each time (``:172-173``); no clip;
+* the metrics ``errG``, ``rec_loss``, ``errD_real``, ``errD_fake``,
+  ``gradient_penalty`` (the last critic update's).
 
 Under a mesh (the models' ``mesh``, ``parallel.mesh.attach``; the JAX
 steps' ``mesh=``, ``steps.py:131-146``) every input and draw stays whole,
@@ -50,21 +79,22 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from .. import full_f32
-from ..losses import calc_gradient_penalty, global_mean, kl_criterion, mse
+from .. import deterministic, full_f32
+from ..losses import (calc_gradient_penalty, global_mean, kl_bern_criterion,
+                      kl_criterion, mse)
 from ..models.blocks import SNConv
 from ..models.generators import to_model_layout
 from ..parallel.mesh import shard
 from .optim import clip_grad_norm_
 
 __all__ = ["update_g_spectral", "update_d_spectral", "calibrate",
-           "vae_step", "gan_step"]
+           "vae_step", "gan_step", "calibrate_baselines", "baseline_step"]
 
 
 def update_g_spectral(G) -> None:
     """One power-iteration step for every SN conv of the generator (the
-    encoder's ``FeatureExtractor``)."""
-    for m in G.encode.modules():
+    encoder's ``FeatureExtractor``; the baselines have none)."""
+    for m in G.modules():
         if isinstance(m, SNConv):
             m.spectral_update()
 
@@ -112,7 +142,7 @@ def calibrate(G, real, real_zero, amps: Sequence[float], eps=None,
     mode that updates the BatchNorm statistics; returns
     ``sqrt(MSE(real, reconstruction))``."""
     mesh = G.mesh
-    with full_f32(), torch.no_grad():
+    with full_f32(), deterministic(), torch.no_grad():
         out, _, _ = G.apply(amps, real_zero=real_zero, mode="rec", train=True,
                             eps=eps, generator=generator, update_stats=True)
         err = mse(out, _local(real, G.device, mesh), mesh)
@@ -124,13 +154,15 @@ def vae_step(G, opt_g, cfg, real, real_zero, amps: Sequence[float],
              ) -> Dict[str, torch.Tensor]:
     """One VAE-phase step (``steps.py:211-240``)."""
     dev, mesh = G.device, G.mesh
-    with full_f32():
+    with full_f32(), deterministic():
         update_g_spectral(G)
         G.zero_grad(set_to_none=True)
-        generated, generated_vae, (mu, logvar) = G.apply(
+        generated, generated_vae, stats = G.apply(
             amps, real_zero=real_zero, mode="rec", train=True, eps=eps,
             generator=generator, update_stats=True)
-        kl = kl_criterion(mu, logvar, mesh)
+        kl = kl_criterion(stats[0], stats[1], mesh)
+        if len(stats) == 3:   # GeneratorVAE_nb's Bernoulli gate
+            kl = kl + kl_bern_criterion(stats[2])
         rec_vae = (mse(generated, _local(real, dev, mesh), mesh)
                    + mse(generated_vae, _local(real_zero, dev, mesh), mesh))
         total = cfg.rec_weight * rec_vae + cfg.kl_weight * kl
@@ -140,29 +172,44 @@ def vae_step(G, opt_g, cfg, real, real_zero, amps: Sequence[float],
                   mesh)
 
 
+def _rand_draws(G, noise_init, batch: int, noises, latents, generator
+                ) -> dict:
+    """The draws of a rand forward, made once so that the critic step's
+    fake and the generator step's share them: the stage noises and, for
+    ``GeneratorVAE_nb``, the latents."""
+    if noises is None:   # drawn whole, as the single-process step does
+        noises = G.draw_stage_noises(batch, generator)
+    draws = {"noises": noises}
+    if hasattr(G, "draw_latents"):
+        if latents is None:
+            latents = G.draw_latents(noise_init, generator)
+        draws["noise_init_norm"], draws["noise_init_bern"] = latents
+    return draws
+
+
 def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
              amps: Sequence[float], noises: Optional[Sequence] = None,
              eps=None, alpha=None,
-             generator: Optional[torch.Generator] = None
-             ) -> Dict[str, torch.Tensor]:
+             generator: Optional[torch.Generator] = None,
+             latents=None) -> Dict[str, torch.Tensor]:
     """One GAN-phase step: the critic step with the WGAN-GP, then the
     generator step against the updated critic (``steps.py:264-374``)."""
     dev, mesh = G.device, G.mesh
     if D.mesh is not mesh:
         raise ValueError("the generator and the critic are on different "
                          "meshes")
-    if noises is None:   # drawn whole, as the single-process step does
-        noises = G.draw_stage_noises(len(real), generator)
     real = _local(real, dev, mesh)
     real_zero, noise_init = _tensor(real_zero, dev), _tensor(noise_init, dev)
-    with full_f32():
+    draws = _rand_draws(G, noise_init, len(real_zero), noises, latents,
+                        generator)
+    with full_f32(), deterministic():
         update_g_spectral(G)
         update_d_spectral(D)
 
         # ---- critic step (train_video.py:168-183) ----
         with torch.no_grad():
             fake, _, _ = G.apply(amps, noise_init=noise_init, mode="rand",
-                                 train=True, noises=noises)
+                                 train=True, **draws)
         x_real, x_fake = to_model_layout(real), to_model_layout(fake)
         nb = x_real.shape[0]
         D.zero_grad(set_to_none=True)
@@ -184,8 +231,7 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
                                       generator=generator,
                                       update_stats=True)
             fake_g, _, _ = G.apply(amps, noise_init=noise_init, mode="rand",
-                                   train=True, noises=noises,
-                                   update_stats=True)
+                                   train=True, update_stats=True, **draws)
             rec = mse(generated, real, mesh)
             errG = -global_mean(D(to_model_layout(fake_g)),
                                 mesh) * cfg.disc_loss_weight
@@ -197,3 +243,81 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
     return _whole({"loss": total, "rec_loss": rec, "errG": errG,
                    "errD_real": errD_real, "errD_fake": errD_fake,
                    "gradient_penalty": gp}, mesh)
+
+
+def calibrate_baselines(G, real, z_init, amps: Sequence[float]
+                        ) -> torch.Tensor:
+    """The baselines' noise-amp probe (``steps.py:503-507``): a rec forward
+    from the fixed ``z_init`` in train mode that updates the BatchNorm
+    statistics; returns ``sqrt(MSE(real, reconstruction))``."""
+    mesh = G.mesh
+    with full_f32(), deterministic(), torch.no_grad():
+        out = G.apply(amps, noise_init=z_init, mode="rec", train=True,
+                      update_stats=True)
+        err = mse(out, _local(real, G.device, mesh), mesh)
+        return _whole({"mse": err}, mesh)["mse"].sqrt()
+
+
+def baseline_step(G, D, opt_g, opt_d, cfg, real, noise_init, z_init,
+                  amps: Sequence[float], noises: Optional[Sequence] = None,
+                  alphas: Optional[Sequence[float]] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """One step of the baselines (``steps.py:509-565``): ``cfg.Dsteps``
+    critic updates, then the generator update applied ``cfg.Gsteps``
+    times.  ``noises``: the rand forwards' stage noises; ``alphas``: one
+    GP draw a critic update."""
+    dev, mesh = G.device, G.mesh
+    if D.mesh is not mesh:
+        raise ValueError("the generator and the critic are on different "
+                         "meshes")
+    real = _local(real, dev, mesh)
+    noise_init, z_init = _tensor(noise_init, dev), _tensor(z_init, dev)
+    if noises is None:
+        noises = G.draw_stage_noises(len(noise_init), generator)
+    x_real = to_model_layout(real)
+    zero = torch.zeros((), device=dev)
+    errD_real = errD_fake = gp = zero
+    with full_f32(), deterministic():
+        update_d_spectral(D)
+        # ---- Dsteps critic updates (train_video_baselines.py:126-150) ----
+        for j in range(cfg.Dsteps):
+            with torch.no_grad():
+                fake = G.apply(amps, noise_init=noise_init, mode="rand",
+                               train=True, noises=noises, update_stats=True)
+            x_fake = to_model_layout(fake)
+            D.zero_grad(set_to_none=True)
+            errD_real = -global_mean(D(x_real, update_stats=True), mesh)
+            errD_fake = global_mean(D(x_fake, update_stats=True), mesh)
+            gp = calc_gradient_penalty(
+                lambda x: D(x, use_kernels=False), x_real, x_fake,
+                cfg.lambda_grad, None if alphas is None else alphas[j],
+                generator, mesh)
+            (errD_real + errD_fake + gp).backward()
+            _update(D.parameters(), opt_d, None, mesh)
+
+        # ---- generator step (train_video_baselines.py:155-173) ----
+        D.requires_grad_(False)
+        try:
+            G.zero_grad(set_to_none=True)
+            fake_g = G.apply(amps, noise_init=noise_init, mode="rand",
+                             train=True, noises=noises, update_stats=True)
+            errG = -global_mean(D(to_model_layout(fake_g)),
+                                mesh) * cfg.disc_loss_weight
+            total, rec = errG, zero
+            if cfg.alpha > 0:
+                generated = G.apply(amps, noise_init=z_init, mode="rec",
+                                    train=True, update_stats=True)
+                rec = cfg.alpha * mse(generated, real, mesh)
+                total = total + rec
+            total.backward()
+        finally:
+            D.requires_grad_(True)
+        params = list(G.parameters())
+        if mesh is not None:
+            mesh.sum_grads(params)
+        # Gsteps optimizer steps on the SAME gradients, as the reference
+        for _ in range(cfg.Gsteps):
+            opt_g.step()
+    return _whole({"errG": errG, "rec_loss": rec, "errD_real": errD_real,
+                   "errD_fake": errD_fake, "gradient_penalty": gp}, mesh)

@@ -4,11 +4,16 @@ Input is the JAX package's generator variables (``load_generator``),
 critic variables (``load_discriminator``) or the eval trunks' parameter
 trees (``load_feature_convs``: C3D, the Inception stem) as nested dicts
 of numpy arrays.  The generator's are
-``{"encode": vars, "decoder": vars, "body": [vars, ...]}``
-(``hpvaegan_tpu/models/generators.py:145-164``), each ``vars`` a flax
-variable dict with ``params`` and, where the module has them,
-``batch_stats`` and ``spectral``.  Flax auto-names a ``ConvBlock``'s conv
-``ConvND_0``, so a block's kernel sits at ``<block>/ConvND_0/conv/kernel``.
+``{"encode": vars, "decoder": vars, "body": [vars, ...]}`` for
+``GeneratorHPVAEGAN`` and ``GeneratorVAE_nb`` (whose encoder adds the
+``bern`` conv), ``{"head": vars, "tail": vars, "body": [...]}`` for
+``GeneratorCSG`` and ``{"body": [...]}`` for ``GeneratorSG``
+(``hpvaegan_tpu/models/generators.py:145-164, 454-459, 508-512``), each
+``vars`` a flax variable dict with ``params`` and, where the module has
+them, ``batch_stats`` and ``spectral``.  Flax auto-names a
+``ConvBlock``'s conv ``ConvND_0``, so a block's kernel sits at
+``<block>/ConvND_0/conv/kernel``; a block without norm (the baselines
+critic's head) has no ``norm`` entry.
 
 Layouts are converted here and nowhere else:
 * flax conv kernels ``(*k, I, O)`` become PyTorch's ``(O, I, *k)``, or stay
@@ -26,9 +31,10 @@ import numpy as np
 import torch
 
 from ..models.blocks import ConvBlock, ConvND, SNConv
+from ..models.networks import WDiscriminatorBaselines
 
 __all__ = ["load_conv", "load_conv_block", "load_snconv", "load_encoder",
-           "load_conv_stack", "load_generator", "load_discriminator",
+           "load_conv_stack", "load_csg_stage", "load_generator", "load_discriminator",
            "load_feature_convs"]
 
 
@@ -61,6 +67,8 @@ def load_conv_block(m: ConvBlock, p: Mapping[str, Any],
                     bs: Mapping[str, Any]) -> None:
     """``p``/``bs``: the block's ``params`` / ``batch_stats`` subtrees."""
     load_conv(m.conv, p["ConvND_0"]["conv"])
+    if m.norm is None:
+        return
     _copy(m.norm.weight, _t(p["norm"]["scale"]))
     _copy(m.norm.bias, _t(p["norm"]["bias"]))
     _copy(m.norm.running_mean, _t(bs["norm"]["mean"]))
@@ -79,11 +87,14 @@ def load_snconv(m: SNConv, p: Mapping[str, Any],
 
 
 def load_encoder(m, v: Mapping[str, Any]) -> None:
-    """``EncodeVAE`` <- flax vars ``{"params", "spectral"}``."""
+    """``EncodeVAE``, ``EncodeVAE_nb`` or ``EncodeVAE1x1`` <- flax vars
+    ``{"params", "spectral"}``."""
     p, s = v["params"], v["spectral"]
     for i, block in enumerate(m.features.conv_blocks):
         name = f"conv_block_{i}"
         load_snconv(block, p["features"][name], s["features"][name])
+    if hasattr(m, "bern"):
+        load_conv(m.bern, p["bern"]["conv"])
     load_conv(m.mu, p["mu"]["conv"])
     load_conv(m.logvar, p["logvar"]["conv"])
 
@@ -97,10 +108,18 @@ def load_conv_stack(m, v: Mapping[str, Any]) -> None:
     load_conv(m.tail, p["tail"]["conv"])
 
 
+def load_csg_stage(m, v: Mapping[str, Any]) -> None:
+    """``CSGStage`` <- flax vars ``{"params", "batch_stats"}``
+    (``block{i}``)."""
+    for i, block in enumerate(m.blocks):
+        load_conv_block(block, v["params"][f"block{i}"],
+                        v["batch_stats"][f"block{i}"])
+
+
 def load_generator(G, gvars: Mapping[str, Any]) -> None:
-    """Fill a port ``GeneratorHPVAEGAN`` from JAX ``gvars``; grows ``G``'s
-    body (stage copies) to the number of JAX stages first.  The body may
-    be a list or, as read from a flax-msgpack file, a ``{"0": ...}`` map."""
+    """Fill any port generator from JAX ``gvars``; grows ``G``'s body
+    (stage copies) to the number of JAX stages first.  The body may be a
+    list or, as read from a flax-msgpack file, a ``{"0": ...}`` map."""
     body = gvars["body"]
     body = ([body[k] for k in sorted(body, key=int)]
             if isinstance(body, Mapping) else list(body))
@@ -109,15 +128,31 @@ def load_generator(G, gvars: Mapping[str, Any]) -> None:
                          f"JAX variables {len(body)}")
     while len(G.body) < len(body):
         G.init_next_stage()
-    load_encoder(G.encode, gvars["encode"])
-    load_conv_stack(G.decoder, gvars["decoder"])
+    if hasattr(G, "encode"):
+        load_encoder(G.encode, gvars["encode"])
+        load_conv_stack(G.decoder, gvars["decoder"])
+    if getattr(G, "has_head_tail", False):
+        head = gvars["head"]
+        load_conv_block(G.head, head["params"], head["batch_stats"])
+        load_conv(G.tail, gvars["tail"]["params"]["conv"])
+        for stage, v in zip(G.body, body):
+            load_csg_stage(stage, v)
+        return
     for stage, v in zip(G.body, body):
         load_conv_stack(stage, v)
 
 
 def load_discriminator(D, dvars: Mapping[str, Any]) -> None:
     """Fill a port ``WDiscriminator`` from the JAX critic variables
-    ``{"params", "spectral"}`` (``head``, ``block{i}``, ``tail/conv``)."""
+    ``{"params", "spectral"}`` (``head``, ``block{i}``, ``tail/conv``), or
+    a ``WDiscriminatorBaselines`` from ``{"params", "batch_stats"}``."""
+    if isinstance(D, WDiscriminatorBaselines):
+        p, bs = dvars["params"], dvars["batch_stats"]
+        load_conv_block(D.head, p["head"], {})
+        for i, block in enumerate(D.body):
+            load_conv_block(block, p[f"block{i}"], bs[f"block{i}"])
+        load_conv(D.tail, p["tail"]["conv"])
+        return
     p, s = dvars["params"], dvars["spectral"]
     load_snconv(D.head, p["head"], s["head"])
     for i, block in enumerate(D.body):

@@ -170,5 +170,11 @@ def test_make_discriminator_routes():
     assert not plain.pfuse and not any(b.kernel_route for b in plain.body)
     with pytest.raises(ValueError):
         make_discriminator("WDiscriminator2D", cfg, ndim=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_discriminator("WDiscriminatorBaselines", cfg, ndim=3)
+    # the baselines' BatchNorm critic has no kernel route, whatever the
+    # routing flags say (as in the JAX package)
+    base = make_discriminator("WDiscriminatorBaselines", cfg, ndim=3)
+    assert not base.sn_convs() and not hasattr(base, "pfuse")
+    assert not any(getattr(m, "kernel_route", False)
+                   for m in base.modules())
+    assert [b.norm is not None for b in (base.head, *base.body)] == \
+        [False] + [True] * cfg.num_layer

@@ -394,6 +394,129 @@ def _gan_step_gives_every_kernel_weight_a_gradient(cuda_device, bf16):
         assert float(w.grad.abs().max()) > 0
 
 
+def _small_models(name, bf16=False, scale=3, **over):
+    """A full-width ``name`` model and its critic on a small pyramid,
+    seeded, on the CPU (nfc 64 under --pconv --pconv-all --pfuse)."""
+    cfg = Config(img_size=16, min_size=8, max_size=16, nfc=64, latent_dim=8,
+                 num_layer=3, enc_blocks=1, vae_levels=2, pconv=True,
+                 pconv_all=True, pfuse=True, bf16=bf16, generator=name,
+                 **over)
+    cfg.ar, cfg.org_fps = 0.5625, 24.0
+    cfg.adjust_scales()
+    cfg.scale_idx = scale
+    gen = torch.Generator().manual_seed(0)
+    G = make_generator(name, cfg, cfg.pyramid(), ndim=3).init(gen)
+    for _ in range(scale):
+        G.init_next_stage(gen)
+    G.requires_grad_(True)
+    D = make_discriminator(cfg.discriminator, cfg, 3)
+    D.reset_parameters(torch.Generator().manual_seed(1))
+    return cfg, G, D
+
+
+def _draws(cfg, G, seed=2):
+    pyr, scale = cfg.pyramid(), cfg.scale_idx
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    out = dict(real=np.tanh(draw(2, *pyr.shape3d(scale), 3)),
+               real_zero=np.tanh(draw(2, *pyr.shape3d(0), 3)),
+               noise_init=draw(2, *pyr.shape3d(0), cfg.latent_dim),
+               z=draw(2, *pyr.shape3d(0), 3))
+    if G.returns_triple:
+        out["noises"] = [draw(2, *pyr.shape3d(i + 1), 3)
+                         for i in range(len(G.body))]
+        out["eps"] = (draw(2, 1, 1, 1, cfg.latent_dim),
+                      rng.uniform(size=(2, *pyr.shape3d(0), 1)).astype(
+                          np.float32))
+        out["latents"] = (draw(2, 1, 1, 1, cfg.latent_dim),
+                          rng.integers(0, 2, (2, *pyr.shape3d(0), 1)).astype(
+                              np.float32))
+    else:
+        out["noises"] = [None] + [draw(*G._noise_shape(i, 2))
+                                  for i in range(1, len(G.body))]
+    return out
+
+
+def _step(cfg, G, D, x):
+    opt_g = optim.build_g_optimizer(cfg, G, cfg.scale_idx)
+    opt_d = optim.build_d_optimizer(cfg, D)
+    if G.returns_triple:
+        return steps.gan_step(G, D, opt_g, opt_d, cfg, x["real"],
+                              x["real_zero"], x["noise_init"],
+                              [1.0, 0.3, 0.2, 0.1], noises=x["noises"],
+                              eps=x["eps"], alpha=0.37,
+                              latents=x["latents"])
+    x0 = x["noise_init"][..., :3]
+    return steps.baseline_step(G, D, opt_g, opt_d, cfg, x["real"], x0,
+                               x["z"], [1.0, 0.3, 0.2, 0.1],
+                               noises=x["noises"], alphas=[0.37])
+
+
+@pytest.mark.gpu
+def test_two_f32_train_scale_runs_are_bit_equal_on_card(cuda_device):
+    """The repaired fault: cuDNN's default f32 weight gradients summed in
+    an order that changed from run to run, so two f32 runs of the same
+    seeds ended with different weights; the steps now hold cuDNN's
+    deterministic algorithms (``hpvaegan_tpu_torch.deterministic``)."""
+    from hpvaegan_tpu_torch.train.trainer import train_scale
+    cfg, G0, _ = _small_models("GeneratorHPVAEGAN")
+    cfg.niter = 3
+    pyr = cfg.pyramid()
+    x = _draws(cfg, G0)
+    ends = []
+    for _ in range(2):
+        G = copy.deepcopy(G0).to(cuda_device)
+        cfg.Noise_Amps = [1.0, 0.3, 0.2]
+
+        def batches():
+            while True:
+                yield x["real"], x["real_zero"]
+
+        _, D, hist = train_scale(cfg, G, batches(), seed=5)
+        torch.cuda.synchronize()
+        ends.append({**{f"G.{k}": v.clone() for k, v in
+                        G.state_dict().items()},
+                     **{f"D.{k}": v.clone() for k, v in
+                        D.state_dict().items()}})
+        assert len(hist) == 3 and pyr.shape3d(3)
+    assert not torch.backends.cudnn.deterministic   # restored after
+    for k, v in ends[0].items():
+        assert torch.equal(v, ends[1][k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["GeneratorVAE_nb", "GeneratorCSG"])
+def test_new_generators_step_on_card_matches_cpu(cuda_device, name):
+    """One GAN step of a ``GeneratorVAE_nb`` (K1 in its stages, K2 and K1
+    in the critic) and one baseline step of a ``GeneratorCSG`` (the SN
+    critic's kernels) on the card against the CPU path, from the same
+    weights and draws: metrics, BatchNorm statistics and u/v at the f32
+    bar."""
+    cfg, G, D = _small_models(name)
+    x = _draws(cfg, G)
+    got = {}
+    for where, g, d in (("cpu", G, D),
+                        ("cuda", copy.deepcopy(G).to(cuda_device),
+                         copy.deepcopy(D).to(cuda_device))):
+        cp.counts.reset()
+        cf.counts.reset()
+        metrics = _step(cfg, g, d, x)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert cp.counts.plain_calls == cf.counts.plain_calls == 0
+            assert cf.counts.launches > 0 and cp.counts.dw_launches > 0
+        got[where] = ({k: float(v) for k, v in metrics.items()},
+                      {k: v.cpu().numpy() for m in (g, d)
+                       for k, v in m.named_buffers(prefix=type(m).__name__)})
+    for a, b in zip(got["cuda"], got["cpu"]):
+        for k, v in b.items():
+            np.testing.assert_allclose(a[k], v, rtol=RTOL, atol=ATOL,
+                                       err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # K3: the fused conv3d + bias + LeakyReLU for any channel count
 # ---------------------------------------------------------------------------

@@ -28,6 +28,14 @@ import hpvaegan_tpu_torch.parallel.mesh
 import hpvaegan_tpu_torch.parallel.multihost
 import hpvaegan_tpu_torch.losses
 import hpvaegan_tpu_torch.train.trainer
+import hpvaegan_tpu_torch.train.trainer_baselines
+import hpvaegan_tpu_torch.train.steps
+import hpvaegan_tpu_torch.train.optim
+import hpvaegan_tpu_torch.models.generators
+import hpvaegan_tpu_torch.models.networks
+import hpvaegan_tpu_torch.models.registry
+import hpvaegan_tpu_torch.cli.train_video_baselines
+import hpvaegan_tpu_torch.tools.repro_probe
 import hpvaegan_tpu_torch.utils.convert
 import hpvaegan_tpu_torch.utils.saver
 import hpvaegan_tpu_torch.data.video

@@ -20,7 +20,9 @@ from hpvaegan_tpu_torch.cli import serve
 from hpvaegan_tpu_torch.core.config import Config
 from hpvaegan_tpu_torch.serving import SamplerSession, apply_snapshot
 from hpvaegan_tpu_torch.utils.video_io import read_avi
-from torch_port_runs import make_clip, one_torch_thread, port_run
+from hpvaegan_tpu_torch.cli import generate
+from torch_port_runs import (make_clip, make_image, one_torch_thread,
+                             port_image_run, port_run)
 
 TOP = (13, 12, 16, 3)
 
@@ -395,3 +397,32 @@ def test_make_server_builds_what_the_command_line_says(netg, tmp_path):
     with pytest.raises(ValueError, match="unknown warmup mode"):
         serve.make_server(["--netG", netg, "--no-cuda", "--warm", "nope",
                            "--output-dir", str(tmp_path / "o2")])
+
+
+@pytest.fixture(scope="module")
+def image_netg(tmp_path_factory):
+    image = make_image(tmp_path_factory.mktemp("image"))
+    return os.path.join(port_image_run(image,
+                                       tmp_path_factory.mktemp("irun")),
+                        "netG")
+
+
+@pytest.mark.parametrize("ndim,flag", [(2, "--svfid"), (3, "--sifid")])
+def test_server_takes_and_ignores_the_other_ndims_metric_flag(
+        ndim, flag, netg, image_netg, tmp_path):
+    """The JAX server parses --svfid/--sifid and never checks them
+    (hpvaegan_tpu/cli/serve.py:403-413): the port's starts with either
+    on either ndim and serves; generate still refuses the other ndim's
+    metric before loading anything."""
+    ckpt = image_netg if ndim == 2 else netg
+    argv = ["--netG", ckpt, "--no-cuda", flag, "--warm", "",
+            "--output-dir", str(tmp_path / "out")]
+    server, args = serve.make_server(argv)
+    try:
+        assert getattr(args, flag[2:]) and server.info()["ndim"] == ndim
+        _, resp = _roundtrip(server, '{"num_samples": 1}\n')
+        assert resp["ok"] and len(resp["paths"]) == 1
+    finally:
+        server.close()
+    with pytest.raises(ValueError, match=flag[2:]):
+        generate.main(argv[:4])
