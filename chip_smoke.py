@@ -159,11 +159,27 @@ Phases; any failure exits non-zero and prints no result:
    ``WDiscriminatorBaselines`` run, which launches no kernel;
 13. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
    in bf16 and K4 in both, each with its launches over the main-path
-   runs, and K3's three instances with their own phase's), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   runs, phase 14's included, and K3's three instances with their own
+   phase's), the card line, and last ``{"ok": true, "device": {...}}``;
+14. the training fast path, phase 6's CLI (default model, the clip,
+   ``--pconv --pconv-all --pfuse``, ten scales), f32 and ``--bf16``:
+   (a) ``--fast-grads --hoist-prefix --niter 2`` and (b) ``--fast-grads
+   --fused-forwards --niter 2``, every scale-9 GAN step's K1-fwd, K2,
+   K1-dx and K1-dw launches equal to the counts derived from the model's
+   structure (``gan_step_launches``: 97/4/20/15 hoisted, 92/4/15/10
+   fused, the frozen stages taking no dx and no dw), its seconds and
+   peak memory printed beside phase 6c's plain step; (c) ``--host-loader
+   --scan-steps 4 --niter 9`` against ``--scan-steps 1``: ``netG`` and
+   ``netD_9`` bit-equal, scale 9's iteration 8 (a graph replay against an
+   eager step) launching the same device kernels in the profiler, and at
+   every scale the eager and the replayed ms an iteration and the graph
+   pool's bytes; (d) the device cache's first batches at scales 0 and 9
+   equal to the host-assembled stream's, and ``--scan-steps 4`` on the
+   cache (f32, ``--niter 5``) to its end with finite losses.  Phases
+   6-12 train through the device cache, the trainer's default.
 
-Phases 6c, 11 and 12 run after 6b, before 7; phases 9 and 10 after 7b,
-before 8.
+Phases 6c, 11, 12 and 14 run after 6b, before 7; phases 9 and 10 after
+7b, before 8.
 """
 from __future__ import annotations
 
@@ -1501,13 +1517,17 @@ def step_launches(per_step: dict, bf16: bool) -> dict:
             **{f"{k}{sfx}": n for k, n in per_step.items()}}
 
 
-def run_cli(main, flags, name: str, dev, want_step=None, stop=None):
+def run_cli(main, flags, name: str, dev, want_step=None, stop=None,
+            record=None):
     """One training CLI run in-process, its console kept out of the
-    output: every calibration and step printed with its wall time, peak
-    memory and launches; no plain call anywhere; each scale-9 step's
+    output: every calibration, chunk and step printed with its wall time,
+    peak memory and launches; no plain call anywhere; each scale-9 step's
     launches equal to ``want_step`` (when given).  ``stop(scale, event,
-    it)`` may raise ``_Stop`` to end the run.  Returns ``(cfg or None,
-    steps per scale, scale-9 step seconds)``."""
+    it)`` is called at every event and may raise ``_Stop`` to end the run.
+    ``record`` (a dict) receives each scale's step seconds (``"steps"``),
+    its chunks (``"chunks"``: k, seconds, replays, graph pool bytes) and
+    the scale-9 steps' peak bytes (``"peaks9"``).  Returns ``(cfg or
+    None, steps per scale, scale-9 step seconds)``."""
     import torch
     from hpvaegan_tpu_torch.utils.logger import kept_logging
 
@@ -1536,11 +1556,19 @@ def run_cli(main, flags, name: str, dev, want_step=None, stop=None):
             fail(f"{name}: the plain versions ran {delta['plain']} times")
         if event == "step":
             state["steps"][scale] = state["steps"].get(scale, 0) + 1
+            if record is not None:
+                record.setdefault("steps", {}).setdefault(
+                    scale, []).append(wall)
             if scale == SCALE:
                 state["s9"].append(wall)
+                if record is not None:
+                    record.setdefault("peaks9", []).append(peak)
                 if want_step is not None and delta != want_step:
                     fail(f"a scale-{scale} step of the {name} run launched "
                          f"{delta}, want {want_step}")
+        elif event == "chunk" and record is not None:
+            record.setdefault("chunks", {}).setdefault(scale, []).append(
+                (info["k"], wall, info["replays"], info["graph_pool_bytes"]))
         if stop is not None:
             stop(scale, event, it)
         mark()
@@ -1582,13 +1610,15 @@ def bit_equal(what: str, a: Path, b: Path) -> None:
 MID_SCALE = 2
 
 
-def repro_main_path(dev, seed: int, runs: Path, bf16: bool):
+def repro_main_path(dev, seed: int, runs: Path, bf16: bool,
+                    timings: dict):
     """Phase 6c: the CLI of phase 6 again on the same seed (no
     ``--visualize``, ``--save-interval 1``), its ``netG`` and ``netD_9``
     bit-equal to phase 6's run; then the same run stopped right after
     its ``netG_mid`` write at scale ``MID_SCALE`` and resumed from it,
     through the GAN scales to scale 9, ending bit-equal to the
-    uninterrupted one.  Returns the launches of the three runs."""
+    uninterrupted one.  ``timings[dtype]`` receives the second run's
+    record (``run_cli``).  Returns the launches of the three runs."""
     from hpvaegan_tpu_torch.cli import train_video
     dt = dtype_name(bf16)
     want = step_launches(GAN_STEP_LAUNCHES, bf16)
@@ -1599,9 +1629,10 @@ def repro_main_path(dev, seed: int, runs: Path, bf16: bool):
              + (["--bf16"] if bf16 else []))
     reset_counts()
     t0 = time.perf_counter()
+    timings[dt] = {}
     _, steps, s9 = run_cli(train_video.main, flags + [
         "--run-dir", str(runs / f"{dt}_again")], f"CLI {dt} again", dev,
-        want)
+        want, record=timings[dt])
     again = experiment_dir(runs / f"{dt}_again")
     print(f"CLI {dt} again: {time.perf_counter() - t0:.3f} s, steps "
           f"{steps}, scale-9 GAN steps {[round(s, 4) for s in s9]} s",
@@ -1880,6 +1911,211 @@ def baselines_main_path(dev, seed: int, runs: Path):
         fail(f"the SG run: steps {steps}, launches {all_counts()}")
     generate_baseline(dev, seed, experiment_dir(run_dir), runs / "sg_gen",
                       "f32")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the training fast path (--fast-grads, --hoist-prefix,
+# --fused-forwards, the device-resident cache, --scan-steps as CUDA graphs)
+# ---------------------------------------------------------------------------
+
+FAST_ITERS, SCAN_K, SCAN_ITERS = 2, 4, 9
+
+
+def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
+                      vae_levels: int = 3, train_depth: int = 1) -> dict:
+    """The kernel launches of one GAN step at a scale of ``stages`` body
+    stages, derived from the model's structure: ``num_layer`` K1 convs a
+    stage forward; the critic's body ``num_layer // 2`` K2 pairs and
+    ``num_layer % 2`` K1 blocks, whose backward takes 2 K1-dx a pair and
+    one a block (the WGAN-GP runs stock convs); one K1-dw a conv whose
+    weight trains.  ``mode``:
+
+    * ``"plain"``: the critic step's fake (every stage), the generator
+      step's rec and rand forwards; the gradient reaches the stages from
+      the detach at ``vae_levels`` on, every one of which trains;
+    * ``"hoist"`` (``--fast-grads --hoist-prefix``): the frozen prefix
+      once in the critic step, the rand suffix (the ``train_depth``
+      trainable stages) again in the generator step after its rec
+      forward; only the trainable stages take dx and dw;
+    * ``"fused"`` (``--fast-grads --fused-forwards``): one forward of the
+      batch [rec | rand] in each step (K1 at twice the batch)."""
+    L = num_layer
+    pairs, blocks = divmod(num_layer, 2)
+    crit = {"fwd": blocks, "pair": pairs, "dx": 2 * pairs + blocks,
+            "dw": 2 * pairs + blocks}
+    trained = {"plain": stages - (vae_levels - 1)}.get(mode, train_depth)
+    gen_fwd = {"plain": 3 * stages, "hoist": 2 * stages + train_depth,
+               "fused": 2 * stages}[mode]
+    gen_passes = 1 if mode == "fused" else 2   # backward through stages
+    return {"conv3d64_fwd": gen_fwd * L + 2 * crit["fwd"],
+            "conv3d64_pair": 2 * crit["pair"],
+            # the critic step's backward and the frozen critic's
+            "conv3d64_dx": 2 * crit["dx"] + gen_passes * trained * L,
+            "conv3d64_dw": crit["dw"] + gen_passes * trained * L}
+
+
+def profiled_conv_kernels(tracer) -> dict:
+    """Device kernel launches of the port's conv kernels in a profile, by
+    kernel name."""
+    from torch.autograd import DeviceType
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+            e.count for e in tracer.key_averages()
+            if e.device_type != DeviceType.CPU and "conv3d" in e.key}
+
+
+def fast_path_main_path(dev, seed: int, runs: Path, timings: dict):
+    """Phase 14 (see the module's docstring); ``timings``: phase 6c's
+    records by dtype, printed beside the fast steps'.  Returns the
+    launches of its runs (the Python counters: a graph replay counts
+    none)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hpvaegan_tpu_torch.cli import train_video
+    from hpvaegan_tpu_torch.core.config import build_parser, config_from_args
+    from hpvaegan_tpu_torch.data.device_cache import DeviceCacheLoader
+    from hpvaegan_tpu_torch.data.loader import BatchLoader
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+
+    if gan_step_launches("plain") != GAN_STEP_LAUNCHES:
+        fail(f"the derivation gives {gan_step_launches('plain')} for the "
+             f"plain step, phase 6 counts {GAN_STEP_LAUNCHES}")
+    total = {k: 0 for k in all_counts()}
+
+    def add():
+        for k, v in all_counts().items():
+            total[k] += v
+
+    base = ["--video-path", str(ROOT / MAIN_CFG["video_path"]), "--pconv",
+            "--pconv-all", "--pfuse", "--manualSeed", str(seed)]
+    label = card_line()
+    # (a), (b): the fast step's launches, seconds and peak memory
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        plain = timings.get(dt, {})
+        ref9 = plain.get("steps", {}).get(SCALE, [])
+        refp = plain.get("peaks9", [])
+        for mode, extra in (("hoist", ["--fast-grads", "--hoist-prefix"]),
+                            ("fused", ["--fast-grads",
+                                       "--fused-forwards"])):
+            want = step_launches(gan_step_launches(mode), bf16)
+            name = f"fast path {mode} {dt}"
+            reset_counts()
+            rec = {}
+            t0 = time.perf_counter()
+            _, steps, s9 = run_cli(
+                train_video.main, base + extra + [
+                    "--niter", str(FAST_ITERS), "--run-dir",
+                    str(runs / f"fast_{mode}_{dt}")]
+                + (["--bf16"] if bf16 else []), name, dev, want,
+                record=rec)
+            add()
+            if steps != {s: FAST_ITERS for s in range(SCALE + 1)}:
+                fail(f"the {name} run ran steps {steps}")
+            print(f"{name} ({label}): {time.perf_counter() - t0:.3f} s for "
+                  f"ten scales; a scale-{SCALE} GAN step launches "
+                  f"{gan_step_launches(mode)} (derived, checked), seconds "
+                  f"{[round(w, 4) for w in s9]}, peak memory "
+                  f"{rec['peaks9']} bytes; phase 6c's plain step "
+                  f"{[round(w, 4) for w in ref9]} s, {refp} bytes",
+                  flush=True)
+
+    # (c): --scan-steps 4 replaying CUDA graphs against --scan-steps 1
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        seen, recs = {}, {}
+        for k in (1, SCAN_K):
+            name = f"host-loader scan {k} {dt}"
+            tracer = {}
+
+            def hook(scale, event, it, tracer=tracer):
+                # iteration 8 of scale 9 alone: the eager step of the K = 1
+                # run, a replay of the K = 4 run (its chunk [8, 9))
+                if scale == SCALE and event == "step" and it == 7:
+                    tracer["p"] = profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA])
+                    tracer["p"].start()
+                elif scale == SCALE and event == "step" and it == 8:
+                    torch.cuda.synchronize()
+                    tracer["p"].stop()
+                    seen[k] = profiled_conv_kernels(tracer["p"])
+
+            reset_counts()
+            recs[k] = {}
+            t0 = time.perf_counter()
+            _, steps, _ = run_cli(
+                train_video.main, base + [
+                    "--host-loader", "--scan-steps", str(k), "--niter",
+                    str(SCAN_ITERS), "--run-dir", str(runs / f"scan{k}_{dt}")]
+                + (["--bf16"] if bf16 else []), name, dev, stop=hook,
+                record=recs[k])
+            add()
+            if steps != {s: SCAN_ITERS for s in range(SCALE + 1)}:
+                fail(f"the {name} run ran steps {steps}")
+            print(f"{name} ({label}): {time.perf_counter() - t0:.3f} s for "
+                  f"ten scales", flush=True)
+        for file in ("netG", f"netD_{SCALE}"):
+            bit_equal(f"--scan-steps {SCAN_K} (CUDA graphs) against "
+                      f"--scan-steps 1, --host-loader {dt}",
+                      experiment_dir(runs / f"scan1_{dt}") / file,
+                      experiment_dir(runs / f"scan{SCAN_K}_{dt}") / file)
+        if not seen.get(1) or seen.get(1) != seen.get(SCAN_K):
+            fail(f"a replayed scale-{SCALE} step launched {seen.get(SCAN_K)}"
+                 f" (profiler), the eager step {seen.get(1)}")
+        print(f"scale-{SCALE} step {dt}, device kernel events (profiler): "
+              f"eager {seen[1]}, replayed {seen[SCAN_K]}", flush=True)
+        for scale in range(SCALE + 1):
+            eager = recs[1]["steps"][scale][1:]   # past the first step
+            chunks = recs[SCAN_K]["chunks"][scale]
+            full = [c for c in chunks[1:] if c[0] == c[2] == SCAN_K]
+            if not full or chunks[0][2] != SCAN_K - 1:
+                fail(f"scale {scale}: chunks {chunks}, want the first step "
+                     f"eager and the rest replayed")
+            print(f"{dt} scale {scale} ({label}): eager "
+                  f"{1e3 * float(np.median(eager)):.3f} ms an iteration "
+                  f"(median of {len(eager)}), replayed "
+                  f"{1e3 * full[0][1] / SCAN_K:.3f} ms (chunk of "
+                  f"{SCAN_K}); first chunk (eager + capture + "
+                  f"{chunks[0][2]} replays) {chunks[0][1]:.4f} s; graph "
+                  f"pool {chunks[0][3]} bytes", flush=True)
+
+    # (d): the device cache's batches against the host stream's, and
+    # --scan-steps on the cache to the end
+    cfg = config_from_args(build_parser("video").parse_args(base))
+    cfg.adjust_scales()
+    ds = SingleVideoDataset(cfg)
+    for scale in (0, SCALE):
+        ds.generate_frames(scale)
+        key = seed * 1000 + scale
+        card = DeviceCacheLoader(ds, BATCH, key, scale, device=dev)
+        host = BatchLoader(ds, BATCH, key, scale, stream="cache")
+        try:
+            for it in range(3):
+                got, want = next(card), next(host)
+                if not all(g.is_cuda and torch.equal(g.cpu(), w)
+                           for g, w in zip(got, want)):
+                    fail(f"the device cache's batch {it} at scale {scale} "
+                         f"differs from the host stream's")
+        finally:
+            host.close()
+        print(f"device cache at scale {scale}: batches 0-2 "
+              f"{tuple(got[0].shape)}, {tuple(got[1].shape)} equal the host "
+              f"stream's", flush=True)
+    reset_counts()
+    rec = {}
+    t0 = time.perf_counter()
+    _, steps, _ = run_cli(train_video.main, base + [
+        "--scan-steps", str(SCAN_K), "--niter", str(SCAN_K + 1),
+        "--run-dir", str(runs / "scan_cache")], "cache scan f32", dev,
+        record=rec)
+    add()
+    if steps != {s: SCAN_K + 1 for s in range(SCALE + 1)}:
+        fail(f"--scan-steps {SCAN_K} on the cache ran {steps}")
+    print(f"--scan-steps {SCAN_K} on the device cache, f32 ({label}): "
+          f"{time.perf_counter() - t0:.3f} s for ten scales, finite losses; "
+          f"scale-{SCALE} chunks (k, s, replays, pool bytes) "
+          f"{rec['chunks'][SCALE]}", flush=True)
     return total
 
 
@@ -3053,14 +3289,17 @@ def main() -> None:
         for bf16 in (False, True):                           # phases 6, 6b
             paths[f"training CLI {dtype_name(bf16)}"] = train_cli_main_path(
                 dev, args.seed, runs / dtype_name(bf16), bf16)
+        timings = {}
         for bf16 in (False, True):                           # phase 6c
             paths[f"reproducible CLI {dtype_name(bf16)}"] = repro_main_path(
-                dev, args.seed, runs, bf16)
+                dev, args.seed, runs, bf16, timings)
         for bf16 in (False, True):                           # phase 11
             paths[f"VAE_nb {dtype_name(bf16)}"] = vae_nb_main_path(
                 dev, args.seed, runs, bf16)
         paths["baselines"] = baselines_main_path(dev, args.seed,  # 12
                                                  runs)
+        paths["fast path"] = fast_path_main_path(dev, args.seed,  # 14
+                                                 runs, timings)
         for bf16 in (False, True):                           # phase 7
             paths[f"generate {dtype_name(bf16)}"] = generate_main_path(
                 dev, args.seed, experiment_dir(runs / dtype_name(bf16)),

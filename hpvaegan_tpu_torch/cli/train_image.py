@@ -10,9 +10,10 @@ runs the VAE phase below ``--vae-levels`` and the WGAN-GP phase above
 it.  A PNG is read directly; another format must have been decoded once
 into its frames file (``python -m hpvaegan_tpu_torch.tools.decode_frames
 <image>``).  It trains on the card; ``--no-cuda`` trains on the CPU.
-The flags are the JAX CLI's, and the flags whose feature the port lacks
-raise as in ``cli/train_video.py`` (``check_ported``), naming their
-ROADMAP item; ``--spmd --mesh-shape DxS`` trains over a mesh as there.
+The flags are the JAX CLI's: the fast path's (``--fast-grads``,
+``--scan-steps``, the device-resident cache unless ``--host-loader``)
+train as in ``cli/train_video.py``, and the flags whose feature the port
+lacks raise as there (``check_ported``), naming their ROADMAP item; ``--spmd --mesh-shape DxS`` trains over a mesh as there.
 The 2D models hold no TPU kernel: every conv runs on stock PyTorch ops.
 
 With ``--tag`` and ``$NEPTUNE_PROJECT`` set and the neptune client

@@ -9,8 +9,12 @@ Per scale the dataset takes that scale's resolution and frame rate, then
 been decoded once into its frames file (``python -m
 hpvaegan_tpu_torch.tools.decode_frames <clip>``).  It trains on the card;
 ``--no-cuda`` trains on the CPU with the kernels' plain versions.  The
-flags are the JAX CLI's; a flag whose feature the port does not have yet
-raises, naming its ROADMAP item, instead of being ignored.  As in the JAX
+flags are the JAX CLI's, the fast path's included (``--fast-grads``,
+``--hoist-prefix``, ``--fused-forwards``, ``--scan-steps K`` as CUDA-graph
+replays on the card, the device-resident frame cache unless
+``--host-loader``; ``train/trainer.py``); a flag whose feature the port
+does not have yet raises, naming its ROADMAP item, instead of being
+ignored.  As in the JAX
 CLI, every run opens an event file in its experiment directory
 (``utils/summaries.py``), which ``--visualize`` fills with the scalars
 and sample grids; ``--profile-dir`` writes a ``torch.profiler`` trace per
@@ -67,12 +71,6 @@ __all__ = ["main", "check_ported", "spawn_ranks"]
 
 # flag -> (is it asked for?, where its feature waits)
 _UNPORTED = {
-    "--scan-steps > 1": (lambda c: int(c.scan_steps) > 1,
-                         "ROADMAP Queue 1 item 9 (CUDA graphs)"),
-    "--fast-grads": (lambda c: c.fast_grads, "ROADMAP Queue 1 item 9"),
-    "--fused-forwards": (lambda c: c.fused_forwards,
-                         "ROADMAP Queue 1 item 9"),
-    "--hoist-prefix": (lambda c: c.hoist_prefix, "ROADMAP Queue 1 item 9"),
     "--remat": (lambda c: c.remat, "ROADMAP Queue 1 item 8"),
     "--remat-blocks": (lambda c: c.remat_blocks, "ROADMAP Queue 1 item 8"),
     "--gp-chunked": (lambda c: c.gp_chunked, "ROADMAP Queue 1 item 8"),

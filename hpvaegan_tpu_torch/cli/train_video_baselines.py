@@ -15,7 +15,10 @@ growth and reloads the run's ``Z_init`` instead of drawing a new one (the
 JAX package's fix of a reference resume bug).  As ``cli.train_video``:
 the clip's frames file must exist, it trains on the card unless
 ``--no-cuda``, flags whose feature the port lacks raise
-(``check_ported``), every run opens an event file, and ``--spmd
+(``check_ported``), the batches come from the device-resident cache
+unless ``--host-loader``, the fast-path flags of ``cli.train_video``
+are taken and, as by the JAX baselines CLI, not used, every run opens an
+event file, and ``--spmd
 --mesh-shape Dx1`` trains over a data mesh of ranks (started here, or one
 rank under ``--distributed``); a spatial mesh axis raises.
 """

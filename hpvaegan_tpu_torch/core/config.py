@@ -308,8 +308,9 @@ _COMMON_FLAGS = [
                                     "compilation cache; OOM-ladder rungs "
                                     "are discovered off the critical path)")),
     (["--scan-steps"], dict(type=int, default=1, dest="scan_steps",
-                            help="run K iterations per device dispatch via lax.scan "
-                                 "(amortizes dispatch overhead; metrics/TB update every K)")),
+                            help="run K iterations per chunk: on the card the "
+                                 "scale's steps replay one CUDA graph (metrics/TB "
+                                 "still every iteration)")),
     (["--remat"], dict(action="store_true", default=False,
                        help="rematerialize refinement stages and the critic "
                             "(jax.checkpoint): trades ~1/3 more FLOPs for the HBM "

@@ -86,6 +86,15 @@ class _ImageDatasetBase:
         this (``device_cache_views``' ``n_start``)."""
         return len(self.images)
 
+    def device_cache_views(self, scale_idx: int):
+        """``(cur_store, zero_store, n_start, gather_kwargs)`` for
+        ``data/device_cache.DeviceCacheLoader`` (JAX ``data/image.py:65``):
+        the scale's images and the zero scale's (scale 0: its own)."""
+        cur = self._scaled(scale_idx)
+        zero = self._scaled(0) if scale_idx > 0 else cur
+        return cur, zero, len(self.images), dict(
+            hflip=bool(self.cfg.hflip), virtual_len=len(self))
+
     def get(self, idx: int, scale_idx: int, hflip: bool
             ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """(H, W, 3) image ``idx`` at ``scale_idx``, and its zero-scale

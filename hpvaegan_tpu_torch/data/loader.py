@@ -17,11 +17,13 @@ uninterrupted run would have:
   drawn by the dataset from ``[seed, 3, it]``.
 
 Both give the JAX loaders' batches under the same flags, for the video
-dataset (NTHWC clips) and the image datasets (NHWC images) alike.  The JAX
-package's default keeps the frame store on the device and gathers inside
-the step; here the store stays on the host and each batch is copied, from
-pinned memory with ``non_blocking=True`` (ROADMAP Queue 1 item 9 has the
-device-resident cache).
+dataset (NTHWC clips) and the image datasets (NHWC images) alike.  Here
+the store stays on the host and each batch is copied, from pinned memory
+with ``non_blocking=True``.  The trainer's default is the device-resident
+cache instead (``data/device_cache.py``, as the JAX package's default),
+which gathers the ``"cache"`` stream's rows on the device from stores
+uploaded once a scale; ``make_loader`` returns it, and ``BatchLoader``
+with the ``"host"`` stream under ``--host-loader``.
 """
 from __future__ import annotations
 
@@ -171,11 +173,17 @@ class BatchLoader:
 
 
 def make_loader(dataset, cfg, seed: int, scale_idx: int, device,
-                start_iteration: int = 0) -> BatchLoader:
-    """The trainer's loader: the cache stream, or the host stream under
-    ``--host-loader`` (``hpvaegan_tpu/train/trainer.py:149-167``), seeded
-    ``seed * 1000 + scale_idx``."""
-    return BatchLoader(dataset, cfg.batch_size, seed=seed * 1000 + scale_idx,
-                       scale_idx=scale_idx, device=device,
-                       stream="host" if cfg.host_loader else "cache",
+                start_iteration: int = 0):
+    """The trainer's loader, seeded ``seed * 1000 + scale_idx``
+    (``hpvaegan_tpu/train/trainer.py:149-167``): the device-resident
+    cache (``data/device_cache.DeviceCacheLoader``), or ``BatchLoader``
+    on the host stream under ``--host-loader``."""
+    from .device_cache import DeviceCacheLoader
+    seed = seed * 1000 + scale_idx
+    if not cfg.host_loader:
+        return DeviceCacheLoader(dataset, cfg.batch_size, seed=seed,
+                                 scale_idx=scale_idx, device=device,
+                                 start_iteration=start_iteration)
+    return BatchLoader(dataset, cfg.batch_size, seed=seed,
+                       scale_idx=scale_idx, device=device, stream="host",
                        start_iteration=start_iteration)

@@ -177,6 +177,24 @@ class SingleVideoDataset:
         modulo this (``device_cache_views``' ``n_start``)."""
         return len(self.zero_scale_frames) - self.cfg.fps_lcm
 
+    def device_cache_views(self, scale_idx: int):
+        """``(cur_store, zero_store, n_start, gather_kwargs)`` for
+        ``data/device_cache.DeviceCacheLoader`` (JAX ``data/video.py:
+        169-188``): the scale's frames and the zero scale's, or at scale
+        0 its own frames twice, at the same stride."""
+        self.generate_frames(scale_idx)
+        cfg = self.cfg
+        every = cfg.sampling_rates[self.pyramid.fps_index(scale_idx)]
+        if scale_idx > 0:
+            zero, every0 = self.zero_scale_frames, cfg.sampling_rates[0]
+        else:
+            zero, every0 = self.frames, every
+        kw = dict(td=cfg.fps_lcm // every + 1, every=every,
+                  td0=cfg.fps_lcm // every0 + 1, every0=every0,
+                  hflip=bool(cfg.hflip),
+                  virtual_len=self.n_starts * cfg.data_rep)
+        return self.frames, zero, self.n_starts, kw
+
     def get(self, idx: int, hflip: bool, scale_idx: Optional[int] = None
             ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """One (T, H, W, C) clip; plus the zero-scale pair for

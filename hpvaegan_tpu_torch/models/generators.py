@@ -38,9 +38,24 @@ blocks.  Each inter-stage resize mixes all of H (``generators.py:95-110``):
 it gathers the ring's blocks (``Mesh.gather_h``), resizes the whole on
 every rank of the ring, and keeps the rank's block of the result
 (``Mesh.slice_h``).
-``apply_prefix``, ``apply_suffix`` and ``apply_fused`` serve
-``--hoist-prefix`` and ``--fused-forwards`` and wait for ROADMAP Queue 1
-item 9.
+
+The split forwards of ``GeneratorHPVAEGAN`` (``generators.py:201-313``)
+serve ``--hoist-prefix`` and ``--fused-forwards``:
+
+* ``apply_prefix(..., upto=i)`` runs the encoder or latent, the decoder
+  and stages ``[0, i)`` and returns where the noise stream stands (the
+  next stage index); ``apply_suffix`` runs stages ``[i, n)`` from there.
+  Both read the same ``noises`` list (indexed by stage) or the same
+  ``generator``, so prefix + suffix consume the unsplit forward's noises;
+* ``apply_fused`` runs the rec and the rand forwards as one batch
+  ``[rec | rand]`` through the decoder and the stages: the rec half takes
+  zero noise, and BatchNorm computes its statistics over the combined
+  batch, moving each layer's running statistics once with them (the
+  JAX package's deviation, ``generators.py:273-276``).
+
+``GeneratorVAE_nb`` has no split forwards (``split_forwards`` is False;
+in the JAX package it is a separate class without them, and the steps
+gate on them), so it runs unfused and unhoisted under those flags.
 
 ``GeneratorVAE_nb`` is ``GeneratorHPVAEGAN`` with the ``EncodeVAE_nb``
 encoder: its decoder reads ``z_norm * z_bern``, a global Gaussian latent
@@ -115,6 +130,9 @@ class _PyramidModule(nn.Module):
 
     mesh = None
     returns_triple = True
+    # apply_prefix / apply_suffix / apply_fused (--hoist-prefix,
+    # --fused-forwards): GeneratorHPVAEGAN's alone
+    split_forwards = False
 
     def __init__(self, cfg, pyramid: Pyramid, ndim: int):
         super().__init__()
@@ -166,6 +184,8 @@ class _PyramidModule(nn.Module):
 
 class GeneratorHPVAEGAN(_PyramidModule):
     """The core model (networks_3d.py:325-406 / networks_2d.py:188-269)."""
+
+    split_forwards = True
 
     def __init__(self, cfg, pyramid: Pyramid, ndim: int):
         super().__init__(cfg, pyramid, ndim)
@@ -228,29 +248,49 @@ class GeneratorHPVAEGAN(_PyramidModule):
         Under a mesh the inputs are whole and the outputs this rank's
         blocks."""
         with full_f32():
-            if noise_init is None:
-                assert real_zero is not None
-                mu, logvar = self.encode(self._local(real_zero))
-                if eps is not None:
-                    eps = self._local(eps)
-                elif self.mesh is not None:
-                    b = self.mesh.global_batch(mu.shape[0])
-                    eps = self._draw(
-                        (b, mu.shape[1], *np.shape(real_zero)[1:-1]),
-                        mu.dtype, generator)
-                z_vae = reparameterize(mu, logvar, train, eps, generator)
-                stats = (mu, logvar)
-            else:
-                z_vae = self._local(noise_init)
-                stats = None
+            z_vae, stats = self._latent(real_zero, noise_init, train, eps,
+                                        generator)
             return self._decode_refine(amps, z_vae, stats, sample_init,
                                        mode, train, noises, generator,
                                        update_stats)
 
+    def _latent(self, real_zero, noise_init, train, eps, generator):
+        """(the decoder's latent in the model layout, ``(mu, logvar)`` or
+        None): ``noise_init``, else ``real_zero`` encoded and
+        reparameterized with ``eps``."""
+        if noise_init is not None:
+            return self._local(noise_init), None
+        assert real_zero is not None
+        mu, logvar = self.encode(self._local(real_zero))
+        if eps is not None:
+            eps = self._local(eps)
+        elif self.mesh is not None:
+            b = self.mesh.global_batch(mu.shape[0])
+            eps = self._draw((b, mu.shape[1], *np.shape(real_zero)[1:-1]),
+                             mu.dtype, generator)
+        z = reparameterize(mu, logvar, train, eps, generator)
+        # one layout whether eps was drawn here or handed in, so that the
+        # decoder's convs sum in one order either way
+        fmt = torch.channels_last_3d if z.dim() == 5 else torch.channels_last
+        return z.contiguous(memory_format=fmt), (mu, logvar)
+
+    def draw_eps(self, real_zero_shape,
+                 generator: Optional[torch.Generator] = None):
+        """The rec forward's reparameterization draw for a ``real_zero`` of
+        NTHWC (NHWC) ``real_zero_shape``, exactly as ``apply`` would draw
+        it from ``generator`` (a view in the public layout), so that it can
+        be drawn ahead and handed in."""
+        shape = (real_zero_shape[0], self.cfg.latent_dim,
+                 *real_zero_shape[1:-1])
+        eps = torch.randn(shape, dtype=self.dtype or torch.float32,
+                          device=self.device, generator=generator)
+        return to_public_layout(eps)
+
     def _decode_refine(self, amps, z_vae, stats, sample_init, mode, train,
-                       noises, generator, update_stats):
+                       noises, generator, update_stats, stop=None):
         """The decoder on the latent ``z_vae`` (model layout), then the
-        refinement stages; returns ``apply``'s triple."""
+        refinement stages up to ``stop`` (all by default); returns
+        ``apply``'s triple."""
         amps = [float(a) for a in amps]
         vae_out = torch.tanh(self.decoder(z_vae, train, update_stats))
         if sample_init is not None:
@@ -260,10 +300,65 @@ class GeneratorHPVAEGAN(_PyramidModule):
         else:
             start_idx, x = 0, vae_out
         x = self._refinement_layers(start_idx, x, amps, mode, train,
-                                    noises, generator, update_stats)
+                                    noises, generator, update_stats, stop)
         if stats is not None:
             stats = tuple(to_public_layout(s) for s in stats)
         return to_public_layout(x), to_public_layout(vae_out), stats
+
+    def apply_prefix(self, amps: Sequence[float], real_zero=None,
+                     noise_init=None, mode: str = "rec", train: bool = True,
+                     noises: Optional[Sequence] = None, eps=None,
+                     generator: Optional[torch.Generator] = None,
+                     update_stats: bool = False, upto: int = 0):
+        """The encoder or latent, the decoder and stages ``[0, upto)``
+        (JAX ``generators.py:201-232``).  Returns ``(x, vae_out, stats,
+        upto)``: ``upto`` is where the noise stream stands, the stage
+        ``apply_suffix`` starts at (with the same ``noises`` or
+        ``generator``)."""
+        with full_f32():
+            z_vae, stats = self._latent(real_zero, noise_init, train, eps,
+                                        generator)
+            x, vae_out, stats = self._decode_refine(
+                amps, z_vae, stats, None, mode, train, noises, generator,
+                update_stats, stop=upto)
+            return x, vae_out, stats, upto
+
+    def apply_suffix(self, amps: Sequence[float], x, start_idx: int,
+                     mode: str = "rand", train: bool = True,
+                     noises: Optional[Sequence] = None,
+                     generator: Optional[torch.Generator] = None,
+                     update_stats: bool = False) -> torch.Tensor:
+        """Stages ``[start_idx, n)`` from ``apply_prefix``'s ``x`` (NTHWC)
+        and stream position (JAX ``generators.py:234-241``)."""
+        with full_f32():
+            x = self._refinement_layers(
+                start_idx, self._local(x, x.dtype), [float(a) for a in amps],
+                mode, train, noises, generator, update_stats)
+            return to_public_layout(x)
+
+    def apply_fused(self, amps: Sequence[float], real_zero, noise_init,
+                    train: bool = True, noises: Optional[Sequence] = None,
+                    eps=None, generator: Optional[torch.Generator] = None,
+                    update_stats: bool = False):
+        """The rec forward from ``real_zero`` and the rand forward from
+        ``noise_init`` as one batch ``[rec | rand]`` through the decoder
+        and the stages (``--fused-forwards``, JAX ``generators.py:
+        267-313``): the rand half takes the stage noises, the rec half
+        zeros; BatchNorm statistics are the combined batch's.  Returns
+        ``(generated, fake, vae_out of the rec half, (mu, logvar))``,
+        NTHWC."""
+        with full_f32():
+            z_rec, stats = self._latent(real_zero, None, train, eps,
+                                        generator)
+            z_rand = self._local(noise_init).to(z_rec.dtype)
+            b = z_rec.shape[0]
+            fmt = (torch.channels_last_3d if z_rec.dim() == 5
+                   else torch.channels_last)
+            z_vae = torch.cat([z_rec, z_rand]).contiguous(memory_format=fmt)
+            x, vae_out, stats = self._decode_refine(
+                amps, z_vae, stats, None, "fused", train, noises, generator,
+                update_stats)
+            return x[:b], x[b:], vae_out[:b], stats
 
     def _detach_before(self, idx: int) -> bool:
         """Is stage ``idx``'s input cut from the gradient (the VAE levels
@@ -289,21 +384,28 @@ class GeneratorHPVAEGAN(_PyramidModule):
                            amps: Sequence[float], mode: str, train: bool,
                            noises: Optional[Sequence],
                            generator: Optional[torch.Generator],
-                           update_stats: bool) -> torch.Tensor:
-        for idx in range(start_idx, len(self.body)):
+                           update_stats: bool,
+                           stop: Optional[int] = None) -> torch.Tensor:
+        """Stages ``[start_idx, stop)``.  ``mode`` "fused": ``x`` is the
+        batch ``[rec | rand]``, and only its rand half takes noise."""
+        for idx in range(start_idx, len(self.body) if stop is None
+                         else stop):
             if self._detach_before(idx):
                 x = x.detach()
             x_up = self._upscale(x, idx + 1)
-            if mode == "rand" and self._stage_has_noise(idx):
+            if mode in ("rand", "fused") and self._stage_has_noise(idx):
+                ref = x_up if mode == "rand" else x_up[x_up.shape[0] // 2:]
                 if noises is not None:
-                    noise = self._local(noises[idx], x_up.dtype)
+                    noise = self._local(noises[idx], ref.dtype)
                 elif self.mesh is not None:
-                    b = self.mesh.global_batch(x_up.shape[0])
-                    noise = self._draw((b, x_up.shape[1],
+                    b = self.mesh.global_batch(ref.shape[0])
+                    noise = self._draw((b, ref.shape[1],
                                         *self._shape(idx + 1)),
-                                       x_up.dtype, generator)
+                                       ref.dtype, generator)
                 else:
-                    noise = generate_noise(ref=x_up, generator=generator)
+                    noise = generate_noise(ref=ref, generator=generator)
+                if mode == "fused":
+                    noise = torch.cat([torch.zeros_like(noise), noise])
                 # f32, as the JAX package's f32 amps make it
                 x_in = x_up.float() + noise.float() * amps[idx + 1]
             else:
@@ -318,9 +420,18 @@ class GeneratorVAE_nb(GeneratorHPVAEGAN):
     ``generators.py:315-416``).  Its rec forward returns the stats
     ``(mu, logvar, bern)``."""
 
+    # as in the JAX package, where it is a separate class without them:
+    # the steps run it unfused and unhoisted whatever the flags
+    split_forwards = False
+
     def __init__(self, cfg, pyramid: Pyramid, ndim: int):
         super().__init__(cfg, pyramid, ndim)
         self.noise_all_stages = True   # both nb variants inject always
+
+    def apply_prefix(self, *args, **kwargs):
+        raise NotImplementedError("GeneratorVAE_nb has no split forwards")
+
+    apply_suffix = apply_fused = apply_prefix
 
     def _encoder(self) -> nn.Module:
         cfg = self.cfg
@@ -331,6 +442,20 @@ class GeneratorVAE_nb(GeneratorHPVAEGAN):
     def _detach_before(self, idx: int) -> bool:
         # no train_all escape here (networks_3d.py:470-471)
         return self.cfg.vae_levels == idx + 1
+
+    def draw_eps(self, real_zero_shape,
+                 generator: Optional[torch.Generator] = None):
+        """The rec forward's pair ``(eps_norm, eps_bern)`` for a
+        ``real_zero`` of NTHWC ``real_zero_shape``, drawn from
+        ``generator`` as ``apply`` would draw them (``reparameterize``,
+        then ``reparameterize_bern``), in the public layout."""
+        kw = dict(dtype=self.dtype or torch.float32, device=self.device,
+                  generator=generator)
+        b, spatial = real_zero_shape[0], tuple(real_zero_shape[1:-1])
+        eps_norm = torch.randn((b, self.cfg.latent_dim, *(1,) * len(spatial)),
+                               **kw)
+        eps_bern = torch.rand((b, 1, *spatial), **kw)
+        return to_public_layout(eps_norm), to_public_layout(eps_bern)
 
     def draw_latents(self, noise_init,
                      generator: Optional[torch.Generator] = None):

@@ -46,9 +46,25 @@ def _interp_matrix_np(in_size: int, out_size: int) -> np.ndarray:
 
 def interp_matrix(in_size: int, out_size: int, dtype=torch.float32,
                   device=None) -> torch.Tensor:
-    """The interpolation matrix with its weights rounded to ``dtype``."""
-    return torch.from_numpy(_interp_matrix_np(in_size, out_size)).to(
-        device=device, dtype=dtype)
+    """The interpolation matrix with its weights rounded to ``dtype``
+    (on a card: uploaded once, shared; read it, do not write it)."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cpu":
+        return torch.from_numpy(_interp_matrix_np(in_size, out_size)).to(
+            dtype=dtype)
+    return _on_device(in_size, out_size, dtype, device)
+
+
+# kept: a step replayed as a CUDA graph (train/graphs.py) may not copy
+# from host memory, and its eager first run uploads every matrix it needs
+@functools.lru_cache(maxsize=None)
+def _on_device(in_size: int, out_size: int, dtype,
+               device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first asked for under inference_mode
+    # (sampling), since training steps save it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix_np(in_size, out_size)).to(
+            device=device, dtype=dtype)
 
 
 def _resize_axis(x: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:

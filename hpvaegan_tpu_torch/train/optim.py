@@ -19,9 +19,18 @@ frozen groups are ``set_to_zero`` (``optim.py:214-231``).  Here:
   ``c / (|g| + 1e-6)``.  Without ``--fast-grads`` its norm covers the
   frozen stages' gradients too, because the JAX package clips before
   ``set_to_zero`` (``steps.py:111-116``): every generator parameter keeps
-  ``requires_grad`` and a ``None`` gradient counts as zero.
-
-``--fast-grads`` waits for ROADMAP Queue 1 item 9.
+  ``requires_grad`` and a ``None`` gradient counts as zero;
+* ``--fast-grads`` (``optim.py:149-200``, ``steps.py:184-199``):
+  ``freeze_frozen`` turns ``requires_grad`` off, for the scale, on every
+  parameter the plan labels frozen, so autograd computes no gradient for
+  them (and no input gradient ahead of the first trainable one); their
+  gradients stay ``None``, so the clip's norm covers the trainable
+  gradients only, the JAX package's documented deviation
+  (``steps.py:119-124``).  ``hoist_index`` is the first trainable body
+  stage when the hoist of ``--hoist-prefix`` applies (``steps.py:173-182``);
+* on CUDA both optimizers are ``capturable`` Adams (their step count on
+  the card), whatever ``--scan-steps``: a step captured in a CUDA graph
+  (``train/graphs.py``) and an eager step then run one update rule.
 """
 from __future__ import annotations
 
@@ -30,8 +39,8 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 
 __all__ = ["hpvaegan_group_plan", "baselines_group_plan", "group_plan",
-           "build_g_optimizer", "build_d_optimizer",
-           "clip_grad_norm_", "ADAM_B2", "ADAM_EPS"]
+           "build_g_optimizer", "build_d_optimizer", "freeze_frozen",
+           "hoist_index", "clip_grad_norm_", "ADAM_B2", "ADAM_EPS"]
 
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
@@ -118,18 +127,50 @@ def _generator_groups(G, module_labels: Dict[str, str],
     return groups
 
 
+def freeze_frozen(cfg, G, scale_idx: int) -> None:
+    """``--fast-grads``: ``requires_grad_(False)`` on every parameter the
+    plan labels frozen (the trainer undoes it at the scale's end with
+    ``G.requires_grad_(True)``)."""
+    module_labels, body_labels, _ = group_plan(cfg, G, scale_idx)
+    for p in _generator_groups(G, module_labels, body_labels).get(
+            "frozen", []):
+        p.requires_grad_(False)
+
+
+def hoist_index(cfg, G, scale_idx: int):
+    """The first trainable body stage when ``--hoist-prefix`` applies
+    (``steps.py:173-182``): under ``--fast-grads``, the encoder and
+    decoder frozen, a frozen prefix of at least one stage and every stage
+    after it trainable; else None.  Only generators with split forwards
+    (``split_forwards``) hoist."""
+    if not (cfg.fast_grads and cfg.hoist_prefix and G.split_forwards):
+        return None
+    module_labels, body_labels, _ = group_plan(cfg, G, scale_idx)
+    trainable = [i for i, lab in enumerate(body_labels) if lab != "frozen"]
+    if (all(lab == "frozen" for lab in module_labels.values()) and trainable
+            and trainable[0] >= 1
+            and all(lab != "frozen" for lab in body_labels[trainable[0]:])):
+        return trainable[0]
+    return None
+
+
+def _adam(params, lr: float, cfg, device) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=lr, betas=(cfg.beta1, ADAM_B2),
+                            eps=ADAM_EPS,
+                            capturable=torch.device(device).type == "cuda")
+
+
 def build_g_optimizer(cfg, G, scale_idx: int) -> torch.optim.Adam:
     """Fresh per-scale generator Adam over the plan's trainable groups."""
     module_labels, body_labels, lrs = group_plan(cfg, G, scale_idx)
     groups = _generator_groups(G, module_labels, body_labels)
-    return torch.optim.Adam(
-        [{"params": groups[label], "lr": lr} for label, lr in lrs.items()],
-        lr=cfg.lr_g, betas=(cfg.beta1, ADAM_B2), eps=ADAM_EPS)
+    return _adam([{"params": groups[label], "lr": lr}
+                  for label, lr in lrs.items()], cfg.lr_g, cfg, G.device)
 
 
 def build_d_optimizer(cfg, D) -> torch.optim.Adam:
-    return torch.optim.Adam(D.parameters(), lr=cfg.lr_d,
-                            betas=(cfg.beta1, ADAM_B2), eps=ADAM_EPS)
+    return _adam(D.parameters(), cfg.lr_d, cfg,
+                 next(D.parameters()).device)
 
 
 @torch.no_grad()

@@ -40,8 +40,29 @@ Every draw can be handed in: ``eps`` (the rec forward's reparameterization
 draw; for ``GeneratorVAE_nb`` the pair ``(eps_norm, eps_bern)``),
 ``noises`` (the stage noises), ``latents`` (``GeneratorVAE_nb``'s rand
 latents), ``alpha`` (the GP's scalar); whatever is not handed in is drawn
-from ``generator``.  Inputs are NTHWC (NHWC) arrays or tensors, as the
-generators' ``apply`` takes them.
+from ``generator``, before the step's first forward, in the order
+``gan_draws`` (and ``G.draw_eps``) draws it.  Inputs are NTHWC (NHWC)
+arrays or tensors, as the generators' ``apply`` takes them.
+
+The fast-path modes of ``gan_step`` (``steps.py:150-199, 264-374``):
+
+* ``--fast-grads`` is the trainer's freeze (``optim.freeze_frozen``): the
+  steps differentiate what still requires a gradient, and the clip sees
+  the trainable gradients only;
+* ``--fused-forwards``: both steps run ``G.apply_fused`` with the same
+  ``eps`` and noises (the JAX step's one ``k_fake``); the generator
+  step's ``generated`` is its rec half.  Only where ``noise_init``'s and
+  ``real_zero``'s spatial shapes match (after a resume the quirk's
+  ``Z_init_size`` may differ, ``steps.py:273-283``), and only for
+  generators with split forwards (not ``GeneratorVAE_nb``).  Fusion takes
+  precedence over the hoist;
+* ``--hoist-prefix`` under ``--fast-grads`` (``optim.hoist_index``): the
+  critic step computes the frozen prefix once without a gradient, and the
+  generator step runs its rec forward, then the rand suffix on that
+  prefix.  The frozen prefix's BatchNorm running statistics then see only
+  the rec forward's update (the JAX package's deviation).
+
+The WGAN-GP runs the stock critic in every mode.
 
 The baselines' step (``baseline_step``; reference
 train_video_baselines.py:120-173) is a pure GAN step:
@@ -77,6 +98,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import deterministic, full_f32
@@ -85,10 +107,11 @@ from ..losses import (calc_gradient_penalty, global_mean, kl_bern_criterion,
 from ..models.blocks import SNConv
 from ..models.generators import to_model_layout
 from ..parallel.mesh import shard
-from .optim import clip_grad_norm_
+from .optim import clip_grad_norm_, hoist_index
 
 __all__ = ["update_g_spectral", "update_d_spectral", "calibrate",
-           "vae_step", "gan_step", "calibrate_baselines", "baseline_step"]
+           "vae_step", "gan_draws", "gan_step", "calibrate_baselines",
+           "baseline_step"]
 
 
 def update_g_spectral(G) -> None:
@@ -154,6 +177,8 @@ def vae_step(G, opt_g, cfg, real, real_zero, amps: Sequence[float],
              ) -> Dict[str, torch.Tensor]:
     """One VAE-phase step (``steps.py:211-240``)."""
     dev, mesh = G.device, G.mesh
+    if eps is None:
+        eps = G.draw_eps(tuple(np.shape(real_zero)), generator)
     with full_f32(), deterministic():
         update_g_spectral(G)
         G.zero_grad(set_to_none=True)
@@ -172,19 +197,26 @@ def vae_step(G, opt_g, cfg, real, real_zero, amps: Sequence[float],
                   mesh)
 
 
-def _rand_draws(G, noise_init, batch: int, noises, latents, generator
-                ) -> dict:
-    """The draws of a rand forward, made once so that the critic step's
-    fake and the generator step's share them: the stage noises and, for
-    ``GeneratorVAE_nb``, the latents."""
+def gan_draws(G, noise_init, real_zero_shape, noises=None, latents=None,
+              alpha=None, eps=None,
+              generator: Optional[torch.Generator] = None) -> dict:
+    """Every draw of a GAN step, in the order the step consumes them: the
+    stage noises and ``GeneratorVAE_nb``'s latents (made once, so that
+    the critic step's fake and the generator step's share them), the
+    GP's ``alpha``, the rec forward's ``eps``.  A draw handed in is kept;
+    the others come from ``generator``.  The trainer draws them ahead
+    this way for a step it replays (``train/graphs.py``): the numbers are
+    those of the step drawing them itself."""
     if noises is None:   # drawn whole, as the single-process step does
-        noises = G.draw_stage_noises(batch, generator)
-    draws = {"noises": noises}
-    if hasattr(G, "draw_latents"):
-        if latents is None:
-            latents = G.draw_latents(noise_init, generator)
-        draws["noise_init_norm"], draws["noise_init_bern"] = latents
-    return draws
+        noises = G.draw_stage_noises(real_zero_shape[0], generator)
+    if latents is None and hasattr(G, "draw_latents"):
+        latents = G.draw_latents(noise_init, generator)
+    if alpha is None:
+        alpha = torch.rand((), generator=generator, device=G.device)
+    if eps is None:
+        eps = G.draw_eps(real_zero_shape, generator)
+    return {"noises": noises, "latents": latents, "alpha": alpha,
+            "eps": eps}
 
 
 def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
@@ -193,23 +225,44 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
              generator: Optional[torch.Generator] = None,
              latents=None) -> Dict[str, torch.Tensor]:
     """One GAN-phase step: the critic step with the WGAN-GP, then the
-    generator step against the updated critic (``steps.py:264-374``)."""
+    generator step against the updated critic (``steps.py:264-374``),
+    fused or hoisted as ``cfg`` asks (see the module's docstring)."""
     dev, mesh = G.device, G.mesh
     if D.mesh is not mesh:
         raise ValueError("the generator and the critic are on different "
                          "meshes")
     real = _local(real, dev, mesh)
     real_zero, noise_init = _tensor(real_zero, dev), _tensor(noise_init, dev)
-    draws = _rand_draws(G, noise_init, len(real_zero), noises, latents,
-                        generator)
+    d = gan_draws(G, noise_init, tuple(real_zero.shape), noises, latents,
+                  alpha, eps, generator)
+    rand_kw = {"noises": d["noises"]}
+    if d["latents"] is not None:
+        rand_kw["noise_init_norm"], rand_kw["noise_init_bern"] = d["latents"]
+    # the decoder's input geometry must match for the batch [rec | rand]:
+    # Z_init_size's T (the first scale trained) may not be real_zero's
+    fused = (cfg.fused_forwards and G.split_forwards
+             and noise_init.shape[1:-1] == real_zero.shape[1:-1])
+    hoist = None if fused else hoist_index(cfg, G, len(G.body))
     with full_f32(), deterministic():
         update_g_spectral(G)
         update_d_spectral(D)
 
         # ---- critic step (train_video.py:168-183) ----
         with torch.no_grad():
-            fake, _, _ = G.apply(amps, noise_init=noise_init, mode="rand",
-                                 train=True, **draws)
+            if fused:
+                _, fake, _, _ = G.apply_fused(amps, real_zero, noise_init,
+                                              train=True, eps=d["eps"],
+                                              noises=d["noises"])
+            elif hoist is not None:
+                # the frozen prefix, once: the generator step reuses it
+                x_pre, _, _, at = G.apply_prefix(
+                    amps, noise_init=noise_init, mode="rand", train=True,
+                    upto=hoist, **rand_kw)
+                fake = G.apply_suffix(amps, x_pre, at, mode="rand",
+                                      train=True, noises=d["noises"])
+            else:
+                fake, _, _ = G.apply(amps, noise_init=noise_init,
+                                     mode="rand", train=True, **rand_kw)
         x_real, x_fake = to_model_layout(real), to_model_layout(fake)
         nb = x_real.shape[0]
         D.zero_grad(set_to_none=True)
@@ -217,8 +270,8 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
         errD_real = -global_mean(out[:nb], mesh)
         errD_fake = global_mean(out[nb:], mesh)
         gp = calc_gradient_penalty(lambda x: D(x, use_kernels=False),
-                                   x_real, x_fake, cfg.lambda_grad, alpha,
-                                   generator, mesh)
+                                   x_real, x_fake, cfg.lambda_grad,
+                                   d["alpha"], mesh=mesh)
         (errD_real + errD_fake + gp).backward()
         _update(D.parameters(), opt_d, None, mesh)
 
@@ -226,12 +279,22 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
         D.requires_grad_(False)
         try:
             G.zero_grad(set_to_none=True)
-            generated, _, _ = G.apply(amps, real_zero=real_zero, mode="rec",
-                                      train=True, eps=eps,
-                                      generator=generator,
-                                      update_stats=True)
-            fake_g, _, _ = G.apply(amps, noise_init=noise_init, mode="rand",
-                                   train=True, update_stats=True, **draws)
+            if fused:
+                generated, fake_g, _, _ = G.apply_fused(
+                    amps, real_zero, noise_init, train=True, eps=d["eps"],
+                    noises=d["noises"], update_stats=True)
+            else:
+                generated, _, _ = G.apply(amps, real_zero=real_zero,
+                                          mode="rec", train=True,
+                                          eps=d["eps"], update_stats=True)
+                if hoist is not None:
+                    fake_g = G.apply_suffix(amps, x_pre, at, mode="rand",
+                                            train=True, noises=d["noises"],
+                                            update_stats=True)
+                else:
+                    fake_g, _, _ = G.apply(amps, noise_init=noise_init,
+                                           mode="rand", train=True,
+                                           update_stats=True, **rand_kw)
             rec = mse(generated, real, mesh)
             errG = -global_mean(D(to_model_layout(fake_g)),
                                 mesh) * cfg.disc_loss_weight

@@ -63,11 +63,38 @@ runs its forwards on every rank and gathers the samples whole
 scale ends by checking that the ranks still hold the same weights, and
 at a barrier (``:464-465``).
 
-Waiting for their ROADMAP items: ``--scan-steps`` and the other
-fast-path options (Queue 1 item 9); the memory ladder (item 8).
+The fast path (ROADMAP Queue 1 item 9, ``trainer.py:149-167, 211,
+239-403``):
+
+* ``--fast-grads`` freezes the plan's frozen groups for the scale
+  (``optim.freeze_frozen``) and thaws the generator at its end;
+  ``--hoist-prefix`` and ``--fused-forwards`` are modes of the steps;
+* the batches come from the device-resident cache
+  (``data/device_cache.py``) unless ``--host-loader``: the steps take
+  its rows and gather on the device;
+* ``--scan-steps K`` runs chunks of ``k = min(K, niter - it)``
+  iterations, cut at ``--print-interval`` boundaries under
+  ``--visualize``.  On the cache a chunk of k > 1 draws its k rows at
+  once, so when one starts the scale its rows begin after the
+  calibration's (the JAX trainer's ``next`` then ``draw(k)``, PARITY.md
+  deviation 10); on ``--host-loader`` the calibration batch is the
+  chunk's first, so any K consumes K = 1's batches.  Every iteration
+  keeps its own draws and its scalars at its true index; ``netG_mid`` is
+  written when a chunk crosses a ``--save-interval`` multiple, and a
+  resume from it continues the chunked run; the timer counts k steps and
+  the trace window starts at a chunk boundary.  With K > 1 the callback
+  sees ``("chunk", first iteration, {"k", "replays",
+  "graph_pool_bytes"})`` before the chunk's ``"step"`` events.  On the
+  card the scale's steps run through one ``train/graphs.StepGraph``:
+  the first eagerly, the rest replayed from a CUDA graph, bit-equal to
+  eager steps; on the CPU, and under a mesh (whose gloo collectives
+  cannot be captured; a line says so), the chunk's steps run in a loop.
+
+Waiting for its ROADMAP item: the memory ladder (item 8).
 """
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Callable, Iterator, Optional, Tuple
@@ -84,8 +111,9 @@ from ..utils.profiling import StepTimer
 from ..utils.saver import load_critic
 from ..utils.tools import create_progressbar, seeded_generator
 from ..utils.watchdog import Watchdog
-from .optim import build_d_optimizer, build_g_optimizer
-from .steps import calibrate, gan_step, vae_step
+from .graphs import StepGraph
+from .optim import build_d_optimizer, build_g_optimizer, freeze_frozen
+from .steps import calibrate, gan_draws, gan_step, vae_step
 
 __all__ = ["train_scale"]
 
@@ -165,6 +193,7 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     if mesh is not None:
         _check_mesh_shapes(cfg, G, mesh)
     # the reference clips over every generator parameter, frozen or not
+    # (--fast-grads freezes the plan's frozen groups below)
     G.requires_grad_(True)
 
     h0, w0 = G.pyramid.shape2d(0)
@@ -210,74 +239,168 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     opt_g = build_g_optimizer(cfg, G, scale_idx)
     if mid is not None:
         opt_g.load_state_dict(mid["opt_g"])
+    if cfg.fast_grads:   # differentiate the plan's trainable groups only
+        freeze_frozen(cfg, G, scale_idx)
 
     if dataset is not None:
         batches = make_loader(dataset, cfg, seed, scale_idx, dev,
                               start_iteration=start_it)
+    # the device-resident cache: steps take its rows and gather on the card
+    cache = hasattr(batches, "gather")
+    scan_k = max(1, int(cfg.scan_steps))
     bar = create_progressbar(
         total=cfg.niter, initial=start_it,
         desc=f"Training scale [{scale_idx + 1}/{cfg.stop_scale + 1}]")
-    timer = StepTimer(sync_every=50, device=dev)
+    timer = StepTimer(sync_every=max(50, scan_k), device=dev)
     watchdog = Watchdog(cfg.watchdog,
                         context=f"scale {scale_idx} start").start()
     save_interval = int(cfg.save_interval)
-    history, amps = [], None
+    history = []
     profiler = None
     # under a mesh rank 0 alone traces: the ranks would share the path
     profile_done = not cfg.profile_dir or not multihost.is_primary()
     # every rank of a mesh samples (the forwards are collectives); the
     # ranks without a summary write nothing
     visualize = cfg.visualize and (summary is not None or mesh is not None)
+    amps = None
+
+    def run_step(inp: dict) -> dict:
+        """One step on the iteration's inputs (its batch or cache rows,
+        and every draw)."""
+        if cache:
+            real, real_zero = batches.gather(inp["idx"], inp["flip"])
+        else:
+            real, real_zero = inp["real"], inp["real_zero"]
+        if gan_phase:
+            return gan_step(G, D, opt_g, opt_d, cfg, real, real_zero,
+                            inp["noise_init"], amps, noises=inp["noises"],
+                            eps=inp["eps"], alpha=inp["alpha"],
+                            latents=inp["latents"])
+        return vae_step(G, opt_g, cfg, real, real_zero, amps,
+                        eps=inp["eps"])
+
+    def inputs_of(it: int, source: dict, rz_shape) -> dict:
+        """Iteration ``it``'s inputs: its batch source and its draws, from
+        ``(seed, scale, it)`` in the order the step consumes them."""
+        draw = seeded_generator(seed, scale_idx, it, device=dev)
+        inp = dict(source)
+        if gan_phase:
+            noise_init = torch.randn(_z_init_shape(cfg, G), generator=draw,
+                                     device=dev)
+            inp.update(noise_init=noise_init,
+                       **gan_draws(G, noise_init, rz_shape, generator=draw))
+        else:
+            inp["eps"] = G.draw_eps(rz_shape, draw)
+        return inp
+
+    def next_source() -> dict:
+        if cache:
+            idxs, flips = batches.draw(1)
+            return dict(zip(("idx", "flip"),
+                            batches.rows(idxs[0], flips[0])))
+        return dict(zip(("real", "real_zero"),
+                        (_on(t, dev) for t in next(batches))))
+
+    def batch_of(source: dict):
+        if cache:
+            return batches.gather(source["idx"], source["flip"])
+        return source["real"], source["real_zero"]
+
+    graph = None
+    if scan_k > 1 and dev.type == "cuda":
+        if mesh is None:
+            graph = StepGraph(run_step, dev,
+                              modules=[G] + ([D] if D is not None else []))
+        elif not getattr(cfg, "_scan_mesh_noted", False):   # once a run
+            cfg._scan_mesh_noted = True
+            logging.info(f"--scan-steps {scan_k} under a mesh: the chunks' "
+                         f"steps run eagerly (the gloo collectives of ranks "
+                         f"sharing a card cannot be captured in a CUDA "
+                         f"graph)")
     try:
-        for it in range(start_it, cfg.niter):
+        # the scale's first batch: the calibration's, and the first step's
+        # unless a chunk of k > 1 starts the scale on the cache (its rows
+        # then start one later, as the JAX trainer's loader.draw follows
+        # its next(); PARITY.md deviation 10)
+        it = start_it
+        if it < cfg.niter:
+            first = next_source()
+            real, real_zero = batch_of(first)
+            rmse = _calibrate_amp(cfg, G, real, real_zero, scale_idx,
+                                  seeded_generator(seed, scale_idx,
+                                                   device=dev))
+            if rmse is not None and callback is not None:
+                callback("calibrate", -1, {"rmse": rmse,
+                                           "noise_amp": cfg.Noise_Amps[-1]})
+            amps = list(cfg.Noise_Amps)
+            rz_shape = tuple(real_zero.shape)
+        while it < cfg.niter:
+            # the trace window starts and ends at chunk boundaries
             if not profile_done and profiler is None and it >= 5:
                 profiler, profile_start = _start_profiler(dev), it
             elif profiler is not None and it >= profile_start + 10:
                 _stop_profiler(profiler, cfg.profile_dir, scale_idx)
                 profiler, profile_done = None, True
-            real, real_zero = next(batches)
-            if amps is None:
-                rmse = _calibrate_amp(cfg, G, real, real_zero, scale_idx,
-                                      seeded_generator(seed, scale_idx,
-                                                       device=dev))
-                if rmse is not None and callback is not None:
-                    callback("calibrate", -1, {"rmse": rmse,
-                                               "noise_amp":
-                                                   cfg.Noise_Amps[-1]})
-                amps = list(cfg.Noise_Amps)
-            draw = seeded_generator(seed, scale_idx, it, device=dev)
-            if gan_phase:
-                noise_init = torch.randn(_z_init_shape(cfg, G),
-                                         generator=draw, device=dev)
-                metrics = gan_step(G, D, opt_g, opt_d, cfg, real, real_zero,
-                                   noise_init, amps, generator=draw)
+            k = min(scan_k, cfg.niter - it)
+            if cfg.visualize and cfg.print_interval > 0:   # keep cadence
+                boundary = (it // cfg.print_interval + 1) * cfg.print_interval
+                k = max(1, min(k, boundary - it))
+            if cache and k > 1:
+                idxs, flips = batches.draw(k)
+                sources = [dict(zip(("idx", "flip"),
+                                    batches.rows(idxs[j], flips[j])))
+                           for j in range(k)]
             else:
-                metrics = vae_step(G, opt_g, cfg, real, real_zero, amps,
-                                   generator=draw)
-            bar.update(1)
-            timer.step()
-            watchdog.beat(f"scale {scale_idx} iteration {it + 1}")
+                sources = [first if it + j == start_it else next_source()
+                           for j in range(k)]
+            replays = graph.replays if graph is not None else 0
+            chunk = []
+            for j, source in enumerate(sources):
+                inp = inputs_of(it + j, source, rz_shape)
+                chunk.append(graph(inp) if graph is not None
+                             else run_step(inp))
+            last = it + k - 1
+            bar.update(k)
+            timer.step(n=k)
+            watchdog.beat(f"scale {scale_idx} iteration {last + 1}")
             if saver is not None and save_interval > 0 and \
-                    it + 1 < cfg.niter and (it + 1) % save_interval == 0:
+                    it + k < cfg.niter and \
+                    (it + k) // save_interval > it // save_interval:
                 watchdog.beat(f"scale {scale_idx} mid checkpoint "
-                              f"(iteration {it + 1})")
+                              f"(iteration {it + k})")
                 saver.save_checkpoint(
-                    {"scale": scale_idx, "iteration": it + 1,
+                    {"scale": scale_idx, "iteration": it + k,
                      "gvars": G.state_dict(), "opt_g": opt_g.state_dict(),
                      "dvars": D.state_dict() if gan_phase else {},
                      "opt_d": opt_d.state_dict() if gan_phase else {},
                      "noise_amps": list(cfg.Noise_Amps)}, "netG_mid")
             bar.set_description(
                 f"Scale [{scale_idx + 1}/{cfg.stop_scale + 1}], "
-                f"Iteration [{it + 1}/{cfg.niter}]" + timer.suffix)
+                f"Iteration [{last + 1}/{cfg.niter}]" + timer.suffix)
             if dataset is None:
-                history.append(metrics)
+                history.extend(chunk)
+            if callback is not None and scan_k > 1:
+                callback("chunk", it, {
+                    "k": k,
+                    "replays": (graph.replays if graph is not None
+                                else 0) - replays,
+                    "graph_pool_bytes": (graph.pool_bytes
+                                         if graph is not None else 0)})
             if summary is not None and cfg.visualize:
-                _write_scalars(summary, scale_idx, it,
-                               cfg.Noise_Amps[scale_idx], metrics, gan_phase)
+                # one device-to-host copy for the chunk's scalars
+                names = sorted(chunk[0])
+                host = torch.stack([torch.stack([m[n].float() for n in names])
+                                    for m in chunk]).cpu().tolist()
+                for j, row in enumerate(host):
+                    _write_scalars(summary, scale_idx, it + j,
+                                   cfg.Noise_Amps[scale_idx],
+                                   dict(zip(names, row)), gan_phase)
             if callback is not None:
-                callback("step", it, metrics)
+                for j, metrics in enumerate(chunk):
+                    callback("step", it + j, metrics)
             if visualize and it % cfg.print_interval == 0:
+                # the chunk's last batch, as the JAX trainer's
+                real, real_zero = batch_of(sources[-1])
                 t0 = time.perf_counter()
                 write_s = _visualize(cfg, G, amps, real, real_zero,
                                      _z_init_shape(cfg, G),
@@ -288,6 +411,7 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
                     callback("visualize", it,
                              {"seconds": time.perf_counter() - t0,
                               "write_seconds": write_s})
+            it += k
     except BaseException:
         # the checkpoints below never run on this path: disarm the
         # watchdog so it cannot end a process that handles the error
@@ -296,9 +420,13 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     finally:
         if profiler is not None:
             _stop_profiler(profiler, cfg.profile_dir, scale_idx)
+        if graph is not None:
+            graph.close()
         if dataset is not None:
             batches.close()
         bar.close()
+        # the next scale's plan starts from a generator that trains whole
+        G.requires_grad_(True)
 
     try:
         if mesh is not None:
@@ -355,6 +483,11 @@ def _stop_profiler(profiler, profile_dir: str, scale_idx: int) -> None:
     out = os.path.join(profile_dir, f"scale_{scale_idx}")
     os.makedirs(out, exist_ok=True)
     profiler.export_chrome_trace(os.path.join(out, "trace.json"))
+
+
+def _on(t, dev) -> torch.Tensor:
+    """A batch array or tensor as an f32 tensor on ``dev``."""
+    return torch.as_tensor(t, dtype=torch.float32, device=dev)
 
 
 def _write_scalars(summary, scale_idx: int, it: int, noise_amp: float,

@@ -19,7 +19,11 @@ parts, in the JAX trainer's order:
 * the amp at the scale's first iteration: reused when the run already
   has it, 1 at scale 0, else ``noise_amp_init * rmse / batch_size`` from
   a rec forward on ``Z_init`` (``:161-176``);
-* ``cfg.niter`` steps, each on a batch from the port's loader and a fresh
+* ``cfg.niter`` steps, each on a batch from the port's loader (the
+  device-resident cache unless ``--host-loader``, as the JAX baselines
+  trainer's, ``:107-125``; the fast-path flags ``--scan-steps``,
+  ``--fast-grads``, ``--hoist-prefix`` and ``--fused-forwards`` are
+  parsed and, as there, not read) and a fresh
   ``noise_init`` of ``Z_init``'s shape, every draw of iteration ``i``
   from ``seeded_generator(seed, scale, i)`` as in ``train_scale``, so a
   ``netG_mid`` resume replays the draws of the run it resumes;

@@ -488,6 +488,49 @@ def test_two_f32_train_scale_runs_are_bit_equal_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_graph_replayed_gan_steps_are_bit_equal_to_eager(cuda_device, bf16):
+    """--scan-steps on the card: the small-pyramid nfc-64 GAN steps of
+    ``train_scale`` run eagerly (K = 1) and replayed from a CUDA graph (K
+    = 4: the first step eager, the rest replays) end bit-equal, with the
+    kernels' launches in the captured step (the Python counters see the
+    eager step and the capture, never a replay)."""
+    from hpvaegan_tpu_torch.train.trainer import train_scale
+    cfg, G0, _ = _small_models("GeneratorHPVAEGAN", bf16=bf16)
+    cfg.niter = 6
+    x = _draws(cfg, G0)
+    ends, events = [], []
+    for k in (1, 4):
+        cfg.scan_steps = k
+        G = copy.deepcopy(G0).to(cuda_device)
+        cfg.Noise_Amps = [1.0, 0.3, 0.2]
+
+        def batches():
+            while True:
+                yield x["real"], x["real_zero"]
+
+        cp.counts.reset()
+        _, D, hist = train_scale(cfg, G, batches(), seed=5,
+                                 callback=lambda e, i, m: events.append(
+                                     (k, e, {n: float(v) for n, v in
+                                             m.items()})))
+        torch.cuda.synchronize()
+        assert len(hist) == 6 and cp.counts.plain_calls == 0
+        ends.append({**{f"G.{n}": v.clone() for n, v in
+                        G.state_dict().items()},
+                     **{f"D.{n}": v.clone() for n, v in
+                        D.state_dict().items()},
+                     **{f"m{i}.{n}": v for i, m in enumerate(hist)
+                        for n, v in m.items()}})
+    chunks = [m for k, e, m in events if k == 4 and e == "chunk"]
+    assert [c["k"] for c in chunks] == [4, 2]
+    assert [c["replays"] for c in chunks] == [3, 2]
+    assert chunks[0]["graph_pool_bytes"] > 0
+    for n, v in ends[0].items():
+        assert torch.equal(v, ends[1][n]), n
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", ["GeneratorVAE_nb", "GeneratorCSG"])
 def test_new_generators_step_on_card_matches_cpu(cuda_device, name):
     """One GAN step of a ``GeneratorVAE_nb`` (K1 in its stages, K2 and K1

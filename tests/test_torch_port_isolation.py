@@ -40,6 +40,8 @@ import hpvaegan_tpu_torch.utils.convert
 import hpvaegan_tpu_torch.utils.saver
 import hpvaegan_tpu_torch.data.video
 import hpvaegan_tpu_torch.data.loader
+import hpvaegan_tpu_torch.data.device_cache
+import hpvaegan_tpu_torch.train.graphs
 import hpvaegan_tpu_torch.cli.train_video
 import hpvaegan_tpu_torch.cli.generate
 import hpvaegan_tpu_torch.cli.serve
