@@ -159,8 +159,9 @@ Phases; any failure exits non-zero and prints no result:
    ``WDiscriminatorBaselines`` run, which launches no kernel;
 13. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
    in bf16 and K4 in both, each with its launches over the main-path
-   runs, phase 14's included, and K3's three instances with their own
-   phase's), the card line, and last ``{"ok": true, "device": {...}}``;
+   runs, phases 14 and 15 included, and K3's three instances with their
+   own phase's), the card line, and last ``{"ok": true, "device":
+   {...}}``;
 14. the training fast path, phase 6's CLI (default model, the clip,
    ``--pconv --pconv-all --pfuse``, ten scales), f32 and ``--bf16``:
    (a) ``--fast-grads --hoist-prefix --niter 2`` and (b) ``--fast-grads
@@ -176,10 +177,29 @@ Phases; any failure exits non-zero and prints no result:
    pool's bytes; (d) the device cache's first batches at scales 0 and 9
    equal to the host-assembled stream's, and ``--scan-steps 4`` on the
    cache (f32, ``--niter 5``) to its end with finite losses.  Phases
-   6-12 train through the device cache, the trainer's default.
+   6-12 train through the device cache, the trainer's default;
+15. the memory ladder (``train/fallback.py``, ``models/remat.py``,
+   ``--gp-chunked``): (a) one scale-9 GAN step of the default model in
+   memory (``--pconv --pconv-all --pfuse``), f32 and ``--bf16``, on each
+   rung: plain, ``--remat``, ``--remat --gp-chunked``, ``--remat
+   --gp-chunked --remat-blocks``; for each the seconds of a step on a
+   warm allocator cache, the peak memory allocated and (from an emptied
+   cache) reserved, the K1-fwd/K2/K1-dx/K1-dw launches of each step equal
+   to ``gan_step_launches``'s derivation (the recomputed forwards
+   included), the losses against the plain step's (the f32 bar; bf16 at
+   the model bar) and the weights after the step (bit-equal or within
+   the step bar, printed); one ``--fast-grads --hoist-prefix --remat``
+   step against the hoisted step; (b) ``train_scale`` at scale 9 (f32,
+   calibration + 3 steps) from no rung under
+   ``torch.cuda.set_per_process_memory_fraction``, the cap between the
+   plain step's allocated peak and the reserved peak of the first rung
+   below it (with margins): the run escalates exactly to that rung,
+   logs it, and ends bit-equal (when (a)'s remat was) to the run on that
+   rung from the start; once eagerly and once under ``--scan-steps 4``,
+   whose graph is captured again after the escalation.
 
-Phases 6c, 11, 12 and 14 run after 6b, before 7; phases 9 and 10 after
-7b, before 8.
+Phases 6c, 11, 12, 14 and 15 run after 6b, before 7; phases 9 and 10
+after 7b, before 8.
 """
 from __future__ import annotations
 
@@ -1923,7 +1943,8 @@ FAST_ITERS, SCAN_K, SCAN_ITERS = 2, 4, 9
 
 
 def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
-                      vae_levels: int = 3, train_depth: int = 1) -> dict:
+                      vae_levels: int = 3, train_depth: int = 1,
+                      remat=False) -> dict:
     """The kernel launches of one GAN step at a scale of ``stages`` body
     stages, derived from the model's structure: ``num_layer`` K1 convs a
     stage forward; the critic's body ``num_layer // 2`` K2 pairs and
@@ -1939,7 +1960,16 @@ def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
       trainable stages) again in the generator step after its rec
       forward; only the trainable stages take dx and dw;
     * ``"fused"`` (``--fast-grads --fused-forwards``): one forward of the
-      batch [rec | rand] in each step (K1 at twice the batch)."""
+      batch [rec | rand] in each step (K1 at twice the batch).
+
+    ``remat`` (``--remat``: True; ``--remat-blocks``: ``"blocks"``): a
+    forward that is backpropagated runs again in the backward, once per
+    checkpoint around it: each K1 convolution of the trained stages and
+    the critic's K1 block once more under ``--remat`` (the stage or the
+    critic), twice under ``--remat-blocks`` (the stage, then its block),
+    the critic's K2 pairs once more under either (a pair is not wrapped
+    on its own).  dx and dw do not change, nor does ``--gp-chunked`` (the
+    penalty runs stock convs)."""
     L = num_layer
     pairs, blocks = divmod(num_layer, 2)
     crit = {"fwd": blocks, "pair": pairs, "dx": 2 * pairs + blocks,
@@ -1948,8 +1978,10 @@ def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
     gen_fwd = {"plain": 3 * stages, "hoist": 2 * stages + train_depth,
                "fused": 2 * stages}[mode]
     gen_passes = 1 if mode == "fused" else 2   # backward through stages
-    return {"conv3d64_fwd": gen_fwd * L + 2 * crit["fwd"],
-            "conv3d64_pair": 2 * crit["pair"],
+    again = {False: 0, True: 1, "blocks": 2}[remat]
+    return {"conv3d64_fwd": (gen_fwd + again * gen_passes * trained) * L
+            + 2 * (1 + again) * crit["fwd"],
+            "conv3d64_pair": 2 * (1 + bool(remat)) * crit["pair"],
             # the critic step's backward and the frozen critic's
             "conv3d64_dx": 2 * crit["dx"] + gen_passes * trained * L,
             "conv3d64_dw": crit["dw"] + gen_passes * trained * L}
@@ -2122,6 +2154,287 @@ def fast_path_main_path(dev, seed: int, runs: Path, timings: dict):
 # ---------------------------------------------------------------------------
 # phase 7: the sampling CLI; phase 7b: the server
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 15: the memory ladder
+# ---------------------------------------------------------------------------
+
+# the rungs in the ladder's order (train/fallback.py), each with its flags
+# and the level gan_step_launches derives its launches for
+RUNGS = (("plain", {}, False),
+         ("--remat", dict(remat=True), True),
+         ("--remat --gp-chunked", dict(remat=True, gp_chunked=True), True),
+         ("--remat --gp-chunked --remat-blocks",
+          dict(remat=True, gp_chunked=True, remat_blocks=True), "blocks"))
+LADDER_ITERS = 3
+# the cap's margins over a rung's reserved peak: the allocator's
+# rounding, and the ladder's copy of the state and the trainer's buffers
+CAP_SLACK, CAP_EXTRA = 1.05, 256 << 20
+
+
+def ladder_inputs(dev, cfg, seed: int):
+    """(real, real_zero, noise_init) of a scale-9 GAN step from ``seed``,
+    on the card."""
+    import torch
+    pyr = cfg.pyramid()
+    g = torch.Generator(device=dev).manual_seed(seed + 15)
+    return tuple(torch.randn(shape, device=dev, generator=g).tanh_()
+                 for shape in ((BATCH, *pyr.shape3d(SCALE), 3),
+                               (BATCH, *pyr.shape3d(0), 3),
+                               (BATCH, *pyr.shape3d(0), cfg.latent_dim)))
+
+
+def ladder_step(dev, seed: int, bf16: bool, flags: dict, G0, D0, inputs,
+                steps_n: int = 2):
+    """``steps_n`` GAN steps of copies of ``G0``/``D0`` under ``flags``,
+    each with its launches: the first from an emptied allocator cache
+    (its metrics, weights and peak reserved memory), the last timed on
+    the warm cache (its seconds and peak allocated memory)."""
+    import copy
+    import torch
+    from hpvaegan_tpu_torch.train import optim, steps
+    cfg = main_config(bf16=bf16, **TRAIN_FLAGS, **flags)
+    cfg.scale_idx = SCALE
+    G, D = copy.deepcopy(G0), copy.deepcopy(D0)
+    G.cfg = cfg
+    if cfg.fast_grads:
+        optim.freeze_frozen(cfg, G, SCALE)
+    opt_g = optim.build_g_optimizer(cfg, G, SCALE)
+    opt_d = optim.build_d_optimizer(cfg, D)
+    real, real_zero, noise_init = inputs
+    out = {"launches": []}
+    for i in range(steps_n):
+        draws = steps.gan_draws(
+            G, noise_init, tuple(real_zero.shape),
+            generator=torch.Generator(device=dev).manual_seed(seed + i))
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = all_counts()
+        t0 = time.perf_counter()
+        metrics = steps.gan_step(G, D, opt_g, opt_d, cfg, real, real_zero,
+                                 noise_init, [1.0] + [0.1] * SCALE, **draws)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+        now = all_counts()
+        out["launches"].append({k: now[k] - before[k] for k in now})
+        if i == 0:
+            out["reserved"] = torch.cuda.max_memory_reserved(dev)
+            out["metrics"] = {k: float(v) for k, v in metrics.items()}
+            out["state"] = {f"{n}.{k}": v.detach().cpu().clone()
+                            for n, m in (("G", G), ("D", D))
+                            for k, v in m.state_dict().items()}
+    del G, D, opt_g, opt_d
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_states(what: str, got: dict, ref: dict, lr: float):
+    """(bit-equal?, max |difference|); outside the step bar (an Adam step
+    moves a weight by at most ``lr``, so two steps whose gradients differ
+    by rounding part by at most ``2 lr``) fails."""
+    worst, equal = 0.0, True
+    for k, v in ref.items():
+        d = float((got[k].float() - v.float()).abs().max()) if v.numel() \
+            else 0.0
+        worst = max(worst, d)
+        equal = equal and bool((got[k] == v).all())
+    if worst > 2 * lr + ATOL:
+        fail(f"{what}: the weights part by {worst:.3e}, past the step bar "
+             f"{2 * lr + ATOL:.3e}")
+    return equal, worst
+
+
+def ladder_train(dev, seed: int, flags: dict, cap, scan: int, logs: list):
+    """``train_scale`` at scale 9 in memory (f32, ``LADDER_ITERS`` GAN
+    iterations, ``--scan-steps scan``) from ``flags``, under a memory cap
+    of ``cap`` bytes (None: none); returns (cfg, G, D, the escalation
+    lines logged, seconds)."""
+    import logging
+    import torch
+    from hpvaegan_tpu_torch.train.trainer import train_scale
+
+    cfg = main_config(niter=LADDER_ITERS, scan_steps=scan, **TRAIN_FLAGS,
+                      **flags)
+    cfg.scale_idx = SCALE
+    cfg.Noise_Amps = [1.0] + [cfg.noise_amp] * (SCALE - 1)
+    G = build_generator(cfg, SCALE, seed).to(dev)
+
+    def clips():
+        g = torch.Generator(device=dev).manual_seed(seed + SCALE)
+        pyr = cfg.pyramid()
+        while True:
+            yield tuple(torch.tanh(torch.randn(
+                (BATCH, *pyr.shape3d(s), 3), device=dev, generator=g))
+                for s in (SCALE, 0))
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            if "does not fit" in record.getMessage():
+                logs.append(record.getMessage())
+
+    handler = Lines(logging.WARNING)
+    logging.getLogger().addHandler(handler)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    try:
+        if cap is not None:
+            torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        t0 = time.perf_counter()
+        G, D, hist = train_scale(cfg, G, clips(), seed=seed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        logging.getLogger().removeHandler(handler)
+    if len(hist) != LADDER_ITERS or not all(
+            math.isfinite(float(v)) for m in hist for v in m.values()):
+        fail(f"train_scale under {flags} (cap {cap}, --scan-steps {scan}) "
+             f"ran {len(hist)} steps or a loss is not finite")
+    state = {f"{n}.{k}": v.detach().cpu().clone()
+             for n, m in (("G", G), ("D", D))
+             for k, v in m.state_dict().items()}
+    del G, D, hist
+    torch.cuda.empty_cache()
+    return cfg, state, seconds
+
+
+def ladder_main_path(dev, seed: int):
+    """Phase 15 (see the module's docstring).  Returns the launches of
+    its runs."""
+    import torch
+    from hpvaegan_tpu_torch.models.registry import make_discriminator
+
+    label = card_line()
+    total = {k: 0 for k in all_counts()}
+    peaks = {}
+    bit_equal_remat = {}
+    # (a) each rung, one scale-9 GAN step at full width, f32 and bf16
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        cfg = main_config(bf16=bf16, **TRAIN_FLAGS)
+        cfg.scale_idx = SCALE
+        G0 = build_generator(cfg, SCALE, seed).to(dev).requires_grad_(True)
+        D0 = make_discriminator(cfg.discriminator, cfg, 3)
+        D0.reset_parameters(torch.Generator().manual_seed(seed + 1))
+        D0.to(dev)
+        inputs = ladder_inputs(dev, cfg, seed)
+        runs = {}
+        for name, flags, level in RUNGS:
+            reset_counts()
+            run = ladder_step(dev, seed, bf16, flags, G0, D0, inputs)
+            for k, v in all_counts().items():
+                total[k] += v
+            want = step_launches(gan_step_launches("plain", remat=level),
+                                 bf16)
+            for i, got in enumerate(run["launches"]):
+                if got != want:
+                    fail(f"{name} {dt}: step {i} launched "
+                         f"{ {k: v for k, v in got.items() if v} }, want "
+                         f"{ {k: v for k, v in want.items() if v} }")
+            runs[name] = run
+            peaks[(dt, name)] = (run["peak"], run["reserved"])
+            note = ""
+            if name != "plain":
+                ref = runs["plain"]
+                equal, worst = compare_states(f"{name} {dt}", run["state"],
+                                              ref["state"], cfg.lr_g)
+                bar = BF16_MODEL_BAR if bf16 else None
+                for k, v in ref["metrics"].items():
+                    got = run["metrics"][k]
+                    ok = (abs(got - v) <= bar * max(1.0, abs(v)) if bar
+                          else abs(got - v) <= ATOL + RTOL * abs(v))
+                    if not ok:
+                        fail(f"{name} {dt}: {k} {got} against the plain "
+                             f"step's {v}")
+                if "chunked" not in name:
+                    bit_equal_remat[(dt, name)] = equal
+                how = "bit-equal to" if equal else "within the step bar of"
+                loss_bar = "the bf16 model bar" if bf16 else "the f32 bar"
+                note = (f"; weights after the step {how} the plain step's "
+                        f"(max |diff| {worst:.3e}), losses within "
+                        f"{loss_bar}")
+            print(f"ladder (a) {dt} {name} ({label}): {run['seconds']:.4f} s "
+                  f"a scale-{SCALE} GAN step, peak memory {run['peak']} "
+                  f"bytes allocated, {run['reserved']} reserved; launches "
+                  f"a step { {k: v for k, v in want.items() if v} } "
+                  f"(derived, checked){note}", flush=True)
+        if not bf16:   # the remat composes with the hoisted fast path
+            hoist = dict(fast_grads=True, hoist_prefix=True)
+            reset_counts()
+            base = ladder_step(dev, seed, False, hoist, G0, D0, inputs, 1)
+            rem = ladder_step(dev, seed, False, dict(hoist, remat=True), G0,
+                              D0, inputs, 1)
+            for k, v in all_counts().items():
+                total[k] += v
+            want = step_launches(gan_step_launches("hoist", remat=True),
+                                 False)
+            if rem["launches"][0] != want:
+                fail(f"--fast-grads --hoist-prefix --remat launched "
+                     f"{rem['launches'][0]}, want {want}")
+            equal, worst = compare_states("hoisted --remat", rem["state"],
+                                          base["state"], cfg.lr_g)
+            print(f"ladder (a) f32 --fast-grads --hoist-prefix --remat "
+                  f"({label}): {rem['seconds']:.4f} s, peak {rem['peak']} "
+                  f"bytes (without --remat {base['seconds']:.4f} s, "
+                  f"{base['peak']} bytes); launches "
+                  f"{ {k: v for k, v in want.items() if v} } (derived, "
+                  f"checked); weights "
+                  f"{'bit-equal' if equal else 'within the step bar'} "
+                  f"(max |diff| {worst:.3e})", flush=True)
+        del G0, D0, inputs
+        torch.cuda.empty_cache()
+
+    # (b) the ladder for real: f32 train_scale under a cap between the
+    # plain step's peak and that of the first rung that fits below it
+    plain_peak = peaks[("f32", "plain")][0]
+    target = None
+    for name, flags, _ in RUNGS[1:]:
+        need = peaks[("f32", name)][1] * CAP_SLACK + CAP_EXTRA
+        if need < plain_peak:
+            target, cap = (name, flags), int((need + plain_peak) / 2)
+            break
+    if target is None:
+        fail(f"no rung's peak fits below the plain step's {plain_peak} "
+             f"bytes: {peaks}")
+    name, flags = target
+    equal_rung = all(v for (dt, n), v in bit_equal_remat.items()
+                     if dt == "f32")
+    for scan in (1, SCAN_K):
+        reset_counts()
+        logs = []
+        cfg, got, secs = ladder_train(dev, seed, {}, cap, scan, logs)
+        ref_cfg, ref, ref_secs = ladder_train(dev, seed, flags, None, scan,
+                                              [])
+        for k, v in all_counts().items():
+            total[k] += v
+        rungs = {k: bool(getattr(cfg, k)) for k in
+                 ("remat", "gp_chunked", "remat_blocks")}
+        want_rungs = {k: bool(flags.get(k, False)) for k in rungs}
+        if rungs != want_rungs or len(logs) != sum(want_rungs.values()):
+            fail(f"under a cap of {cap} bytes the run ended on {rungs} with "
+                 f"{logs}, want {want_rungs}")
+        equal, worst = compare_states(
+            f"the escalated run (--scan-steps {scan})", got, ref,
+            cfg.lr_g * LADDER_ITERS)
+        if equal_rung and not equal:
+            fail(f"the escalated run (--scan-steps {scan}) is not bit-equal "
+                 f"to the run on {name} from the start (max |diff| "
+                 f"{worst:.3e}) although (a) was")
+        print(f"ladder (b) f32 --scan-steps {scan} ({label}): cap {cap} "
+              f"bytes (plain step {plain_peak} allocated; {name} "
+              f"{peaks[('f32', name)][1]} reserved); escalated to {name} "
+              f"as predicted, logged {logs}; {secs:.3f} s for the "
+              f"calibration and {LADDER_ITERS} steps (on {name} from the "
+              f"start: {ref_secs:.3f} s); netG/netD "
+              f"{'bit-equal to' if equal else 'within the step bar of'} the "
+              f"run on {name} from the start (max |diff| {worst:.3e})",
+              flush=True)
+    return total
+
 
 def check_clips(what: str, paths, samples, hw) -> None:
     """The written AVIs: 13 frames of ``hw`` each, equal to the samples'
@@ -3300,6 +3613,7 @@ def main() -> None:
                                                  runs)
         paths["fast path"] = fast_path_main_path(dev, args.seed,  # 14
                                                  runs, timings)
+        paths["memory ladder"] = ladder_main_path(dev, args.seed)  # 15
         for bf16 in (False, True):                           # phase 7
             paths[f"generate {dtype_name(bf16)}"] = generate_main_path(
                 dev, args.seed, experiment_dir(runs / dtype_name(bf16)),

@@ -12,8 +12,11 @@ into its frames file (``python -m hpvaegan_tpu_torch.tools.decode_frames
 <image>``).  It trains on the card; ``--no-cuda`` trains on the CPU.
 The flags are the JAX CLI's: the fast path's (``--fast-grads``,
 ``--scan-steps``, the device-resident cache unless ``--host-loader``)
-train as in ``cli/train_video.py``, and the flags whose feature the port
-lacks raise as there (``check_ported``), naming their ROADMAP item; ``--spmd --mesh-shape DxS`` trains over a mesh as there.
+train as in ``cli/train_video.py``, the memory ladder's (``--remat``,
+``--gp-chunked``, ``--remat-blocks``, and the automatic escalation) too,
+``--compile-ahead`` and ``--wpack`` are accepted and change nothing, as
+there (``note_noop_flags``); ``--spmd --mesh-shape DxS`` trains over a
+mesh as there.
 The 2D models hold no TPU kernel: every conv runs on stock PyTorch ops.
 
 With ``--tag`` and ``$NEPTUNE_PROJECT`` set and the neptune client
@@ -43,7 +46,7 @@ from ..utils.logger import LoggingBlock, configure_logging
 from ..utils.saver import ImageSaver, apply_resume
 from ..utils.summaries import TensorboardSummary
 from ..utils.tools import seeded_generator
-from .train_video import check_ported, spawn_ranks
+from .train_video import note_noop_flags, spawn_ranks
 
 __all__ = ["main"]
 
@@ -71,7 +74,6 @@ def main(argv: Optional[Sequence[str]] = None,
     in ``cli/train_video.main``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = config_from_args(build_parser("image").parse_args(argv))
-    check_ported(cfg)
     sharded = bool(cfg.spmd and cfg.mesh_shape)
     if sharded and not cfg.distributed:
         spawn_ranks(argv, math.prod(parse_mesh_shape(cfg.mesh_shape)),
@@ -101,6 +103,7 @@ def main(argv: Optional[Sequence[str]] = None,
                       if primary else None)
     try:
         cfg.adjust_scales()
+        note_noop_flags(cfg)
         logging.info(f"Random Seed: {cfg.manualSeed}")
         mesh = None
         if sharded:

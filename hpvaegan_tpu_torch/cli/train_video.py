@@ -12,10 +12,11 @@ hpvaegan_tpu_torch.tools.decode_frames <clip>``).  It trains on the card;
 flags are the JAX CLI's, the fast path's included (``--fast-grads``,
 ``--hoist-prefix``, ``--fused-forwards``, ``--scan-steps K`` as CUDA-graph
 replays on the card, the device-resident frame cache unless
-``--host-loader``; ``train/trainer.py``); a flag whose feature the port
-does not have yet raises, naming its ROADMAP item, instead of being
-ignored.  As in the JAX
-CLI, every run opens an event file in its experiment directory
+``--host-loader``; ``train/trainer.py``) and the memory ladder's
+(``--remat``, ``--gp-chunked``, ``--remat-blocks``, and the automatic
+escalation of ``train/fallback.py``).  ``--compile-ahead`` and
+``--wpack`` are accepted and change nothing (``note_noop_flags``).  As
+in the JAX CLI, every run opens an event file in its experiment directory
 (``utils/summaries.py``), which ``--visualize`` fills with the scalars
 and sample grids; ``--profile-dir`` writes a ``torch.profiler`` trace per
 scale.
@@ -67,27 +68,30 @@ from ..utils.saver import VideoSaver, apply_resume
 from ..utils.summaries import TensorboardSummary
 from ..utils.tools import seeded_generator
 
-__all__ = ["main", "check_ported", "spawn_ranks"]
+__all__ = ["main", "note_noop_flags", "spawn_ranks"]
 
-# flag -> (is it asked for?, where its feature waits)
-_UNPORTED = {
-    "--remat": (lambda c: c.remat, "ROADMAP Queue 1 item 8"),
-    "--remat-blocks": (lambda c: c.remat_blocks, "ROADMAP Queue 1 item 8"),
-    "--gp-chunked": (lambda c: c.gp_chunked, "ROADMAP Queue 1 item 8"),
-    "--compile-ahead": (lambda c: c.compile_ahead,
-                        "ROADMAP Queue 1 item 13"),
-    "--wpack": (lambda c: c.wpack,
-                "a TPU lane-packing route, ROADMAP Queue 1 item 13"),
+# flag -> (is it asked for?, why it has nothing to do in the port)
+NOOP_FLAGS = {
+    "--compile-ahead": (
+        lambda c: c.compile_ahead,
+        "it schedules the next scale's XLA compiles; eager PyTorch "
+        "compiles nothing per scale and the kernels build once into "
+        "build/kernels/"),
+    "--wpack": (
+        lambda c: c.wpack,
+        "a TPU lane-packing layout, numerically equivalent "
+        "(hpvaegan_tpu/models/packed.py); the card's kernels take the "
+        "64 channels as they are"),
 }
 
 
-def check_ported(cfg) -> None:
-    """Raise for every flag asked for whose feature the port lacks."""
-    asked = [f"{flag} ({where})" for flag, (on, where) in _UNPORTED.items()
-             if on(cfg)]
-    if asked:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(asked))
+def note_noop_flags(cfg) -> None:
+    """One log line for each flag asked for that the port accepts and
+    that changes nothing here (the JAX package's XLA scheduling and TPU
+    layout options)."""
+    for flag, (on, why) in NOOP_FLAGS.items():
+        if on(cfg):
+            logging.info(f"{flag}: accepted, nothing to do: {why}")
 
 
 def _free_port() -> int:
@@ -160,7 +164,6 @@ def main(argv: Optional[Sequence[str]] = None,
     nothing."""
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = config_from_args(build_parser("video").parse_args(argv))
-    check_ported(cfg)
     sharded = bool(cfg.spmd and cfg.mesh_shape)
     if sharded and not cfg.distributed:
         shape = parse_mesh_shape(cfg.mesh_shape)
@@ -183,6 +186,7 @@ def main(argv: Optional[Sequence[str]] = None,
     configure_logging(os.path.join(saver.experiment_dir, "logbook.txt")
                       if primary else None)
     cfg.adjust_scales()
+    note_noop_flags(cfg)
     logging.info(f"Random Seed: {cfg.manualSeed}")
     mesh = None
     if sharded:

@@ -14,9 +14,10 @@ runs ``train/trainer_baselines.py``.  A ``--netG`` resume replays the
 growth and reloads the run's ``Z_init`` instead of drawing a new one (the
 JAX package's fix of a reference resume bug).  As ``cli.train_video``:
 the clip's frames file must exist, it trains on the card unless
-``--no-cuda``, flags whose feature the port lacks raise
-(``check_ported``), the batches come from the device-resident cache
-unless ``--host-loader``, the fast-path flags of ``cli.train_video``
+``--no-cuda``, the memory ladder climbs as there (``--gp-chunked``
+changes nothing under the BatchNorm critic), ``--compile-ahead`` and
+``--wpack`` change nothing (``note_noop_flags``), the batches come
+from the device-resident cache unless ``--host-loader``, the fast-path flags of ``cli.train_video``
 are taken and, as by the JAX baselines CLI, not used, every run opens an
 event file, and ``--spmd
 --mesh-shape Dx1`` trains over a data mesh of ranks (started here, or one
@@ -45,7 +46,7 @@ from ..utils.logger import LoggingBlock, configure_logging
 from ..utils.saver import VideoSaver, apply_resume, restore_file
 from ..utils.summaries import TensorboardSummary
 from ..utils.tools import seeded_generator
-from .train_video import check_ported, spawn_ranks
+from .train_video import note_noop_flags, spawn_ranks
 
 __all__ = ["main"]
 
@@ -58,7 +59,6 @@ def main(argv: Optional[Sequence[str]] = None,
     event, iteration, info)`` as ``cli.train_video.main``'s."""
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = config_from_args(build_parser("video_baselines").parse_args(argv))
-    check_ported(cfg)
     if cfg.generator not in BASELINES:
         raise ValueError(f"{cfg.generator!r} is not a baseline generator "
                          f"(have {list(BASELINES)}); the HP-VAE-GAN family "
@@ -82,6 +82,7 @@ def main(argv: Optional[Sequence[str]] = None,
     configure_logging(os.path.join(saver.experiment_dir, "logbook.txt")
                       if primary else None)
     cfg.adjust_scales()
+    note_noop_flags(cfg)
     logging.info(f"Random Seed: {cfg.manualSeed}")
     mesh = None
     if sharded:

@@ -10,7 +10,9 @@ one place where they differ (see ``calc_gradient_penalty``).
 The WGAN-GP's double backprop is ``torch.autograd.grad`` with
 ``create_graph=True``, as in the reference.  The critic it differentiates
 must be made of stock ops: the kernels' gradients are first order only.
-``chunked`` (``--gp-chunked``) waits for ROADMAP Queue 1 item 8.
+``chunked`` (``--gp-chunked``) evaluates it one sample at a time and
+backpropagates each sample's term at once, so that one sample's double
+backward graph lives at a time (the JAX package's ``lax.map``).
 
 Under a ``mesh`` (``parallel/mesh.py``) the tensors are this rank's
 blocks and each mean is this rank's share of the whole mean: the sum
@@ -64,7 +66,7 @@ def calc_gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
                           lambda_grad: float,
                           alpha: Optional[torch.Tensor] = None,
                           generator: Optional[torch.Generator] = None,
-                          mesh=None) -> torch.Tensor:
+                          mesh=None, chunked=False) -> torch.Tensor:
     """WGAN-GP (modules/utils.py:4-19) with the reference's quirks:
 
     * one scalar alpha ~ U(0, 1) for the whole batch (modules/utils.py:5-7);
@@ -81,15 +83,38 @@ def calc_gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
     ``mesh`` ``real`` and ``fake`` are this rank's blocks and ``alpha``
     is the same on every rank: ``out.sum()`` is this rank's share of the
     whole sum, and the halo's adjoint inside ``d_apply``'s backward adds
-    the neighbours' shares, so ``grads`` is the whole gradient's block."""
+    the neighbours' shares, so ``grads`` is the whole gradient's block.
+
+    ``chunked`` (True, or ``"unroll"``, which differs in the JAX package
+    by XLA's scheduling only): the per-sample penalties
+    (``losses/__init__.py:71-82``), each backpropagated into the critic's
+    parameters as soon as it is formed, so that the peak holds one
+    sample's double backward; the result is detached, already in the
+    gradients, and the caller backpropagates its other terms.  It equals
+    the batched penalty up to the order of the sums.  Only for a critic
+    whose samples do not interact (not the BatchNorm baselines critic).
+    Under a ``mesh`` the loop runs over this rank's samples; each term is
+    its share of the whole mean, as ``global_mean`` makes it."""
     if alpha is None:
         alpha = torch.rand((), generator=generator, device=real.device)
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=real.device)
-    interpolates = (alpha * real.float()
-                    + (1.0 - alpha) * fake.float()).detach()
-    interpolates.requires_grad_(True)
-    out = d_apply(interpolates)
-    (grads,) = torch.autograd.grad(out.sum(), interpolates,
-                                   create_graph=True)
-    grad_norm = grads.square().sum(dim=1).sqrt()
-    return global_mean((grad_norm - 1.0).square(), mesh) * lambda_grad
+    interpolates = alpha * real.float() + (1.0 - alpha) * fake.float()
+    if chunked:
+        count = (interpolates[:, 0].numel() if mesh is None
+                 else mesh.count(interpolates[:, 0]))
+        total = torch.zeros((), device=real.device)
+        for i in range(interpolates.shape[0]):
+            term = _penalty(d_apply, interpolates[i:i + 1]).float().sum() \
+                / count * lambda_grad
+            term.backward()
+            total = total + term.detach()
+        return total
+    return global_mean(_penalty(d_apply, interpolates), mesh) * lambda_grad
+
+
+def _penalty(d_apply, interpolates: torch.Tensor) -> torch.Tensor:
+    """``(|grad_x D(x)|_channels - 1)^2`` at the (detached) ``x``, with
+    the graph of its gradient kept for the double backprop."""
+    x = interpolates.detach().requires_grad_(True)
+    (grads,) = torch.autograd.grad(d_apply(x).sum(), x, create_graph=True)
+    return (grads.square().sum(dim=1).sqrt() - 1.0).square()

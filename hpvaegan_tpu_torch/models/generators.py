@@ -76,6 +76,14 @@ previous stage's output is resized to the stage's size plus the VALID
 convs' shrink, and noise (``noises[idx]``, shaped like that resize) is
 added with ``amps[idx]``; in rec mode the upscale is zero-padded instead.
 They return the sample alone, not a triple (``returns_triple``).
+
+``--remat``/``--remat-blocks`` (``models/remat.py``, JAX
+``generators.py:47-90``): every refinement stage, the VAE decoder and
+every baseline stage runs through ``_run``, which recomputes it in the
+backward at the level the generator's ``cfg`` asks for at call time, in
+every apply mode (``apply``, ``apply_prefix``/``apply_suffix``,
+``apply_fused``); the encoder and the baselines' head and tail are not
+wrapped, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -95,6 +103,7 @@ from .blocks import ConvBlock, ConvND
 from .networks import (CSGStage, Decoder, EncodeVAE, EncodeVAE_nb, SGStage,
                        Stage, pad_spatial, reparameterize,
                        reparameterize_bern)
+from .remat import remat, remat_level
 
 __all__ = ["GeneratorHPVAEGAN", "GeneratorVAE_nb", "GeneratorCSG",
            "GeneratorSG", "to_model_layout", "to_public_layout"]
@@ -172,6 +181,16 @@ class _PyramidModule(nn.Module):
         fmt = (torch.channels_last_3d if x.dim() == 5
                else torch.channels_last)
         return self.mesh.shard(x, self.ndim).contiguous(memory_format=fmt)
+
+    def _run(self, module, x: torch.Tensor, train: bool,
+             update_stats: bool) -> torch.Tensor:
+        """A stage (or the decoder) on ``x`` at the config's remat level:
+        recomputed in the backward under ``--remat``, each conv block too
+        under ``--remat-blocks``."""
+        level = remat_level(self.cfg)
+        return remat(module, x, train, enabled=level,
+                     update_stats=update_stats,
+                     remat_blocks=level == "blocks")
 
     def _draw(self, shape, dtype, generator) -> torch.Tensor:
         """N(0, 1) of the whole ``shape`` (model layout) from
@@ -292,7 +311,8 @@ class GeneratorHPVAEGAN(_PyramidModule):
         refinement stages up to ``stop`` (all by default); returns
         ``apply``'s triple."""
         amps = [float(a) for a in amps]
-        vae_out = torch.tanh(self.decoder(z_vae, train, update_stats))
+        vae_out = torch.tanh(self._run(self.decoder, z_vae, train,
+                                       update_stats))
         if sample_init is not None:
             start_idx, x = sample_init[0], self._local(sample_init[1])
             assert len(self.body) > start_idx, \
@@ -410,7 +430,7 @@ class GeneratorHPVAEGAN(_PyramidModule):
                 x_in = x_up.float() + noise.float() * amps[idx + 1]
             else:
                 x_in = x_up
-            y = self.body[idx](x_in, train, update_stats)
+            y = self._run(self.body[idx], x_in, train, update_stats)
             x = torch.tanh(y + x_up)
         return x
 
@@ -628,12 +648,13 @@ class GeneratorCSG(_Baseline):
         amps = [float(a) for a in amps]
         with full_f32():
             x = self.head(self._local(noise_init), train, update_stats)
-            x = self.body[0](pad_spatial(x, self.shrink), train,
-                             update_stats)
+            x = self._run(self.body[0], pad_spatial(x, self.shrink), train,
+                          update_stats)
             for idx in range(1, len(self.body)):
                 x_in, x_up = self._stage_input(x, idx, amps, mode, noises,
                                                generator)
-                x = self.body[idx](x_in, train, update_stats) + x_up
+                x = self._run(self.body[idx], x_in, train,
+                              update_stats) + x_up
             return to_public_layout(torch.tanh(self.tail(x)))
 
 
@@ -662,10 +683,12 @@ class GeneratorSG(_Baseline):
         self._check_mesh()
         amps = [float(a) for a in amps]
         with full_f32():
-            x = self.body[0](pad_spatial(self._local(noise_init),
-                                         self.shrink), train, update_stats)
+            x = self._run(self.body[0], pad_spatial(self._local(noise_init),
+                                                    self.shrink), train,
+                          update_stats)
             for idx in range(1, len(self.body)):
                 x_in, x_up = self._stage_input(torch.tanh(x), idx, amps,
                                                mode, noises, generator)
-                x = self.body[idx](x_in, train, update_stats) + x_up
+                x = self._run(self.body[idx], x_in, train,
+                              update_stats) + x_up
             return to_public_layout(torch.tanh(x))

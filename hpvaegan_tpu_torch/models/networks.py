@@ -14,6 +14,13 @@ flax's ``dtype``.
 Under a mesh (``parallel.mesh.attach``; the JAX modules' ``mesh`` field,
 ``networks.py:206-221, 239-281``) every conv and BatchNorm of a module
 runs on this rank's block (``models/blocks.py``).
+
+``--remat-blocks`` (``remat_blocks``/``remat="blocks"``; JAX
+``networks.py:180-182, 210-215, 255-257, 304-306, 334-335``): the conv
+stacks, the baselines' stages and both critics run every conv block and
+their tail conv under ``models/remat.remat``; the critics' ``remat``
+also wraps their whole forward (``--remat``).  The fused K2 pair is not
+wrapped on its own, as in the JAX package: the critic's forward is.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 from ..ops.kernels.conv3d_fuse import conv3d64_pair
 from .blocks import (ConvBlock, ConvND, SNConv, _cast, _to_nthwc,
                      k1_geometry, to_thwio)
+from .remat import remat
 
 __all__ = ["reparameterize", "reparameterize_bern", "FeatureExtractor",
            "EncodeVAE", "EncodeVAE_nb", "EncodeVAE1x1", "Decoder", "Stage",
@@ -206,13 +214,16 @@ class _ConvStack(nn.Module):
         _reset((self.head, *self.blocks, self.tail), generator)
 
     def forward(self, x: torch.Tensor, train: bool = True,
-                update_stats: bool = False) -> torch.Tensor:
+                update_stats: bool = False,
+                remat_blocks: bool = False) -> torch.Tensor:
         """``update_stats``: move the BatchNorm running statistics towards
-        this batch's (training forwards that keep their updates)."""
-        x = self.head(x, train, update_stats)
-        for block in self.blocks:
-            x = block(x, train, update_stats)
-        return self.tail(x)
+        this batch's (training forwards that keep their updates).
+        ``remat_blocks``: recompute each block and the tail in the
+        backward."""
+        for block in (self.head, *self.blocks):
+            x = remat(block, x, train, enabled=remat_blocks,
+                      update_stats=update_stats)
+        return remat(self.tail, x, enabled=remat_blocks)
 
 
 class Decoder(_ConvStack):
@@ -279,13 +290,18 @@ class WDiscriminator(nn.Module):
         return [self.head, *self.body]
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True,
-                update_stats: bool = False) -> torch.Tensor:
+                update_stats: bool = False, remat=False) -> torch.Tensor:
         """``update_stats`` is the baselines critic's; this critic has no
-        normalisation state."""
+        normalisation state.  ``remat``: False, True or ``"blocks"``
+        (``models/remat.py``)."""
+        return _remat_forward(self, x, use_kernels, None, remat)
+
+    def _forward(self, x: torch.Tensor, use_kernels: bool,
+                 blocks: bool) -> torch.Tensor:
         if use_kernels and self.pfuse and self.mesh is not None:
             raise ValueError("the fused critic pair (K2) has no mesh "
                              "partitioning: build the critic without pfuse")
-        x = self.head(x)
+        x = remat(self.head, x, use_kernels, enabled=blocks)
         i = 0
         while i < self.num_layer:
             if use_kernels and self.pfuse and i + 1 < self.num_layer:
@@ -296,9 +312,18 @@ class WDiscriminator(nn.Module):
                 x = y.permute(0, 4, 1, 2, 3)
                 i += 2
             else:
-                x = self.body[i](x, use_kernels)
+                x = remat(self.body[i], x, use_kernels, enabled=blocks)
                 i += 1
-        return self.tail(x)
+        return remat(self.tail, x, enabled=blocks)
+
+
+def _remat_forward(D, x, use_kernels: bool, update_stats, level):
+    """A critic's forward, recomputed whole in the backward under
+    ``level`` (True or ``"blocks"``), and each block too under
+    ``"blocks"`` (JAX ``apply_disc``, ``train/steps.py:43-80``);
+    ``update_stats`` None: the critic has no BatchNorm."""
+    return remat(D._forward, x, use_kernels, level == "blocks",
+                 enabled=level, update_stats=update_stats)
 
 
 def pad_spatial(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -346,13 +371,18 @@ class WDiscriminatorBaselines(nn.Module):
         return []
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True,
-                update_stats: bool = False) -> torch.Tensor:
+                update_stats: bool = False, remat=False) -> torch.Tensor:
         """Train mode, as every caller runs it; ``use_kernels`` is the SN
-        critic's, this one has no route."""
-        x = self.head(pad_spatial(x, self.pad))
+        critic's, this one has no route.  ``remat`` as the SN critic's."""
+        return _remat_forward(self, x, use_kernels, update_stats, remat)
+
+    def _forward(self, x: torch.Tensor, use_kernels: bool, blocks: bool,
+                 update_stats: bool = False) -> torch.Tensor:
+        x = remat(self.head, pad_spatial(x, self.pad), enabled=blocks)
         for block in self.body:
-            x = block(x, True, update_stats)
-        return self.tail(x)
+            x = remat(block, x, True, enabled=blocks,
+                      update_stats=update_stats)
+        return remat(self.tail, x, enabled=blocks)
 
 
 class CSGStage(nn.Module):
@@ -371,9 +401,11 @@ class CSGStage(nn.Module):
         _reset(self.blocks, generator)
 
     def forward(self, x: torch.Tensor, train: bool = True,
-                update_stats: bool = False) -> torch.Tensor:
+                update_stats: bool = False,
+                remat_blocks: bool = False) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x, train, update_stats)
+            x = remat(block, x, train, enabled=remat_blocks,
+                      update_stats=update_stats)
         return x
 
 

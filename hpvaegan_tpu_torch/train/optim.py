@@ -30,17 +30,28 @@ frozen groups are ``set_to_zero`` (``optim.py:214-231``).  Here:
   stage when the hoist of ``--hoist-prefix`` applies (``steps.py:173-182``);
 * on CUDA both optimizers are ``capturable`` Adams (their step count on
   the card), whatever ``--scan-steps``: a step captured in a CUDA graph
-  (``train/graphs.py``) and an eager step then run one update rule.
+  (``train/graphs.py``) and an eager step then run one update rule;
+* ``load_jax_g_state``/``load_jax_d_state`` take a JAX ``netG_mid``'s
+  optax states: the generator's is ``chain(clip_by_global_norm,
+  multi_transform({label: adam | set_to_zero}))`` (without the clip when
+  ``grad_clip`` is None; ``optim.py:214-231``), whose per-label Adam
+  ``count``/``mu``/``nu`` become ``step``/``exp_avg``/``exp_avg_sq`` of
+  the same label's group here; the critic's is a plain Adam.  The JAX
+  state covers the whole params view under ``--fast-grads`` too (its
+  gradients are scattered back, ``optim.py:184-200``), so one mapping
+  serves both.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["hpvaegan_group_plan", "baselines_group_plan", "group_plan",
            "build_g_optimizer", "build_d_optimizer", "freeze_frozen",
-           "hoist_index", "clip_grad_norm_", "ADAM_B2", "ADAM_EPS"]
+           "hoist_index", "clip_grad_norm_", "load_jax_g_state",
+           "load_jax_d_state", "ADAM_B2", "ADAM_EPS"]
 
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
@@ -171,6 +182,54 @@ def build_g_optimizer(cfg, G, scale_idx: int) -> torch.optim.Adam:
 def build_d_optimizer(cfg, D) -> torch.optim.Adam:
     return _adam(D.parameters(), cfg.lr_d, cfg,
                  next(D.parameters()).device)
+
+
+def _load_adam(opt: torch.optim.Optimizer, module,
+               groups: List[Tuple[Any, Dict[str, torch.Tensor],
+                                  Dict[str, torch.Tensor]]]) -> None:
+    """``opt``'s state from one optax Adam state ``(count, mu, nu)`` a
+    param group (moments by ``module``'s parameter names, in the port's
+    layout); ``load_state_dict`` places them on the parameters' device
+    (``step`` there too when capturable)."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    sd = opt.state_dict()
+    for group, sd_group, (count, mu, nu) in zip(opt.param_groups,
+                                                sd["param_groups"], groups):
+        step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+        for p, idx in zip(group["params"], sd_group["params"]):
+            name = names[id(p)]
+            sd["state"][idx] = {"step": step.clone(),
+                                "exp_avg": mu[name].clone(),
+                                "exp_avg_sq": nu[name].clone()}
+    opt.load_state_dict(sd)
+
+
+def load_jax_g_state(opt: torch.optim.Optimizer, cfg, G, scale_idx: int,
+                     gvars: Mapping[str, Any],
+                     opt_state: Mapping[str, Any]) -> None:
+    """``opt`` (``build_g_optimizer``'s) from a JAX generator optax state
+    over the variables ``gvars``, label by label of the same plan."""
+    from ..utils.convert import generator_moments
+    inner = opt_state if "inner_states" in opt_state else opt_state["1"]
+    _, _, lrs = group_plan(cfg, G, scale_idx)
+    groups = []
+    for label in lrs:
+        adam = inner["inner_states"][label]["inner_state"]["0"]
+        groups.append((adam["count"],
+                       generator_moments(G, gvars, adam["mu"]),
+                       generator_moments(G, gvars, adam["nu"])))
+    _load_adam(opt, G, groups)
+
+
+def load_jax_d_state(opt: torch.optim.Optimizer, D,
+                     dvars: Mapping[str, Any],
+                     opt_state: Mapping[str, Any]) -> None:
+    """``opt`` (``build_d_optimizer``'s) from a JAX critic Adam state
+    ``(ScaleByAdamState, EmptyState)`` over the variables ``dvars``."""
+    from ..utils.convert import critic_moments
+    adam = opt_state["0"] if "0" in opt_state else opt_state
+    _load_adam(opt, D, [(adam["count"], critic_moments(D, dvars, adam["mu"]),
+                         critic_moments(D, dvars, adam["nu"]))])
 
 
 @torch.no_grad()

@@ -64,6 +64,16 @@ The fast-path modes of ``gan_step`` (``steps.py:150-199, 264-374``):
 
 The WGAN-GP runs the stock critic in every mode.
 
+The memory rungs (``train/fallback.py``; ``steps.py:153-156, 305-325,
+492-530``): under ``--remat``/``--remat-blocks`` the critic's forwards
+(with the kernels, on stock convs in the GP, frozen in the generator
+step) are recomputed in the backward (``models/remat.py``), and the
+generator's stages through ``G.cfg``; under ``--gp-chunked`` the SN
+critic's penalty runs one sample at a time and backpropagates itself
+(``losses.calc_gradient_penalty``), so the step backpropagates the
+other critic terms alone.  The BatchNorm baselines critic keeps the
+batched penalty (its train-mode statistics couple the samples).
+
 The baselines' step (``baseline_step``; reference
 train_video_baselines.py:120-173) is a pure GAN step:
 
@@ -106,6 +116,8 @@ from ..losses import (calc_gradient_penalty, global_mean, kl_bern_criterion,
                       kl_criterion, mse)
 from ..models.blocks import SNConv
 from ..models.generators import to_model_layout
+from ..models.networks import WDiscriminatorBaselines
+from ..models.remat import remat_level
 from ..parallel.mesh import shard
 from .optim import clip_grad_norm_, hoist_index
 
@@ -145,6 +157,14 @@ def _update(params, opt, grad_clip: Optional[float], mesh=None) -> None:
     if grad_clip is not None:
         clip_grad_norm_(params, grad_clip)
     opt.step()
+
+
+def _gp_chunked(cfg, D):
+    """``cfg.gp_chunked`` for a critic whose samples do not interact;
+    False for the BatchNorm baselines critic (``steps.py:327, 530``)."""
+    if isinstance(D, WDiscriminatorBaselines):
+        return False
+    return getattr(cfg, "gp_chunked", False)
 
 
 def _whole(metrics: Dict[str, torch.Tensor], mesh
@@ -243,6 +263,7 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
     fused = (cfg.fused_forwards and G.split_forwards
              and noise_init.shape[1:-1] == real_zero.shape[1:-1])
     hoist = None if fused else hoist_index(cfg, G, len(G.body))
+    level = remat_level(cfg)
     with full_f32(), deterministic():
         update_g_spectral(G)
         update_d_spectral(D)
@@ -266,12 +287,13 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
         x_real, x_fake = to_model_layout(real), to_model_layout(fake)
         nb = x_real.shape[0]
         D.zero_grad(set_to_none=True)
-        out = D(torch.cat([x_real, x_fake]))
+        out = D(torch.cat([x_real, x_fake]), remat=level)
         errD_real = -global_mean(out[:nb], mesh)
         errD_fake = global_mean(out[nb:], mesh)
-        gp = calc_gradient_penalty(lambda x: D(x, use_kernels=False),
-                                   x_real, x_fake, cfg.lambda_grad,
-                                   d["alpha"], mesh=mesh)
+        gp = calc_gradient_penalty(
+            lambda x: D(x, use_kernels=False, remat=level), x_real, x_fake,
+            cfg.lambda_grad, d["alpha"], mesh=mesh,
+            chunked=_gp_chunked(cfg, D))
         (errD_real + errD_fake + gp).backward()
         _update(D.parameters(), opt_d, None, mesh)
 
@@ -296,7 +318,7 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
                                            mode="rand", train=True,
                                            update_stats=True, **rand_kw)
             rec = mse(generated, real, mesh)
-            errG = -global_mean(D(to_model_layout(fake_g)),
+            errG = -global_mean(D(to_model_layout(fake_g), remat=level),
                                 mesh) * cfg.disc_loss_weight
             total = cfg.rec_weight * rec + errG
             total.backward()
@@ -341,6 +363,7 @@ def baseline_step(G, D, opt_g, opt_d, cfg, real, noise_init, z_init,
     x_real = to_model_layout(real)
     zero = torch.zeros((), device=dev)
     errD_real = errD_fake = gp = zero
+    level = remat_level(cfg)
     with full_f32(), deterministic():
         update_d_spectral(D)
         # ---- Dsteps critic updates (train_video_baselines.py:126-150) ----
@@ -350,12 +373,15 @@ def baseline_step(G, D, opt_g, opt_d, cfg, real, noise_init, z_init,
                                train=True, noises=noises, update_stats=True)
             x_fake = to_model_layout(fake)
             D.zero_grad(set_to_none=True)
-            errD_real = -global_mean(D(x_real, update_stats=True), mesh)
-            errD_fake = global_mean(D(x_fake, update_stats=True), mesh)
+            errD_real = -global_mean(D(x_real, update_stats=True,
+                                       remat=level), mesh)
+            errD_fake = global_mean(D(x_fake, update_stats=True,
+                                      remat=level), mesh)
             gp = calc_gradient_penalty(
-                lambda x: D(x, use_kernels=False), x_real, x_fake,
-                cfg.lambda_grad, None if alphas is None else alphas[j],
-                generator, mesh)
+                lambda x: D(x, use_kernels=False, remat=level), x_real,
+                x_fake, cfg.lambda_grad,
+                None if alphas is None else alphas[j], generator, mesh,
+                chunked=_gp_chunked(cfg, D))
             (errD_real + errD_fake + gp).backward()
             _update(D.parameters(), opt_d, None, mesh)
 
@@ -365,7 +391,7 @@ def baseline_step(G, D, opt_g, opt_d, cfg, real, noise_init, z_init,
             G.zero_grad(set_to_none=True)
             fake_g = G.apply(amps, noise_init=noise_init, mode="rand",
                              train=True, noises=noises, update_stats=True)
-            errG = -global_mean(D(to_model_layout(fake_g)),
+            errG = -global_mean(D(to_model_layout(fake_g), remat=level),
                                 mesh) * cfg.disc_loss_weight
             total, rec = errG, zero
             if cfg.alpha > 0:

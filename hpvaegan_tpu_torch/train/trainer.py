@@ -16,8 +16,9 @@ Two forms:
 * on files, as the training CLI runs it (``dataset`` and ``saver``): the
   batches come from ``data/loader.py`` seeded ``seed * 1000 + scale``;
   the critic warm start is read from the ``netD_<s-1>`` file; a
-  ``netG_mid`` resume (``apply_resume``) restores the critic, both
-  optimizer states and the iteration (``:83-96, 109-127``);
+  ``netG_mid`` resume (``apply_resume``; the port's or the JAX
+  package's) restores the critic, both optimizer states and the
+  iteration (``:83-96, 109-127``);
   ``--save-interval`` writes ``netG_mid`` (``:366-377``); the scale ends
   with the ``Noise_Amps``, ``Noise_Amps.json``, ``netG`` and ``netD_<s>``
   files (``:441-465``);
@@ -90,7 +91,15 @@ The fast path (ROADMAP Queue 1 item 9, ``trainer.py:149-167, 211,
   eager steps; on the CPU, and under a mesh (whose gloo collectives
   cannot be captured; a line says so), the chunk's steps run in a loop.
 
-Waiting for its ROADMAP item: the memory ladder (item 8).
+The memory ladder (``train/fallback.py``; ``trainer.py:185-190``): the
+calibration and every step run through a ``Ladder`` over the generator,
+the critic and both optimizers.  A step that runs out of device memory
+is rolled back and run again on the next rung (``--remat``, then
+``--gp-chunked``, then ``--remat-blocks``), on the same inputs and
+draws; the rung stays on ``cfg`` for the later scales.  Under
+``--scan-steps K`` on the card the escalation closes the scale's
+``StepGraph`` (its pool freed) and a new one starts on the new rung: an
+eager step, then a fresh capture.
 """
 from __future__ import annotations
 
@@ -108,9 +117,10 @@ from ..ops.kernels.conv3d_spmd import pconv_spmd_ok
 from ..parallel import multihost
 from ..parallel.mesh import attach, check_replicated
 from ..utils.profiling import StepTimer
-from ..utils.saver import load_critic
+from ..utils.saver import load_critic, load_mid_critic, load_mid_optimizers
 from ..utils.tools import create_progressbar, seeded_generator
 from ..utils.watchdog import Watchdog
+from .fallback import Ladder
 from .graphs import StepGraph
 from .optim import build_d_optimizer, build_g_optimizer, freeze_frozen
 from .steps import calibrate, gan_draws, gan_step, vae_step
@@ -131,9 +141,12 @@ def _z_init_shape(cfg, G) -> Tuple[int, ...]:
 
 
 def _calibrate_amp(cfg, G, real, real_zero, scale_idx: int,
-                   generator: torch.Generator) -> Optional[torch.Tensor]:
+                   draw: Callable[[], torch.Generator],
+                   ladder: Callable) -> Optional[torch.Tensor]:
     """This scale's amp into ``cfg.Noise_Amps`` (``trainer.py:239-261``);
-    returns the calibration's rmse, or None when none ran."""
+    returns the calibration's rmse, or None when none ran.  ``draw()``
+    makes the calibration's generator, afresh for each attempt of the
+    ``ladder``."""
     if len(cfg.Noise_Amps) >= scale_idx + 1:
         # a resume inside an already calibrated scale reuses its amp
         # (the JAX package's fix of the reference's re-append)
@@ -142,7 +155,8 @@ def _calibrate_amp(cfg, G, real, real_zero, scale_idx: int,
         cfg.Noise_Amps.append(1.0)
         return None
     cfg.Noise_Amps.append(0.0)
-    rmse = calibrate(G, real, real_zero, cfg.Noise_Amps, generator=generator)
+    rmse = ladder(lambda: calibrate(G, real, real_zero, cfg.Noise_Amps,
+                                    generator=draw()))
     cfg.Noise_Amps[-1] = cfg.noise_amp_init * float(rmse) / cfg.batch_size
     return rmse
 
@@ -217,7 +231,7 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
         D.to(dev)
         attach(D, mesh)
         if mid is not None:
-            D.load_state_dict(mid["dvars"])
+            load_mid_critic(D, mid)
         elif dataset is not None and cfg.netG and \
                 cfg.resumed_idx == scale_idx:
             # the scale a --netG resume lands on warm-starts from the run
@@ -234,11 +248,9 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
             elif D_prev is not None:
                 D.load_state_dict(D_prev.state_dict())
         opt_d = build_d_optimizer(cfg, D)
-        if mid is not None:
-            opt_d.load_state_dict(mid["opt_d"])
     opt_g = build_g_optimizer(cfg, G, scale_idx)
     if mid is not None:
-        opt_g.load_state_dict(mid["opt_g"])
+        load_mid_optimizers(mid, cfg, G, opt_g, D, opt_d)
     if cfg.fast_grads:   # differentiate the plan's trainable groups only
         freeze_frozen(cfg, G, scale_idx)
 
@@ -306,11 +318,33 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
             return batches.gather(source["idx"], source["flip"])
         return source["real"], source["real_zero"]
 
+    def new_graph():
+        return StepGraph(run_step, dev,
+                         modules=[G] + ([D] if D is not None else []))
+
+    closed_replays = [0]   # of the graphs an escalation closed
+
+    def on_escalate():
+        """A new rung: the scale's graph starts again (eager, capture)."""
+        nonlocal graph
+        if graph is not None:
+            closed_replays[0] += graph.replays
+            graph.close()
+            graph = new_graph()
+
+    def replays_so_far() -> int:
+        return closed_replays[0] + (graph.replays if graph is not None
+                                    else 0)
+
+    def step_of(inp: dict) -> dict:
+        return graph(inp) if graph is not None else run_step(inp)
+
+    ladder = Ladder(cfg, scale_idx, (G, D), (opt_g, opt_d), mesh=mesh,
+                    on_escalate=on_escalate)
     graph = None
     if scan_k > 1 and dev.type == "cuda":
         if mesh is None:
-            graph = StepGraph(run_step, dev,
-                              modules=[G] + ([D] if D is not None else []))
+            graph = new_graph()
         elif not getattr(cfg, "_scan_mesh_noted", False):   # once a run
             cfg._scan_mesh_noted = True
             logging.info(f"--scan-steps {scan_k} under a mesh: the chunks' "
@@ -326,9 +360,10 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
         if it < cfg.niter:
             first = next_source()
             real, real_zero = batch_of(first)
-            rmse = _calibrate_amp(cfg, G, real, real_zero, scale_idx,
-                                  seeded_generator(seed, scale_idx,
-                                                   device=dev))
+            rmse = _calibrate_amp(
+                cfg, G, real, real_zero, scale_idx,
+                lambda: seeded_generator(seed, scale_idx, device=dev),
+                ladder)
             if rmse is not None and callback is not None:
                 callback("calibrate", -1, {"rmse": rmse,
                                            "noise_amp": cfg.Noise_Amps[-1]})
@@ -353,12 +388,11 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
             else:
                 sources = [first if it + j == start_it else next_source()
                            for j in range(k)]
-            replays = graph.replays if graph is not None else 0
+            replays = replays_so_far()
             chunk = []
             for j, source in enumerate(sources):
                 inp = inputs_of(it + j, source, rz_shape)
-                chunk.append(graph(inp) if graph is not None
-                             else run_step(inp))
+                chunk.append(ladder(step_of, inp))
             last = it + k - 1
             bar.update(k)
             timer.step(n=k)
@@ -382,8 +416,7 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
             if callback is not None and scan_k > 1:
                 callback("chunk", it, {
                     "k": k,
-                    "replays": (graph.replays if graph is not None
-                                else 0) - replays,
+                    "replays": replays_so_far() - replays,
                     "graph_pool_bytes": (graph.pool_bytes
                                          if graph is not None else 0)})
             if summary is not None and cfg.visualize:

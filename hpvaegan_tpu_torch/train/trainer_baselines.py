@@ -38,6 +38,14 @@ parts, in the JAX trainer's order:
 * at the scale's end the files ``Z_init``, ``Noise_Amps``,
   ``Noise_Amps.json``, ``netG`` and ``netD_<s>`` (``:244-259``).
 
+The memory ladder (``train/fallback.py``) covers the calibration and
+every step as in ``train_scale``: an OOM rolls the step back, turns on
+the next rung and runs it again from the iteration's generator made
+afresh, so the retry draws the same numbers.  With the BatchNorm
+critic (``WDiscriminatorBaselines``) the ``--gp-chunked`` rung changes
+nothing (its penalty stays batched) and the ladder climbs on, as in the
+JAX package.
+
 Under a mesh (``--spmd --mesh-shape Dx1``; ``:94-105``) the generator and
 the critic are attached to it by the CLI, the batch is split over
 ``data`` and the gradients summed, as in ``train_scale``; a spatial axis
@@ -58,8 +66,10 @@ from ..models.registry import make_discriminator
 from ..parallel import multihost
 from ..parallel.mesh import attach, check_replicated
 from ..utils.profiling import StepTimer
+from ..utils.saver import load_mid_critic, load_mid_optimizers
 from ..utils.tools import create_progressbar, seeded_generator
 from ..utils.watchdog import Watchdog
+from .fallback import Ladder
 from .optim import build_d_optimizer, build_g_optimizer
 from .steps import baseline_step, calibrate_baselines
 from .trainer import _host, _start_profiler, _stop_profiler, _warm_start
@@ -115,7 +125,7 @@ def train_scale_baselines(cfg, G, dataset, saver, summary=None,
     D.to(dev)
     attach(D, mesh)
     if mid is not None:
-        D.load_state_dict(mid["dvars"])
+        load_mid_critic(D, mid)
     elif scale_idx > 0:
         name = f"netD_{scale_idx - 1}"
         directory = saver.experiment_dir
@@ -126,9 +136,9 @@ def train_scale_baselines(cfg, G, dataset, saver, summary=None,
     opt_d = build_d_optimizer(cfg, D)
     opt_g = build_g_optimizer(cfg, G, scale_idx)
     if mid is not None:
-        opt_d.load_state_dict(mid["opt_d"])
-        opt_g.load_state_dict(mid["opt_g"])
+        load_mid_optimizers(mid, cfg, G, opt_g, D, opt_d)
 
+    ladder = Ladder(cfg, scale_idx, (G, D), (opt_g, opt_d), mesh=mesh)
     batches = make_loader(dataset, cfg, seed, scale_idx, dev,
                           start_iteration=start_it)
     bar = create_progressbar(
@@ -150,14 +160,18 @@ def train_scale_baselines(cfg, G, dataset, saver, summary=None,
                 profiler, profile_done = None, True
             real, _ = next(batches)
             if amps is None:
-                _calibrate_amp(cfg, G, real, z_init, scale_idx, callback)
+                _calibrate_amp(cfg, G, real, z_init, scale_idx, callback,
+                               ladder)
                 amps = list(cfg.Noise_Amps)
-            draw = seeded_generator(seed, scale_idx, it, device=dev)
-            noise_init = torch.randn(z_init.shape, generator=draw,
-                                     device=dev)
-            metrics = baseline_step(G, D, opt_g, opt_d, cfg, real,
-                                    noise_init, z_init, amps,
-                                    generator=draw)
+
+            def step():
+                draw = seeded_generator(seed, scale_idx, it, device=dev)
+                noise_init = torch.randn(z_init.shape, generator=draw,
+                                         device=dev)
+                return noise_init, baseline_step(
+                    G, D, opt_g, opt_d, cfg, real, noise_init, z_init, amps,
+                    generator=draw)
+            noise_init, metrics = ladder(step)
             bar.update(1)
             timer.step()
             watchdog.beat(f"scale {scale_idx} iteration {it + 1}")
@@ -221,7 +235,8 @@ def train_scale_baselines(cfg, G, dataset, saver, summary=None,
     return G, D
 
 
-def _calibrate_amp(cfg, G, real, z_init, scale_idx: int, callback) -> None:
+def _calibrate_amp(cfg, G, real, z_init, scale_idx: int, callback,
+                   ladder) -> None:
     """This scale's amp into ``cfg.Noise_Amps`` (``trainer_baselines.py:
     161-176``): reused on a resume, 1 at scale 0, else calibrated."""
     if len(cfg.Noise_Amps) >= scale_idx + 1:
@@ -230,7 +245,7 @@ def _calibrate_amp(cfg, G, real, z_init, scale_idx: int, callback) -> None:
         cfg.Noise_Amps.append(1.0)
         return
     cfg.Noise_Amps.append(0.0)
-    rmse = calibrate_baselines(G, real, z_init, cfg.Noise_Amps)
+    rmse = ladder(calibrate_baselines, G, real, z_init, cfg.Noise_Amps)
     cfg.Noise_Amps[-1] = cfg.noise_amp_init * float(rmse) / cfg.batch_size
     if callback is not None:
         callback("calibrate", -1, {"rmse": rmse,

@@ -22,10 +22,18 @@ Layouts are converted here and nowhere else:
 * spectral-norm ``u`` is copied and ``v`` is re-ordered from flax's
   ``(*k, I)`` flattening to the ``(I, *k)`` flattening of
   ``weight.reshape(O, -1)``, so ``sigma = u @ (W v)`` is unchanged.
+
+An optax Adam moment (``mu``/``nu`` of a JAX ``netG_mid``) is a tree
+shaped like the parameters it moves, with ``{}`` where a group's mask
+leaves a parameter out.  ``generator_moments``/``critic_moments`` lay it
+out as its parameters: they load a copy of the module whose parameters
+are the moment's (the masked ones taken from the variables) through the
+loaders above, so a moment takes exactly its parameter's layout.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+import copy
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -34,8 +42,9 @@ from ..models.blocks import ConvBlock, ConvND, SNConv
 from ..models.networks import WDiscriminatorBaselines
 
 __all__ = ["load_conv", "load_conv_block", "load_snconv", "load_encoder",
-           "load_conv_stack", "load_csg_stage", "load_generator", "load_discriminator",
-           "load_feature_convs"]
+           "load_conv_stack", "load_csg_stage", "load_generator",
+           "load_discriminator", "load_feature_convs", "generator_moments",
+           "critic_moments"]
 
 
 def _t(a) -> torch.Tensor:
@@ -116,13 +125,18 @@ def load_csg_stage(m, v: Mapping[str, Any]) -> None:
                         v["batch_stats"][f"block{i}"])
 
 
+def _stages(body) -> list:
+    """A generator's ``body``: a list, or a ``{"0": ...}`` map as read
+    from a flax-msgpack file."""
+    return ([body[k] for k in sorted(body, key=int)]
+            if isinstance(body, Mapping) else list(body))
+
+
 def load_generator(G, gvars: Mapping[str, Any]) -> None:
     """Fill any port generator from JAX ``gvars``; grows ``G``'s body
     (stage copies) to the number of JAX stages first.  The body may be a
     list or, as read from a flax-msgpack file, a ``{"0": ...}`` map."""
-    body = gvars["body"]
-    body = ([body[k] for k in sorted(body, key=int)]
-            if isinstance(body, Mapping) else list(body))
+    body = _stages(gvars["body"])
     if len(G.body) > len(body):
         raise ValueError(f"port generator has {len(G.body)} stages, the "
                          f"JAX variables {len(body)}")
@@ -170,3 +184,49 @@ def load_feature_convs(m, tree: Mapping[str, Any]) -> None:
         conv = getattr(m, name)
         _copy(conv.weight, _t(_kernel_to_oi(np.asarray(p[name]["kernel"]))))
         _copy(conv.bias, _t(p[name]["bias"]))
+
+
+def _filled(moment, params):
+    """``moment`` with each leaf that a mask left out (``{}``, or absent)
+    taken from ``params``, the tree both are shaped like."""
+    if isinstance(params, Mapping):
+        moment = moment if isinstance(moment, Mapping) else {}
+        return {k: _filled(moment.get(k, {}), v) for k, v in params.items()}
+    return params if isinstance(moment, Mapping) else moment
+
+
+def _with_params(variables: Mapping[str, Any], moment) -> dict:
+    return {**variables, "params": _filled(moment, variables["params"])}
+
+
+def _named(m) -> Dict[str, torch.Tensor]:
+    return {n: p.detach() for n, p in m.named_parameters()}
+
+
+def generator_moments(G, gvars: Mapping[str, Any],
+                      moment: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An Adam moment of the JAX generator's params view (``{"encode":
+    params, "decoder": params, "body": [params, ...]}``, or the
+    baselines' keys) as tensors by ``G``'s parameter names, each in its
+    parameter's layout; ``G`` is left as it is."""
+    tree = {}
+    for key, value in gvars.items():
+        if key == "body":
+            parts = _stages(moment.get("body", []))
+            tree["body"] = [_with_params(v, parts[i] if i < len(parts)
+                                         else {})
+                            for i, v in enumerate(_stages(value))]
+        else:
+            tree[key] = _with_params(value, moment.get(key, {}))
+    twin = copy.deepcopy(G)
+    load_generator(twin, tree)
+    return _named(twin)
+
+
+def critic_moments(D, dvars: Mapping[str, Any],
+                   moment: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An Adam moment of the JAX critic's params as tensors by ``D``'s
+    parameter names, each in its parameter's layout."""
+    twin = copy.deepcopy(D)
+    load_discriminator(twin, _with_params(dvars, moment))
+    return _named(twin)

@@ -24,8 +24,10 @@ written; ``wait`` joins the pending write.
 The readers also take the JAX package's flax-msgpack files
 (``msgpack_reader``), told apart by their first byte: a JAX-trained
 ``netG`` and its ``netD_<s>``/``Noise_Amps`` can be sampled from and
-trained on by the port.  A JAX ``netG_mid`` cannot (its optimizer states
-are optax's) and raises.
+trained on by the port, and a JAX ``netG_mid`` resumes mid-scale: its
+variables go through ``convert.py`` and its optax states through
+``train/optim.load_jax_g_state``/``load_jax_d_state``
+(``load_mid_critic``, ``load_mid_optimizers``).
 
 ``restore_generator`` and ``apply_resume`` replay stage growth before
 loading, as ``hpvaegan_tpu/serving.py:154-160`` and ``saver.py:50-89`` do.
@@ -58,8 +60,9 @@ from .msgpack_reader import is_msgpack_file, read_file
 from .png import encode_png
 
 __all__ = ["save_generator", "restore_file", "restore_generator",
-           "load_critic", "apply_resume", "Saver", "VideoSaver",
-           "ImageSaver", "write_png"]
+           "load_critic", "apply_resume", "load_mid_critic",
+           "load_mid_optimizers", "Saver", "VideoSaver", "ImageSaver",
+           "write_png"]
 
 
 def _to_host(tree: Any) -> Any:
@@ -141,16 +144,14 @@ def apply_resume(cfg, G, generator: Optional[torch.Generator] = None) -> None:
       (else the payload's own copy);
     * for a ``netG_mid``: the payload (iteration, both optimizer states,
       the critic) is kept on ``cfg`` for ``train_scale``, which resumes the
-      scale at that iteration.
+      scale at that iteration (``load_mid_critic``,
+      ``load_mid_optimizers``); ``from_jax`` marks a JAX payload.
     """
     raw = restore_generator(cfg.netG, G, generator)
     cfg.scale_idx = cfg.resumed_idx = int(raw["scale"])
     cfg.resume_dir = os.path.dirname(cfg.netG)
     if "iteration" in raw:
-        if is_msgpack_file(cfg.netG):
-            raise NotImplementedError(
-                "a JAX netG_mid carries optax optimizer states; resume the "
-                "port from a JAX run's end-of-scale netG instead")
+        raw["from_jax"] = is_msgpack_file(cfg.netG)
         cfg.resume_iteration = int(raw["iteration"])
         cfg._mid_raw = raw
         cfg.Noise_Amps = _amps(raw["noise_amps"])
@@ -159,6 +160,31 @@ def apply_resume(cfg, G, generator: Optional[torch.Generator] = None) -> None:
     cfg.Noise_Amps = _amps(restore_file(amps_path)["data"]
                            if os.path.exists(amps_path)
                            else raw["noise_amps"])
+
+
+def load_mid_critic(D, mid: Dict[str, Any]) -> None:
+    """The critic of a ``netG_mid`` payload of either package."""
+    if mid.get("from_jax"):
+        convert.load_discriminator(D, mid["dvars"])
+    else:
+        D.load_state_dict(mid["dvars"])
+
+
+def load_mid_optimizers(mid: Dict[str, Any], cfg, G, opt_g, D=None,
+                        opt_d=None) -> None:
+    """Both optimizers' states of a ``netG_mid`` payload of either
+    package (``opt_d`` None in the VAE phase); ``G`` and ``D`` hold the
+    payload's weights already."""
+    from ..train.optim import load_jax_d_state, load_jax_g_state
+    if mid.get("from_jax"):
+        load_jax_g_state(opt_g, cfg, G, cfg.scale_idx, mid["gvars"],
+                         mid["opt_g"])
+        if opt_d is not None:
+            load_jax_d_state(opt_d, D, mid["dvars"], mid["opt_d"])
+        return
+    opt_g.load_state_dict(mid["opt_g"])
+    if opt_d is not None:
+        opt_d.load_state_dict(mid["opt_d"])
 
 
 class Saver:

@@ -3,8 +3,8 @@ in-process with ``--no-cuda`` on the tiny configuration of
 tests/test_train_video_e2e.py:11-33: the JAX e2e's file set and amps,
 ``config.json`` with the JAX snapshot's keys, ``--netG`` resume with
 growth replay and the ``Z_init_size`` quirk, an exact ``netG_mid`` resume
-(the property of tests/test_save_interval.py:67), every flag whose
-feature is not ported raising and the fast-path flags training, ``--spmd`` or ``--mesh-shape`` alone
+(the property of tests/test_save_interval.py:67), every flag of the JAX
+CLI training (none is left unported), ``--spmd`` or ``--mesh-shape`` alone
 training in one process, and ``--distributed`` without a launcher
 raising.  The sharded CLI runs are in test_torch_port_spmd_cli.py."""
 import json
@@ -204,36 +204,27 @@ def test_netG_mid_resume_ends_with_the_uninterrupted_weights(clip,
         assert torch.equal(v, d_c[k]), k
 
 
-# the fast-path flags (ROADMAP Queue 1 item 9) are ported: they train
-PORTED_FLAGS = ("--scan-steps", "--fast-grads", "--fused-forwards",
-                "--hoist-prefix")
-
-
 @pytest.mark.parametrize("flag", [
     ["--scan-steps", "2"],
     ["--fast-grads"], ["--fused-forwards"], ["--hoist-prefix"], ["--remat"],
     ["--remat-blocks"], ["--gp-chunked"], ["--compile-ahead"], ["--wpack"]])
 def test_unported_flags_raise_naming_their_roadmap_item(clip, tmp_path, flag):
-    """Item 8's and item 13's flags raise before writing anything; item
-    9's train the tiny run to the JAX e2e's file set."""
-    if flag[0] in PORTED_FLAGS:
-        steps = []
-        cfg = _run(clip, tmp_path, *flag,
-                   callback=lambda s, e, i, m: steps.append(s)
-                   if e == "step" else None)
-        assert steps == [s for s in range(5) for _ in range(2)]
-        exp = _exp(tmp_path)
-        for name in ["netG", "Noise_Amps", "Noise_Amps.json", "config.json",
-                     "logbook.txt", "eval"] + [
-                         f"netD_{s}" for s in range(cfg.vae_levels, 5)]:
-            assert os.path.exists(os.path.join(exp, name)), name
-        raw = _load(os.path.join(exp, "netG"))
-        assert raw["scale"] == 4 and len(raw["noise_amps"]) == 5
-        assert all(torch.isfinite(v).all() for v in raw["gvars"].values())
-        return
-    with pytest.raises(NotImplementedError, match=f"{flag[0]}.*ROADMAP"):
-        _run(clip, tmp_path, *flag)
-    assert not os.path.exists(os.path.join(str(tmp_path), "test_video"))
+    """No flag is left unported: the fast path's (ROADMAP Queue 1 item
+    9), the memory ladder's (item 8) and the two the port accepts as
+    no-ops (item 13) all train the tiny run to the JAX e2e's file set."""
+    steps = []
+    cfg = _run(clip, tmp_path, *flag,
+               callback=lambda s, e, i, m: steps.append(s)
+               if e == "step" else None)
+    assert steps == [s for s in range(5) for _ in range(2)]
+    exp = _exp(tmp_path)
+    for name in ["netG", "Noise_Amps", "Noise_Amps.json", "config.json",
+                 "logbook.txt", "eval"] + [
+                     f"netD_{s}" for s in range(cfg.vae_levels, 5)]:
+        assert os.path.exists(os.path.join(exp, name)), name
+    raw = _load(os.path.join(exp, "netG"))
+    assert raw["scale"] == 4 and len(raw["noise_amps"]) == 5
+    assert all(torch.isfinite(v).all() for v in raw["gvars"].values())
 
 
 @pytest.mark.parametrize("flag", [["--spmd"], ["--mesh-shape", "2x1"]])

@@ -340,25 +340,18 @@ def test_netG_resume_replays_growth_and_keeps_the_amps(image, runs,
                                   ["--compile-ahead"], ["--fast-grads"]])
 def test_unported_flags_raise_naming_their_roadmap_item(image, tmp_path,
                                                        flag):
-    """``--remat`` and ``--compile-ahead`` raise before writing anything;
-    the ported fast-path flags (ROADMAP Queue 1 item 9) train the tiny 2D
-    run to its file set."""
-    if flag[0] in ("--scan-steps", "--fast-grads"):
-        with kept_logging():
-            train_image.main(["--image-path", image, *TINY_IMAGE,
-                              "--run-dir", str(tmp_path), *flag])
-        exp = image_experiment(tmp_path)
-        for name in ("netG", "netD_2", "netD_3", "netD_4", "Noise_Amps",
-                     "Noise_Amps.json", "config.json", "logbook.txt",
-                     "eval"):
-            assert os.path.exists(os.path.join(exp, name)), name
-        raw = _load(os.path.join(exp, "netG"))
-        assert raw["scale"] == 4 and len(raw["noise_amps"]) == 5
-        return
-    with pytest.raises(NotImplementedError, match=f"{flag[0]}.*ROADMAP"):
-        train_image.main(["--image-path", image, *TINY_IMAGE, "--run-dir",
-                          str(tmp_path), *flag])
-    assert not os.listdir(str(tmp_path))
+    """No flag is left unported: the fast-path flags (ROADMAP Queue 1
+    item 9), ``--remat`` (item 8) and ``--compile-ahead`` (item 13, a
+    no-op here) train the tiny 2D run to its file set."""
+    with kept_logging():
+        train_image.main(["--image-path", image, *TINY_IMAGE,
+                          "--run-dir", str(tmp_path), *flag])
+    exp = image_experiment(tmp_path)
+    for name in ("netG", "netD_2", "netD_3", "netD_4", "Noise_Amps",
+                 "Noise_Amps.json", "config.json", "logbook.txt", "eval"):
+        assert os.path.exists(os.path.join(exp, name)), name
+    raw = _load(os.path.join(exp, "netG"))
+    assert raw["scale"] == 4 and len(raw["noise_amps"]) == 5
 
 
 def test_the_neptune_branch_needs_tag_project_and_client(monkeypatch,

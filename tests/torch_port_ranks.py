@@ -231,7 +231,79 @@ def program_steps(meshes, workdir):
     return out
 
 
-PROGRAMS = {"k4": program_k4, "halo": program_halo, "steps": program_steps}
+def _ladder_run(mesh, oom_ranks, remat=False):
+    """``train_scale`` in memory on ``mesh`` (3 GAN iterations of a tiny
+    model, the critic on the mesh too); on the ranks in ``oom_ranks`` the
+    second step raises an OOM once, after it ran."""
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.core.config import Config
+    from hpvaegan_tpu_torch.models.registry import make_generator
+    from hpvaegan_tpu_torch.parallel import attach
+    from hpvaegan_tpu_torch.train import steps, trainer
+
+    cfg = Config(img_size=16, min_size=8, max_size=16, nfc=8, latent_dim=8,
+                 num_layer=2, enc_blocks=1, vae_levels=2, niter=3,
+                 remat=remat)
+    cfg.ar, cfg.org_fps = 0.5625, 24.0
+    cfg.adjust_scales()
+    cfg.scale_idx, cfg.Noise_Amps = 2, [1.0, 0.3]
+    pyr = cfg.pyramid()
+    G = make_generator("GeneratorHPVAEGAN", cfg, pyr, ndim=3)
+    gen = torch.Generator().manual_seed(0)
+    G.init(gen)
+    for _ in range(2):
+        G.init_next_stage(gen)
+    attach(G, mesh)
+    calls = [0]
+
+    def gan_step(*args, **kwargs):
+        out = steps.gan_step(*args, **kwargs)
+        calls[0] += 1
+        if calls[0] == 2 and torch.distributed.get_rank() in oom_ranks:
+            raise torch.OutOfMemoryError("CUDA out of memory (injected)")
+        return out
+
+    def batches():
+        rng = np.random.default_rng(3)
+        while True:
+            yield tuple(np.tanh(rng.standard_normal(
+                (2, *pyr.shape3d(s), 3))).astype(np.float32) for s in (2, 0))
+
+    trainer.gan_step = gan_step
+    try:
+        G, D, _ = trainer.train_scale(cfg, G, batches(), seed=5)
+    finally:
+        trainer.gan_step = steps.gan_step
+    return cfg, G, D
+
+
+def program_ladder_both(meshes, workdir):
+    """Both ranks of a 1x2 mesh run out of memory in the same step: both
+    escalate to --remat and end as the run with --remat from the
+    start."""
+    from hpvaegan_tpu_torch.parallel import make_mesh
+    mesh = make_mesh((1, 2))
+    _, G_r, D_r = _ladder_run(mesh, (), remat=True)
+    cfg, G, D = _ladder_run(mesh, (0, 1))
+    return {"rungs": (cfg.remat, cfg.gp_chunked, cfg.remat_blocks),
+            "state": {**G.state_dict(), **D.state_dict()},
+            "ref": {**G_r.state_dict(), **D_r.state_dict()}}
+
+
+def program_ladder_one(meshes, workdir):
+    """Rank 1 alone runs out of memory: the agreement times out there and
+    the run fails on both ranks."""
+    from hpvaegan_tpu_torch.parallel import make_mesh
+    from hpvaegan_tpu_torch.train import fallback
+    fallback.AGREE_TIMEOUT_S = 5.0
+    _ladder_run(make_mesh((1, 2)), (1,))
+    return {}
+
+
+PROGRAMS = {"k4": program_k4, "halo": program_halo, "steps": program_steps,
+            "ladder_both": program_ladder_both,
+            "ladder_one": program_ladder_one}
 
 
 def main(argv) -> None:
