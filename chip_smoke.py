@@ -159,8 +159,8 @@ Phases; any failure exits non-zero and prints no result:
    ``WDiscriminatorBaselines`` run, which launches no kernel;
 13. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
    in bf16 and K4 in both, each with its launches over the main-path
-   runs, phases 14 and 15 included, and K3's three instances with their
-   own phase's), the card line, and last ``{"ok": true, "device":
+   runs, phases 14, 15 and 16 included, and K3's three instances with
+   their own phase's), the card line, and last ``{"ok": true, "device":
    {...}}``;
 14. the training fast path, phase 6's CLI (default model, the clip,
    ``--pconv --pconv-all --pfuse``, ten scales), f32 and ``--bf16``:
@@ -198,7 +198,29 @@ Phases; any failure exits non-zero and prints no result:
    rung from the start; once eagerly and once under ``--scan-steps 4``,
    whose graph is captured again after the escalation.
 
-Phases 6c, 11, 12, 14 and 15 run after 6b, before 7; phases 9 and 10
+16. the mesh everywhere, ranks sharing the card over gloo as in phase 8,
+   each a process of this script (``--rank sample|serve|steps``) named by
+   the launcher's environment: (a) ``cli.generate --mesh-shape`` over 1x2
+   and 2x1 on the runs of 6 and 6b: rand (two batches), rec and
+   ``--inject-scale 5``, each rank launching 45 K4 (= K1-fwd) a batch,
+   20 from level 5, rank 0 alone writing; the clips against phase 7's
+   one-process clips (f32 at the tests' bar; bf16 no further than bf16
+   moves the same weights from f32, as phase 4 measures it), ms a batch
+   as the slowest rank's beside phase 7's, the exchange's ms a batch;
+   (b) ``cli.serve --mesh-shape 1x2`` on 6's run, stdio on rank 0: a
+   seeded request, three unseeded singles under ``--coalesce-ms 30``, a
+   rec request, then EOF, every rank exiting 0; the files against a
+   one-process server's for the same requests, ``device_ms`` and
+   ``latency_ms``; (c) over 1x2 against one process, in memory: a
+   scale-9 GAN step of ``GeneratorVAE_nb``, a scale-9 baseline step of
+   CSG with the SN critic, and a scale-5 step of SG with
+   ``WDiscriminatorBaselines``, the metrics and every gradient at phase
+   8's bars (a baseline's gradient may instead lie within twice the
+   difference between two one-process runs of it, cuDNN's BatchNorm and
+   the mesh's statistics on a 1x1 mesh, measured here), each rank's
+   launches (derived), seconds and peak memory.
+
+Phases 6c, 11, 12, 14 and 15 run after 6b, before 7; phases 9, 16 and 10
 after 7b, before 8.
 """
 from __future__ import annotations
@@ -2452,12 +2474,13 @@ def check_clips(what: str, paths, samples, hw) -> None:
 
 
 def generate_main_path(dev, seed: int, exp: Path, out_dir: Path,
-                       bf16: bool = False):
+                       bf16: bool = False, keep: dict = None):
     """``hpvaegan_tpu_torch.cli.generate`` in-process on the CLI run in
     ``exp`` (on the card, its default): rand with ``--metrics``, rec with
     ``--metrics``, ``--inject-scale 5`` and rand with ``--w-factor 1.5``
     (the clips at the top scale's T, H and the W it asks for).
-    Returns the launches of the four calls."""
+    ``keep`` (a dict) receives each call's samples and ms a batch by
+    ``(dtype, name)``.  Returns the launches of the four calls."""
     from hpvaegan_tpu_torch.cli import generate
 
     k1 = "conv3d64_fwd_bf16" if bf16 else "conv3d64_fwd"
@@ -2496,6 +2519,9 @@ def generate_main_path(dev, seed: int, exp: Path, out_dir: Path,
         if len(res["paths"]) != n:
             fail(f"generate {name} wrote {res['paths']}")
         check_clips(f"generate {name}", res["paths"], res["samples"], hw)
+        if keep is not None:
+            keep[(dtype_name(bf16), name)] = (res["samples"],
+                                              res["batch_ms"])
         metric = list(res["metrics"].values())
         if "--metrics" in extra and not (metric and math.isfinite(metric[0])):
             fail(f"generate {name}: metrics {res['metrics']}")
@@ -3446,7 +3472,9 @@ def sharded_main_path(dev, seed: int):
 
 
 def check_sharded_step(name: str, bf16: bool, got: dict, ref_metrics: dict,
-                       ref_steps: list, ref_tail) -> None:
+                       ref_steps: list, ref_tail,
+                       step: str = f"first scale-{SCALE} GAN step",
+                       noise: list = None) -> None:
     """The sharded run's first scale-9 GAN step against the single-process
     reference: every metric and the gradients of both optimizer steps
     (critic, generator) at the card-vs-CPU bars (f32: the tests' rtol /
@@ -3454,7 +3482,10 @@ def check_sharded_step(name: str, bf16: bool, got: dict, ref_metrics: dict,
     read the critic after its Adam step, and the critic tail's bias has
     an exact gradient of 0, so Adam moves it by rounding noise times up
     to lr_d: those two metrics may differ by the measured difference of
-    that bias (errG sums it one for one, times disc_loss_weight = 1)."""
+    that bias (errG sums it one for one, times disc_loss_weight = 1).
+    ``noise`` (by optimizer step, by gradient): the largest difference
+    between two one-process runs of the step; a gradient beyond the bar
+    passes within twice it."""
     import numpy as np
     drift = abs(float(got["tail_bias"]) - float(ref_tail))
 
@@ -3471,7 +3502,7 @@ def check_sharded_step(name: str, bf16: bool, got: dict, ref_metrics: dict,
     for key, value in ref_metrics.items():
         extra = drift if key in ("errG", "loss") else 0.0
         err, ok = close(got["metrics"][key], value, extra)
-        print(f"{name} first scale-{SCALE} GAN step {key}: sharded "
+        print(f"{name} {step} {key}: sharded "
               f"{got['metrics'][key]:.6f}, single process {value:.6f}",
               flush=True)
         if not ok:
@@ -3481,7 +3512,8 @@ def check_sharded_step(name: str, bf16: bool, got: dict, ref_metrics: dict,
         worst = max(worst, err)
     if len(ref_steps) != 2 or len(got["grads"]) != 2:
         fail(f"{name}: {len(ref_steps)} reference optimizer steps")
-    for which, a, b in zip(("critic", "generator"), got["grads"], ref_steps):
+    for k, (which, a, b) in enumerate(zip(("critic", "generator"),
+                                          got["grads"], ref_steps)):
         if len(a) != len(b):
             fail(f"{name}: {which} gradients {len(a)} against {len(b)}")
         g_worst = 0.0
@@ -3491,16 +3523,472 @@ def check_sharded_step(name: str, bf16: bool, got: dict, ref_metrics: dict,
             if ga is None:
                 continue
             err, ok = close(ga.float().numpy(), gb.float().numpy())
+            if not ok and noise is not None:
+                ok = err <= 2 * noise[k][i]
             if not ok:
                 fail(f"{name}: the sharded step's {which} gradient {i} "
                      f"{tuple(ga.shape)} disagrees, max_abs_err {err:.3e}")
             g_worst = max(g_worst, err)
-        print(f"{name} first scale-{SCALE} GAN step, {which} gradients "
+        print(f"{name} {step}, {which} gradients "
               f"before the update: {len(a)} tensors agree with the single-"
               f"process step, max_abs_err {g_worst:.3e}", flush=True)
-    print(f"{name}: the sharded first scale-{SCALE} GAN step agrees with "
-          f"the single-process one (metrics max_abs_err {worst:.3e}; the "
+    print(f"{name}: the sharded {step} agrees with the single-process "
+          f"one (metrics max_abs_err {worst:.3e}; the "
           f"critic tail bias moved {drift:.3e} apart)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: sampling and serving over a mesh, and the generators a mesh
+# refused before (GeneratorVAE_nb, the baselines along H), ranks sharing
+# the card over gloo as in phase 8
+# ---------------------------------------------------------------------------
+
+SAMPLE_MESHES = ("1x2", "2x1")
+SERVE_MESH = "1x2"
+# 16a's generate calls, phase 7's first three: name (phase 7's), flags,
+# batches, stage convs a batch (num_layer a stage above the start)
+SAMPLE_CASES = [
+    ("rand", ["--num-samples", "4"], 2, 5 * SCALE),
+    ("rec", ["--mode", "rec", "--num-samples", "2"], 1, 5 * SCALE),
+    (f"inject {INJECT_SCALE}", ["--inject-scale", str(INJECT_SCALE),
+                                "--num-samples", "2"], 1,
+     5 * (SCALE - INJECT_SCALE))]
+# the one-process generate batch on the H100 (PERF.md section 5)
+ONE_PROCESS_BATCH_MS = {"f32": "74.3-75.1", "bf16": "33.3-34.4"}
+SERVE_REQUESTS = [{"id": "seeded", "num_samples": 2, "seed": 11},
+                  {"id": "c1", "num_samples": 1},
+                  {"id": "c2", "num_samples": 1},
+                  {"id": "c3", "num_samples": 1},
+                  {"id": "rec", "mode": "rec", "num_samples": 2}]
+# 16c: name, generator, discriminator, scale (SG's at 5: its step holds
+# 43.98 GB at scale 9 in one process, PERF.md section 5)
+STEP_CASES = [("VAE_nb GAN", "GeneratorVAE_nb", "WDiscriminator3D", SCALE),
+              ("CSG + SN critic", "GeneratorCSG", "WDiscriminator3D", SCALE),
+              ("SG + BN critic", "GeneratorSG", "WDiscriminatorBaselines", 5)]
+# their launches a rank (a 1x2 mesh; --pfuse is off under a mesh, so the
+# SN critic's five body convs run K1 through K4): VAE_nb's stage stack
+# and critic are the main model's (SHARDED_STEP_LAUNCHES); CSG's VALID
+# stages have no route, its critic runs apart on the real and the fake
+# batch (dx and dw) and frozen on the generator's fake (dx): 3 x 5
+# forwards, 3 x 5 dx, 2 x 5 dw; SG and the BatchNorm critic none
+STEP_CASE_LAUNCHES = {
+    "VAE_nb GAN": SHARDED_STEP_LAUNCHES,
+    "CSG + SN critic": {"conv3d64_fwd": 15, "conv3d64_spmd": 15,
+                        "conv3d64_dx": 15, "conv3d64_dw": 10},
+    "SG + BN critic": {}}
+
+
+def _rank_counts(delta: dict, want: dict, what: str) -> None:
+    """Fail unless ``delta`` launched ``want`` and nothing else."""
+    full = {**{k: 0 for k in delta}, **want}
+    if delta != full:
+        fail(f"{what} launched { {k: v for k, v in delta.items() if v} }, "
+             f"want {want}")
+
+
+def rank_sample(out: Path, seed: int, mesh_spec: str) -> None:
+    """One rank of phase 16a: ``cli.generate --mesh-shape mesh_spec`` on
+    phase 6's f32 and bf16 runs (``out/runs.json``), rand (two batches),
+    rec and inject from level 5; per batch K4 and K1-fwd launch what the
+    stage stack derives, rank 0 alone writes (its AVIs read back) and
+    saves its samples; then the exchange of K4's halo at each stage's
+    block, all ranks at once."""
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.cli import generate
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4
+    from hpvaegan_tpu_torch.parallel import (make_mesh, maybe_initialize,
+                                             parse_mesh_shape)
+    from hpvaegan_tpu_torch.utils.logger import kept_logging
+    rank, world = maybe_initialize(True, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    exps = json.loads((out / "runs.json").read_text())
+    result = {"batch_ms": {}, "exchange_ms": {}, "counts": None}
+    for dt, exp in exps.items():
+        sfx = "_bf16" if dt == "bf16" else ""
+        for i, (name, extra, batches, per_batch) in enumerate(SAMPLE_CASES):
+            odir = out / f"gen_{mesh_spec}_{dt}_{i}_rank{rank}"
+            before = spmd_counts()
+            with kept_logging(), contextlib.redirect_stdout(io.StringIO()):
+                res = generate.main([
+                    "--netG", str(Path(exp) / "netG"), "--output-dir",
+                    str(odir), "--batch-size", str(BATCH), "--manualSeed",
+                    str(seed), "--mesh-shape", mesh_spec, *extra])
+            now = spmd_counts()
+            n = batches * per_batch
+            _rank_counts({k: now[k] - before[k] for k in now},
+                         {f"conv3d64_fwd{sfx}": n, f"conv3d64_spmd{sfx}": n},
+                         f"generate {dt} {name} over {mesh_spec} rank {rank}")
+            if rank == 0:
+                check_clips(f"generate {dt} {name} over {mesh_spec}",
+                            res["paths"], res["samples"], TOP_SHAPE[2:4])
+                np.save(out / f"samples_{mesh_spec}_{dt}_{i}.npy",
+                        res["samples"])
+            elif odir.exists() or res["paths"]:
+                fail(f"rank {rank} wrote {res['paths']} into {odir}")
+            result["batch_ms"][f"{dt} {name}"] = res["batch_ms"]
+            print(f"generate {dt} {name} over {mesh_spec} rank {rank} "
+                  f"({sharded_label()}): ms a batch "
+                  f"{[round(t, 3) for t in res['batch_ms']]}, {per_batch} "
+                  f"K4 (and K1-fwd) launches a batch", flush=True)
+    mesh = make_mesh(parse_mesh_shape(mesh_spec))
+    if mesh.n_spatial > 1:   # the halos of a batch: 5 a stage
+        shapes = main_config().pyramid().all_shapes3d()
+        for dt in exps:
+            dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+            total = 0.0
+            with torch.no_grad():
+                for idx in range(1, SCALE + 1):
+                    t, h, w = shapes[idx]
+                    h0, h1 = mesh.block(h)
+                    x = torch.randn((BATCH // mesh.n_data, t, h1 - h0, w,
+                                     64), device=dev).to(dtype)
+                    total += 5 * _concurrent_ms(
+                        lambda: k4.halo(x, mesh, 2), K4_ITERS)
+            result["exchange_ms"][dt] = total
+            print(f"K4's exchange over {mesh_spec} rank {rank} ({dt}, "
+                  f"{sharded_label()}): {total:.4f} ms a batch (45 halos "
+                  f"at the stage blocks, all ranks at once)", flush=True)
+    result["counts"] = spmd_counts()
+    (out / f"sample_{mesh_spec}_{rank}.json").write_text(json.dumps(result))
+
+
+def serve_args(exp: Path, out_dir: Path, seed: int) -> list:
+    return ["--netG", str(exp / "netG"), "--output-dir", str(out_dir),
+            "--coalesce-ms", "30", "--manualSeed", str(seed), "--warm",
+            "rand,rec"]
+
+
+def rank_serve(out: Path, seed: int) -> None:
+    """One rank of phase 16b: ``cli.serve``'s ``main`` over a 1x2 mesh on
+    phase 6's f32 run; rank 0 owns stdio (``SERVE_REQUESTS``, then EOF)
+    and saves the responses, rank 1 follows until the stop.  Each rank
+    launches 45 K4 a dispatch (the two warmups and five requests)."""
+    from hpvaegan_tpu_torch.cli import serve
+    from hpvaegan_tpu_torch.parallel import maybe_initialize
+    from hpvaegan_tpu_torch.utils.logger import kept_logging
+    rank, world = maybe_initialize(True, device_type="cuda")
+    exp = Path(json.loads((out / "runs.json").read_text())["f32"])
+    argv = serve_args(exp, out / "serve_sharded", seed) + [
+        "--mesh-shape", SERVE_MESH]
+    before = spmd_counts()
+    stdin, stdout = sys.stdin, sys.stdout
+    sys.stdin = io.StringIO("".join(json.dumps(r) + "\n"
+                                    for r in SERVE_REQUESTS))
+    sys.stdout = io.StringIO()
+    try:
+        with kept_logging():
+            serve.main(argv)
+        said = sys.stdout.getvalue()
+    finally:
+        sys.stdin, sys.stdout = stdin, stdout
+    now = spmd_counts()
+    n = 5 * SCALE * (2 + len(SERVE_REQUESTS))
+    _rank_counts({k: now[k] - before[k] for k in now},
+                 {"conv3d64_fwd": n, "conv3d64_spmd": n},
+                 f"serve over {SERVE_MESH} rank {rank}")
+    if rank == 0:
+        lines = [json.loads(x) for x in said.splitlines()]
+        (out / "serve_sharded.json").write_text(json.dumps(lines[1:]))
+    elif said:
+        fail(f"serve rank {rank} wrote to its stdout: {said!r}")
+    print(f"serve over {SERVE_MESH} rank {rank}: {n} K4 launches, stopped "
+          f"at EOF", flush=True)
+    (out / f"serve_{rank}.json").write_text(json.dumps(
+        {"counts": spmd_counts()}))
+
+
+def newly_sharded_step(case, dev, seed: int, mesh=None) -> dict:
+    """One step of 16c's ``case`` at full width (random weights and clips
+    from ``seed``, every draw from one generator seeded alike everywhere)
+    on ``dev``, on ``mesh`` when given: its metrics, the gradients of its
+    two optimizer steps (host copies), the critic's tail bias after it,
+    launches, seconds and peak memory."""
+    import numpy as np
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+    from hpvaegan_tpu_torch.models.registry import make_discriminator
+    from hpvaegan_tpu_torch.parallel import attach
+    from hpvaegan_tpu_torch.train import optim, steps
+
+    name, generator, critic, scale = case
+    cfg = main_config(generator=generator, discriminator=critic, pconv=True,
+                      pconv_all=generator == "GeneratorVAE_nb")
+    cfg.scale_idx = scale
+    pyr = cfg.pyramid()
+    G = build_generator(cfg, scale, seed).to(dev).requires_grad_(True)
+    D = make_discriminator(critic, cfg, 3)
+    D.reset_parameters(torch.Generator().manual_seed(seed + 1))
+    D.to(dev)
+    attach(G, mesh)
+    attach(D, mesh)
+    rng = np.random.default_rng(seed)
+    real = np.tanh(rng.standard_normal((BATCH, *pyr.shape3d(scale), 3),
+                                       dtype=np.float32))
+    amps = [1.0] + [cfg.noise_amp] * scale
+    base = generator != "GeneratorVAE_nb"
+    zero = rng.standard_normal((BATCH, *pyr.shape3d(0),
+                                3 if base else cfg.latent_dim),
+                               dtype=np.float32)
+    second = (rng.standard_normal(zero.shape, dtype=np.float32) if base
+              else np.tanh(rng.standard_normal((BATCH, *pyr.shape3d(0), 3),
+                                               dtype=np.float32)))
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    opt_g = optim.build_g_optimizer(cfg, G, scale)
+    opt_d = optim.build_d_optimizer(cfg, D)
+    grads = []
+    hook = register_optimizer_step_pre_hook(lambda opt, a, k: grads.append(
+        [None if p.grad is None else p.grad.detach().cpu().clone()
+         for grp in opt.param_groups for p in grp["params"]]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    before = spmd_counts()
+    t0 = time.perf_counter()
+    try:
+        if base:   # noise_init, Z_init
+            metrics = steps.baseline_step(G, D, opt_g, opt_d, cfg, real,
+                                          zero, second, amps, generator=g)
+        else:      # real_zero, noise_init
+            metrics = steps.gan_step(G, D, opt_g, opt_d, cfg, real, second,
+                                     zero, amps, generator=g)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    now = spmd_counts()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads, "tail_bias": D.tail.bias.detach().cpu().clone(),
+            "launches": {k: now[k] - before[k] for k in now},
+            "seconds": wall, "peak": torch.cuda.max_memory_allocated()}
+
+
+def rank_steps(out: Path, seed: int) -> None:
+    """One rank of phase 16c: each of ``STEP_CASES`` on a 1x2 mesh,
+    launching what ``STEP_CASE_LAUNCHES`` derives; its seconds, peak
+    memory and launches printed; rank 0 saves its results."""
+    import torch
+    from hpvaegan_tpu_torch.parallel import make_mesh, maybe_initialize
+    rank, world = maybe_initialize(True, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((1, 2))
+    counts = {}
+    for case in STEP_CASES:
+        got = newly_sharded_step(case, dev, seed, mesh)
+        _rank_counts(got["launches"], STEP_CASE_LAUNCHES[case[0]],
+                     f"{case[0]} step over 1x2 rank {rank}")
+        for k, v in got["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        print(f"{case[0]} scale-{case[3]} step over 1x2 rank {rank} "
+              f"({sharded_label()}): {got['seconds']:.4f} s, peak memory "
+              f"{got['peak']} bytes, launches "
+              f"{ {k: v for k, v in got['launches'].items() if v} }, "
+              f"metrics {got['metrics']}", flush=True)
+        if rank == 0:
+            torch.save(got, out / f"step16_{case[0]}.pt")
+        del got
+        torch.cuda.empty_cache()
+    (out / f"steps16_{rank}.json").write_text(json.dumps(
+        {"counts": counts}))
+
+
+def _ranks_counts(out: Path, pattern: str, world: int) -> dict:
+    """The ranks' launch counts (their json ``counts``), summed."""
+    total = {}
+    for r in range(world):
+        for k, v in json.loads((out / pattern.format(rank=r)).read_text())[
+                "counts"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
+
+
+def _check_against_one_process(what: str, got, ref, noise=None) -> None:
+    """Sharded samples against one process's: f32 at the tests' bar;
+    bf16 no further than bf16 itself moves the model (``noise``: the
+    one-process bf16 samples minus the f32 ones of the same weights, as
+    phase 4 measures it): RMS within its RMS, max within twice its max."""
+    import numpy as np
+    err = float(np.max(np.abs(got - ref)))
+    if noise is None:
+        ok = np.allclose(got, ref, rtol=RTOL, atol=ATOL)
+        said = f"max_abs_err {err:.3e} (atol {ATOL} + rtol {RTOL})"
+    else:
+        def rms(d):
+            return float(np.sqrt(np.mean(np.square(d))))
+        ok = (rms(got - ref) <= rms(noise)
+              and err <= 2 * float(np.abs(noise).max()))
+        said = (f"rms {rms(got - ref):.3e}, max {err:.3e}; the bar, bf16 "
+                f"vs f32 of the same weights: rms {rms(noise):.3e}, max "
+                f"{float(np.abs(noise).max()):.3e}")
+    print(f"{what} against one process: {said}", flush=True)
+    if not ok:
+        fail(f"{what} disagrees with one process ({said})")
+
+
+def _bf16_noise(seed: int, exp: Path, work: Path) -> dict:
+    """The one-process samples of 16a's calls from the bf16 run's
+    weights in f32 (a copy of its experiment whose config.json says
+    ``bf16: false``), by call."""
+    import shutil
+    from hpvaegan_tpu_torch.cli import generate
+    from hpvaegan_tpu_torch.utils.logger import kept_logging
+    copy = work / "bf16_weights_f32"
+    copy.mkdir(parents=True)
+    shutil.copy(exp / "netG", copy / "netG")
+    snap = json.loads((exp / "config.json").read_text())
+    snap["bf16"] = False
+    (copy / "config.json").write_text(json.dumps(snap))
+    out = {}
+    for i, (name, extra, _, _) in enumerate(SAMPLE_CASES):
+        with kept_logging(), contextlib.redirect_stdout(io.StringIO()):
+            out[name] = generate.main([
+                "--netG", str(copy / "netG"), "--output-dir",
+                str(work / f"noise_{i}"), "--batch-size", str(BATCH),
+                "--manualSeed", str(seed), *extra])["samples"]
+    return out
+
+
+def _same_files(what: str, got: list, want: list) -> float:
+    """Two servers' AVIs, frame by frame: 8-bit levels apart at most 1
+    (a sample within the f32 bar may round to the next level on a half
+    step), and at least 99% equal.  Returns the equal share."""
+    import numpy as np
+    from hpvaegan_tpu_torch.utils.video_io import read_avi
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} files against {len(want)}")
+    equal = []
+    for a, b in zip(got, want):
+        fa, fb = read_avi(a)[0].astype(np.int32), read_avi(b)[0].astype(
+            np.int32)
+        if fa.shape != fb.shape or np.abs(fa - fb).max() > 1:
+            fail(f"{what}: {a} differs from {b}")
+        equal.append(float(np.mean(fa == fb)))
+    if min(equal) < 0.99:
+        fail(f"{what}: only {min(equal):.4f} of the levels equal")
+    return min(equal)
+
+
+def mesh_main_path(dev, seed: int, runs: Path, keep: dict):
+    """Phase 16 (16a sampling, 16b serving, 16c the newly partitioned
+    steps), each rank a process of this script sharing the card over
+    gloo.  ``keep``: phase 7's samples and ms a batch.  Returns the
+    launches of the sharded runs, summed over the ranks, by sub-phase."""
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.cli import serve
+    out = Path(tempfile.mkdtemp(prefix="mesh16_"))
+    exps = {dt: experiment_dir(runs / dt) for dt in ("f32", "bf16")}
+    (out / "runs.json").write_text(json.dumps(
+        {dt: str(e) for dt, e in exps.items()}))
+    launched = {}
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()                                  # 16a
+        noise = _bf16_noise(seed, exps["bf16"], out)
+        total = {}
+        for spec in SAMPLE_MESHES:
+            world = math.prod(int(n) for n in spec.split("x"))
+            run_ranks(world, ["sample", "--out", str(out), "--seed",
+                              str(seed), "--mesh", spec],
+                      f"generate over {spec}")
+            ranks = [json.loads((out / f"sample_{spec}_{r}.json")
+                                .read_text()) for r in range(world)]
+            total = _add(total, _ranks_counts(out, f"sample_{spec}_{{rank}}"
+                                              f".json", world))
+            for dt in exps:
+                for i, (name, _, _, per_batch) in enumerate(SAMPLE_CASES):
+                    ref, ref_ms = keep[(dt, name)]
+                    got = np.load(out / f"samples_{spec}_{dt}_{i}.npy")
+                    _check_against_one_process(
+                        f"generate {dt} {name} over {spec}", got, ref,
+                        None if dt == "f32" else noise[name] - ref)
+                    slowest = [max(r["batch_ms"][f"{dt} {name}"][b]
+                                   for r in ranks)
+                               for b in range(len(ref_ms))]
+                    exchange = [r["exchange_ms"].get(dt) for r in ranks]
+                    print(f"generate {dt} {name} over {spec} "
+                          f"({sharded_label()}): ms a batch, the slowest "
+                          f"rank's {[round(t, 3) for t in slowest]}; one "
+                          f"process {[round(t, 3) for t in ref_ms]} (phase "
+                          f"7; {ONE_PROCESS_BATCH_MS[dt]} in PERF.md); K4 "
+                          f"{per_batch} a batch a rank; the exchange "
+                          f"{exchange} ms a batch", flush=True)
+        launched["mesh sampling"] = total
+        print(f"phase 16a: {time.perf_counter() - t0:.3f} s", flush=True)
+
+        t0 = time.perf_counter()                                  # 16b
+        run_ranks(2, ["serve", "--out", str(out), "--seed", str(seed)],
+                  f"serve over {SERVE_MESH}")
+        launched["mesh serving"] = _ranks_counts(out, "serve_{rank}.json", 2)
+        sharded = json.loads((out / "serve_sharded.json").read_text())
+        server, _ = serve.make_server(serve_args(exps["f32"],
+                                                 out / "serve_one", seed))
+        try:
+            stream = io.StringIO()
+            serve.serve_stdio(server, io.StringIO("".join(
+                json.dumps(r) + "\n" for r in SERVE_REQUESTS)), stream)
+        finally:
+            server.close()
+        one = [json.loads(x) for x in stream.getvalue().splitlines()][1:]
+        if len(sharded) != len(SERVE_REQUESTS) or not all(
+                r["ok"] for r in sharded + one):
+            fail(f"serve over {SERVE_MESH}: {sharded}; one process {one}")
+        for r, o in zip(sharded, one):
+            share = _same_files(f"serve {r['id']} over {SERVE_MESH}",
+                                r["paths"], o["paths"])
+            print(f"serve {r['id']} over {SERVE_MESH} ({sharded_label()}): "
+                  f"device_ms {r['device_ms']}, latency_ms "
+                  f"{r['latency_ms']}; one process {o['device_ms']}, "
+                  f"{o['latency_ms']}; {len(r['paths'])} clips equal to one "
+                  f"process's within a level ({share:.4f} of levels equal)",
+                  flush=True)
+        print(f"phase 16b: {time.perf_counter() - t0:.3f} s", flush=True)
+
+        t0 = time.perf_counter()                                  # 16c
+        run_ranks(2, ["steps", "--out", str(out), "--seed", str(seed)],
+                  "steps over 1x2")
+        launched["mesh steps"] = _ranks_counts(out, "steps16_{rank}.json", 2)
+        from hpvaegan_tpu_torch.parallel import make_mesh
+        for case in STEP_CASES:
+            got = torch.load(out / f"step16_{case[0]}.pt",
+                             weights_only=False)
+            ref = newly_sharded_step(case, dev, seed)
+            print(f"{case[0]} scale-{case[3]} step in one process "
+                  f"({card_line()}): {ref['seconds']:.4f} s, peak memory "
+                  f"{ref['peak']} bytes, launches "
+                  f"{ {k: v for k, v in ref['launches'].items() if v} }",
+                  flush=True)
+            noise = None
+            if case[1] != "GeneratorVAE_nb":
+                # a baseline's gradients run back through a BatchNorm in
+                # every block of every stage, where f32 rounding grows
+                # past the bar: two one-process runs (cuDNN's BatchNorm,
+                # and the mesh's statistics on a 1x1 mesh) differ by up
+                # to 6.4e-4 in the SG step's generator (an H100 run),
+                # and the sharded step is held within twice that noise
+                one = newly_sharded_step(case, dev, seed, make_mesh((1, 1)))
+                noise = [[0.0 if x is None else float((x - y).abs().max())
+                          for x, y in zip(sa, sb)]
+                         for sa, sb in zip(ref["grads"], one["grads"])]
+                print(f"{case[0]}: one process's gradients, cuDNN's "
+                      f"BatchNorm against the 1x1 mesh's statistics: "
+                      f"max_abs_err {max(max(n) for n in noise):.3e}",
+                      flush=True)
+                del one
+            check_sharded_step(case[0], False, got, ref["metrics"],
+                               ref["grads"], ref["tail_bias"],
+                               f"scale-{case[3]} step", noise)
+            del got, ref
+            torch.cuda.empty_cache()
+        print(f"phase 16c: {time.perf_counter() - t0:.3f} s", flush=True)
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+    return launched
 
 
 def main() -> None:
@@ -3509,8 +3997,10 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true")
     # phase 8 starts its ranks as this script with --rank (the launcher's
     # environment names each rank)
-    ap.add_argument("--rank", choices=("k4", "train"), help=argparse.SUPPRESS)
+    ap.add_argument("--rank", choices=("k4", "train", "sample", "serve",
+                                       "steps"), help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh", help=argparse.SUPPRESS)
     ap.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -3524,6 +4014,12 @@ def main() -> None:
         return rank_k4(Path(args.out), args.seed)
     if args.rank == "train":
         return rank_train(Path(args.out), args.seed, args.bf16)
+    if args.rank == "sample":
+        return rank_sample(Path(args.out), args.seed, args.mesh)
+    if args.rank == "serve":
+        return rank_serve(Path(args.out), args.seed)
+    if args.rank == "steps":
+        return rank_steps(Path(args.out), args.seed)
     # phases 3-4 with TF32 off: the f32 kernels' references (plain
     # versions, cuDNN yardsticks) and the bf16 plain versions' f32 sums are
     # full f32.  Phase 5 runs with PyTorch's own defaults, so that the
@@ -3614,13 +4110,15 @@ def main() -> None:
         paths["fast path"] = fast_path_main_path(dev, args.seed,  # 14
                                                  runs, timings)
         paths["memory ladder"] = ladder_main_path(dev, args.seed)  # 15
+        kept = {}
         for bf16 in (False, True):                           # phase 7
             paths[f"generate {dtype_name(bf16)}"] = generate_main_path(
                 dev, args.seed, experiment_dir(runs / dtype_name(bf16)),
-                runs / "generate", bf16)
+                runs / "generate", bf16, kept)
         paths["serve f32"] = serve_cli_main_path(             # phase 7b
             dev, args.seed, experiment_dir(runs / "f32"), runs / "serve")
         paths["eval"] = eval_main_path(dev, args.seed, runs)  # phase 9
+        paths.update(mesh_main_path(dev, args.seed, runs, kept))  # 16
     with tempfile.TemporaryDirectory() as work:               # phase 10
         paths["image"] = image_main_path(dev, args.seed, Path(work))
     torch.cuda.empty_cache()

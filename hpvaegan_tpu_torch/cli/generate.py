@@ -20,27 +20,40 @@ on the card; ``--no-cuda`` on the CPU.
 
 The parser is the JAX CLI's, flag for flag.  Batch ``i`` draws from
 ``seeded_generator(manualSeed, 1000 + i)`` (inject: ``3000 + i``) where
-the JAX CLI folds the same numbers into its root key.  Not ported yet,
-and raising before anything is written: ``--mesh-shape`` (ROADMAP Queue 1
-item 12).
+the JAX CLI folds the same numbers into its root key.
+
+``--mesh-shape DxS`` samples each batch over a (data, spatial) mesh of
+ranks (``SamplerSession(mesh_shape=...)``; JAX ``cli/generate.py:95-97,
+131-134``).  A process is a rank when the launcher's environment names
+it (``parallel/distributed.py`` ``LAUNCHER_VARS``); otherwise the command
+starts the D*S ranks itself on this host (``parallel/launch.py``), one a
+card, gloo CPU ranks under ``--no-cuda``, and refuses a mesh larger than
+the host's cards.  Every rank samples every batch; only rank 0 writes the
+files and logs the metrics.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
+import sys
 import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..eval import diversity_score, reconstruction_psnr, sifid, svfid
+from ..parallel import multihost, parse_mesh_shape
+from ..parallel.distributed import launcher_env
+from ..parallel.launch import spawn_ranks
 from ..serving import (SamplerSession, apply_snapshot, config_from_cli_args,
                        explicit_cli_keys)
 from ..utils.tools import seeded_generator
 
-__all__ = ["build_parser", "main", "check_ported", "open_session"]
+__all__ = ["build_parser", "main", "launch_ranks", "open_session"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,8 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--w-factor", type=float, default=1.0)
     p.add_argument("--t-factor", type=float, default=1.0)
     p.add_argument("--mesh-shape", type=str, default="",
-                   help="shard the sample batch over a device mesh (not "
-                        "ported yet: ROADMAP Queue 1 item 12)")
+                   help="shard the sample batch over a device mesh, e.g. 8")
     # pyramid injection (the reference's unused sample_init hook,
     # networks_3d.py:368-380): refine the REAL sample from level K upward
     p.add_argument("--inject-scale", type=int, default=-1,
@@ -106,12 +118,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Raise for a flag whose feature the port lacks, before any work."""
-    if args.mesh_shape:
-        raise NotImplementedError(
-            "--mesh-shape: sampling over several cards is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+def launch_ranks(args, argv, module: str) -> bool:
+    """Start the ranks of ``module`` on this host when ``--mesh-shape``
+    asks for several and this process is none of them (no launcher
+    environment, no process group up); returns whether it did, after
+    they all ended."""
+    if not args.mesh_shape or launcher_env() is not None \
+            or dist.is_initialized():
+        return False
+    n = math.prod(parse_mesh_shape(args.mesh_shape))
+    if n == 1:
+        return False
+    spawn_ranks(list(sys.argv[1:] if argv is None else argv), n,
+                args.no_cuda, module=module, flags=())
+    return True
 
 
 def open_session(args, build, argv=None,
@@ -122,7 +142,6 @@ def open_session(args, build, argv=None,
     and ``--sifid`` on a 3D one, as the JAX generate CLI does; the server,
     which scores nothing, takes and ignores both, as the JAX server
     does."""
-    check_ported(args)
     device = resolve_device("cpu" if args.no_cuda else "cuda")
     cfg = config_from_cli_args(args)
     # `--netG <ckpt>` alone rebuilds the training module tree from the
@@ -139,7 +158,8 @@ def open_session(args, build, argv=None,
     return SamplerSession(cfg, batch_size=args.batch_size,
                           manual_seed=args.manualSeed,
                           h_factor=args.h_factor, w_factor=args.w_factor,
-                          t_factor=args.t_factor, device=device)
+                          t_factor=args.t_factor,
+                          mesh_shape=args.mesh_shape, device=device)
 
 
 def report_svfid(sess: SamplerSession, args, samples) -> dict:
@@ -175,15 +195,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     call, output on the host), ``write_ms`` (each file), ``metrics``
     (with the ``svfid``/``sifid`` result dicts when asked for) and
     ``eval_ms`` (each of those scores' wall time, its trunk's build
-    included)."""
+    included).  Under ``--mesh-shape`` every rank returns its samples,
+    and only rank 0 writes and scores them; the process that started
+    the ranks returns ``{"output_dir", "ranks"}`` once they ended."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    sess = open_session(args, build_parser, argv)
-    dev, scale = sess.device, sess.scale
-
     out_dir = args.output_dir or os.path.join(os.path.dirname(args.netG),
                                               "eval")
-    os.makedirs(out_dir, exist_ok=True)
+    if launch_ranks(args, argv, "hpvaegan_tpu_torch.cli.generate"):
+        return {"output_dir": out_dir,
+                "ranks": math.prod(parse_mesh_shape(args.mesh_shape))}
+    sess = open_session(args, build_parser, argv)
+    dev, scale = sess.device, sess.scale
+    primary = multihost.is_primary()
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
     inject = args.inject_scale >= 0
     if inject:
         if not sess.is_triple:   # as the JAX CLI (generate.py:178-179)
@@ -215,13 +241,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         result["batch_ms"].append((time.perf_counter() - t0) * 1e3)
         for clip in out[:args.num_samples - len(samples)]:
             name = f"{'inject' if inject else 'sample'}_{len(samples)}"
-            t0 = time.perf_counter()
-            result["paths"].append(
-                sess.write_sample(clip, os.path.join(out_dir, name)))
-            result["write_ms"].append((time.perf_counter() - t0) * 1e3)
+            if primary:
+                t0 = time.perf_counter()
+                result["paths"].append(
+                    sess.write_sample(clip, os.path.join(out_dir, name)))
+                result["write_ms"].append((time.perf_counter() - t0) * 1e3)
             samples.append(clip)
         batch_idx += 1
     result["samples"] = np.stack(samples)
+    result["eval_ms"] = {}
+    if not primary:
+        return result
     if inject:
         logging.info(f"wrote {len(samples)} injected samples (from level "
                      f"{s0}) to {out_dir}")
@@ -238,7 +268,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             val = diversity_score(result["samples"])
             logging.info(f"sample diversity (mean pairwise L1): {val:.4f}")
             result["metrics"]["diversity"] = val
-    result["eval_ms"] = {}
     for name, asked, report in (("svfid", args.svfid, report_svfid),
                                 ("sifid", args.sifid, report_sifid)):
         if asked:

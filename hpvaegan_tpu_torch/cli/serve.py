@@ -41,6 +41,21 @@ each request its rows; its n-th dispatch draws from
 ``seeded_generator(manualSeed, 0x7fffffff, n)``.  Seeded requests, rec
 requests and requests of an exact multiple of the batch keep their solo
 dispatch.  A fault in a dispatch fails only the requests packed into it.
+
+``--mesh-shape DxS`` serves over a mesh of ranks (JAX
+``cli/serve.py:411-415``; the launch as ``cli.generate``'s).  Rank 0
+owns the transport, the ``Server``, the dispatcher and the one
+``DeviceThread``; every other rank runs a ``Follower``.  On the device
+thread rank 0 announces each session call before it makes it: a
+fixed-size int64 descriptor ``(op, mode, seed)`` broadcast over the
+group, ``seed`` the 64-bit value of the call's generator
+(``utils.tools.seed_value``), so that every rank makes the same call on
+the same draws.  While the device thread is idle it announces a
+keep-alive every quarter of the group's timeout, so the followers, which
+wait in that broadcast, outlive any idle spell; a keep-alive that fails
+(a rank died) ends the server with exit code 1.  ``Server.close()``
+(EOF on stdin, ``{"shutdown": true}``, the end of HTTP serving)
+announces the stop, and the followers return.
 """
 from __future__ import annotations
 
@@ -54,15 +69,48 @@ import threading
 import time
 from typing import Callable, Optional, Sequence
 
+import torch
+
+from ..parallel import distributed as _dist
+from ..parallel import multihost
 from ..serving import SamplerSession
-from ..utils.tools import seeded_generator
+from ..utils.tools import seed_value
 from .generate import build_parser as gen_parser
-from .generate import open_session
+from .generate import launch_ranks, open_session
 
 __all__ = ["build_parser", "DeviceThread", "CoalescingDispatcher", "Server",
-           "serve_stdio", "serve_http", "make_server", "main"]
+           "Follower", "serve_stdio", "serve_http", "make_server", "main"]
 
 _COALESCE_STREAM = 0x7fffffff
+# a sharded server's descriptor: (op, mode, seed)
+_STOP, _RUN, _ALIVE = 0, 1, 2
+_MODES = ("rand", "rec", "warm_rand", "warm_rec")
+
+
+def session_call(sess: SamplerSession, mode: str, seed: int):
+    """The session call of a dispatch: a rand or rec batch drawn from a
+    generator seeded with ``seed``, or a warmup (``warm_<mode>``, which
+    returns None)."""
+    if mode.startswith("warm_"):
+        return sess.warmup([mode[len("warm_"):]])
+    g = torch.Generator(device=sess.device).manual_seed(seed)
+    if mode == "rec":
+        return sess.reconstruct_batch(None, g)
+    return sess.sample_batch(g)
+
+
+def _announce(op: int, mode: str = "rand", seed: int = 0) -> None:
+    """Rank 0's descriptor of the next session call, to every rank."""
+    signed = seed - (1 << 64) if seed >= 1 << 63 else seed
+    _dist.broadcast_(torch.tensor([op, _MODES.index(mode), signed],
+                                  dtype=torch.int64))
+
+
+def _receive():
+    """``(op, mode, seed)`` as rank 0 announced them."""
+    t = _dist.broadcast_(torch.zeros(3, dtype=torch.int64))
+    op, mode, seed = (int(v) for v in t)
+    return op, _MODES[mode], seed & ((1 << 64) - 1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,9 +135,12 @@ def build_parser() -> argparse.ArgumentParser:
 class DeviceThread:
     """The one thread that runs the session's device work, in the order
     it is handed over: ``run(fn, *args)`` blocks until ``fn(*args)`` has
-    run there, and returns its result or raises its exception."""
+    run there, and returns its result or raises its exception.
+    ``idle``: ``(seconds, fn)``, ``fn()`` runs there after each idle spell
+    of that many seconds."""
 
-    def __init__(self):
+    def __init__(self, idle: Optional[tuple] = None):
+        self.idle = idle
         self.jobs: queue.Queue = queue.Queue()
         self.lock = threading.Lock()   # no job is queued after the stop
         self.running = True
@@ -116,7 +167,11 @@ class DeviceThread:
 
     def _run(self) -> None:
         while True:
-            job = self.jobs.get()
+            try:
+                job = self.jobs.get(timeout=self.idle and self.idle[0])
+            except queue.Empty:
+                self.idle[1]()
+                continue
             if job is None:
                 return
             fn, args = job["call"]
@@ -141,9 +196,10 @@ class CoalescingDispatcher:
     """
 
     def __init__(self, sess: SamplerSession, device: DeviceThread,
-                 window_s: float, seed0: int):
+                 window_s: float, seed0: int, batch: Callable):
         self.sess = sess
         self.device = device
+        self.batch = batch   # the device thread's (mode, seed) -> batch
         self.window_s = window_s
         self.capacity = sess.batch_size
         self.seed0 = seed0
@@ -236,8 +292,8 @@ class CoalescingDispatcher:
 
     def _dispatch(self, n: int):
         """The device thread's part of the n-th dispatch."""
-        return self.sess.sample_batch(seeded_generator(
-            self.seed0, _COALESCE_STREAM, n, device=self.sess.device))
+        return self.batch("rand", seed_value(self.seed0, _COALESCE_STREAM,
+                                             n))
 
 
 class Server:
@@ -251,11 +307,41 @@ class Server:
         self.seed0 = seed0
         self.counter = 0
         self.lock = threading.Lock()  # the request counter
-        self.device = DeviceThread()  # serialises all device work
+        self.mesh = getattr(sess, "mesh", None)
+        # serialises all device work; under a mesh it keeps the followers
+        # of an idle server alive
+        self.device = DeviceThread(
+            None if self.mesh is None
+            else (_dist.group_timeout_s() / 4, self._keep_alive))
         self.coalescer = (CoalescingDispatcher(sess, self.device,
-                                               coalesce_ms / 1e3, seed0)
+                                               coalesce_ms / 1e3, seed0,
+                                               self.batch)
                           if coalesce_ms > 0 else None)
         os.makedirs(out_dir, exist_ok=True)
+
+    def batch(self, mode: str, seed: int):
+        """On the device thread: one session call (``session_call``),
+        announced to the followers first under a mesh."""
+        if self.mesh is not None:
+            _announce(_RUN, mode, seed)
+        return session_call(self.sess, mode, seed)
+
+    def warmup(self, modes) -> None:
+        """On the device thread: one warmup batch a mode."""
+        for mode in modes:
+            if mode not in ("rand", "rec"):
+                raise ValueError(f"unknown warmup mode {mode!r} (rand|rec)")
+            self.batch(f"warm_{mode}", 0)
+
+    def _keep_alive(self) -> None:
+        """The idle device thread's keep-alive; a group that fails it has
+        lost a rank, and the server ends."""
+        try:
+            _announce(_ALIVE)
+        except Exception:
+            logging.exception("a rank of the sharded server is gone")
+            logging.shutdown()
+            os._exit(1)
 
     def info(self) -> dict:
         return {"ok": True, "event": "ready", "ndim": self.sess.ndim,
@@ -329,12 +415,8 @@ class Server:
         produced = 0
         batch_idx = 0
         while produced < plan["num"]:
-            g = seeded_generator(*plan["stream"], 1000 + batch_idx,
-                                 device=self.sess.device)
-            if plan["mode"] == "rec":
-                out = self.sess.reconstruct_batch(None, g)
-            else:
-                out = self.sess.sample_batch(g)
+            out = self.batch(plan["mode"],
+                             seed_value(*plan["stream"], 1000 + batch_idx))
             outs.append(out)
             produced += out.shape[0]
             batch_idx += 1
@@ -366,7 +448,34 @@ class Server:
     def close(self) -> None:
         if self.coalescer is not None:
             self.coalescer.close()
+        if self.mesh is not None:
+            try:
+                self.device.run(_announce, _STOP)
+            except RuntimeError:   # closed already, or the group is gone
+                logging.exception("could not stop the followers")
         self.device.close()
+
+
+class Follower:
+    """A rank other than 0 of a sharded server: it makes the session
+    calls that rank 0 announces, in order, on this one thread, until the
+    stop.  A call that fails here fails on rank 0 too (the same call on
+    the same files and draws) and is logged; a failed announcement (rank
+    0 is gone) raises."""
+
+    def __init__(self, sess: SamplerSession):
+        self.sess = sess
+
+    def run(self) -> None:
+        while True:
+            op, mode, seed = _receive()
+            if op == _STOP:
+                return
+            if op == _RUN:
+                try:
+                    session_call(self.sess, mode, seed)
+                except Exception:
+                    logging.exception(f"dispatch {mode} failed here")
 
 
 def serve_stdio(server: Server, in_stream, out_stream) -> None:
@@ -445,11 +554,15 @@ def serve_http(server: Server, host: str, port: int,
 
 def make_server(argv: Optional[Sequence[str]] = None):
     """``(server, args)`` as the command line says: the session (on the
-    card unless ``--no-cuda``), the server around it, warmed up."""
+    card unless ``--no-cuda``), the server around it, warmed up.  Under
+    ``--mesh-shape`` that is rank 0's; the other ranks get their
+    ``Follower``."""
     args = build_parser().parse_args(argv)
     # the server scores nothing: --svfid/--sifid parse and are ignored
     # on either ndim, as in the JAX server
     sess = open_session(args, build_parser, argv, check_metrics=False)
+    if sess.mesh is not None and not multihost.is_primary():
+        return Follower(sess), args
     out_dir = args.output_dir or os.path.join(os.path.dirname(args.netG),
                                               "serve")
     server = Server(sess, out_dir, default_num=args.num_samples,
@@ -458,7 +571,7 @@ def make_server(argv: Optional[Sequence[str]] = None):
     if warm:
         t0 = time.perf_counter()
         try:  # on the device thread, which then serves warm
-            server.device.run(sess.warmup, warm)
+            server.device.run(server.warmup, warm)
         except BaseException:
             server.close()
             raise
@@ -469,7 +582,13 @@ def make_server(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
+    if launch_ranks(build_parser().parse_args(argv), argv,
+                    "hpvaegan_tpu_torch.cli.serve"):
+        return
     server, args = make_server(argv)
+    if isinstance(server, Follower):
+        server.run()
+        return
     try:
         if args.port:
             serve_http(server, args.host, args.port)

@@ -46,11 +46,7 @@ import logging
 import math
 import os
 import random
-import socket
-import subprocess
 import sys
-import time
-from pathlib import Path
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -60,7 +56,8 @@ from ..core.config import build_parser, config_from_args
 from ..data.video import SingleVideoDataset
 from ..models.registry import make_generator
 from ..parallel import make_mesh, maybe_initialize, multihost, replicate
-from ..parallel.distributed import LAUNCHER_VARS, backend
+from ..parallel.distributed import backend
+from ..parallel.launch import spawn_ranks
 from ..parallel.mesh import parse_mesh_shape
 from ..train.trainer import train_scale
 from ..utils.logger import LoggingBlock, configure_logging
@@ -92,66 +89,6 @@ def note_noop_flags(cfg) -> None:
     for flag, (on, why) in NOOP_FLAGS.items():
         if on(cfg):
             logging.info(f"{flag}: accepted, nothing to do: {why}")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def spawn_ranks(argv: Sequence[str], n: int, no_cuda: bool,
-                poll_s: float = 0.2,
-                module: str = "hpvaegan_tpu_torch.cli.train_video") -> None:
-    """Run the CLI ``module`` (this one by default) as ``n`` ranks on this
-    host: fresh interpreters given ``argv`` plus ``--distributed`` and the
-    launcher's environment, one a card (gloo CPU ranks under
-    ``--no-cuda``, which share the host's cores unless
-    ``OMP_NUM_THREADS`` says otherwise).  Waits for all; when one fails
-    the others are stopped and RuntimeError names it."""
-    if not no_cuda:
-        resolve_device("cuda")
-        cards = torch.cuda.device_count()
-        if cards < n:
-            raise ValueError(
-                f"the mesh has {n} positions and this host {cards} CUDA "
-                f"card(s): the local launch starts one rank a card; start "
-                f"the ranks yourself with --distributed (ranks may then "
-                f"share a card, over gloo)")
-    root = str(Path(__file__).resolve().parents[2])
-    coordinator = f"127.0.0.1:{_free_port()}"
-    procs = []
-    try:
-        for rank in range(n):
-            env = dict(os.environ, **dict(zip(
-                LAUNCHER_VARS, (coordinator, str(n), str(rank)))))
-            env["PYTHONPATH"] = os.pathsep.join(
-                [root] + [p for p in [env.get("PYTHONPATH")] if p])
-            if no_cuda:
-                env.setdefault("OMP_NUM_THREADS",
-                               str(max(1, (os.cpu_count() or 1) // n)))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", module, *argv, "--distributed"],
-                env=env))
-        while True:
-            codes = [p.poll() for p in procs]
-            failed = [(i, c) for i, c in enumerate(codes) if c]
-            if failed:
-                raise RuntimeError(f"rank {failed[0][0]} of {n} exited with "
-                                   f"code {failed[0][1]}")
-            if all(c == 0 for c in codes):
-                return
-            time.sleep(poll_s)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.terminate()
-        for p in procs:
-            try:
-                p.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
 
 
 def main(argv: Optional[Sequence[str]] = None,

@@ -20,8 +20,10 @@ changes nothing under the BatchNorm critic), ``--compile-ahead`` and
 from the device-resident cache unless ``--host-loader``, the fast-path flags of ``cli.train_video``
 are taken and, as by the JAX baselines CLI, not used, every run opens an
 event file, and ``--spmd
---mesh-shape Dx1`` trains over a data mesh of ranks (started here, or one
-rank under ``--distributed``); a spatial mesh axis raises.
+--mesh-shape DxS`` trains over a (data, spatial) mesh of ranks (started
+here, or one rank under ``--distributed``): the batch over data, H over
+spatial, the VALID convs and the zero padding on windows of the whole H
+(``models/blocks.py``, ``models/networks.py``).
 """
 from __future__ import annotations
 

@@ -48,12 +48,13 @@ def kl_criterion(mu: torch.Tensor, logvar: torch.Tensor,
     return global_mean(kld, mesh)
 
 
-def kl_bern_criterion(x: torch.Tensor) -> torch.Tensor:
-    """Bernoulli KL against p = 0.5 (modules/losses.py:12-14)."""
+def kl_bern_criterion(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Bernoulli KL against p = 0.5 (modules/losses.py:12-14), mean over
+    all elements."""
     log_half = math.log(0.5)
     kld = x * (torch.log(x + 1e-20) - log_half) + (1 - x) * (
         torch.log(1 - x + 1e-20) - log_half)
-    return kld.mean()
+    return global_mean(kld, mesh)
 
 
 def mse(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:

@@ -41,11 +41,15 @@ H over ``spatial``):
   interior kept;
 * a stock conv takes the same halo and runs ``F.conv3d`` on the haloed
   block with no padding along H, which gives the interior rows directly
-  (how XLA partitions such a conv); stride 1 only;
+  (how XLA partitions such a conv); stride 1 only.  A VALID conv (the
+  baselines') runs on the window of the whole input that its block of
+  the output needs, the output blocked as any H is
+  (``Mesh.valid_window``);
 * BatchNorm takes its batch statistics over the whole mesh: one
-  differentiable all-reduce of the per-channel sum, sum of squares and
-  count (``Mesh.all_sum``), the biased variance over the global count,
-  so the running buffers move identically on every rank.
+  differentiable all-gather (``Mesh.gather_rows``) of each rank's count,
+  per-channel mean and squared deviations, combined by the
+  parallel-variance formula into the biased variance over the global
+  count, so the running buffers move identically on every rank.
 
 Initialisation (``init_mode``): ``"torch"``, PyTorch's default, for
 every module of ``GeneratorHPVAEGAN``, ``GeneratorVAE_nb`` and the SN
@@ -157,14 +161,20 @@ def _stock_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """A stock conv in the compute dtype: f32 with the bias fused, or
     operands cast to ``dtype``, the product rounded to it and the bias
     added in it (flax's ``nn.Conv(dtype=...)``).  Under a ``mesh`` with
-    a spatial axis ``x`` is this rank's H block: it takes ``padding`` rows
-    of halo and no zero padding along H."""
-    if mesh is not None and mesh.n_spatial > 1 and padding > 0:
+    a spatial axis ``x`` is this rank's H block: a padded conv takes
+    ``padding`` rows of halo and no zero padding along H; a VALID conv
+    takes the window of the whole input its output block needs
+    (``Mesh.valid_window``)."""
+    k = w.shape[-1]
+    if mesh is not None and mesh.n_spatial > 1 and (padding > 0 or k > 1):
         if stride != 1:
             raise NotImplementedError("a strided conv under a spatial mesh")
         h_dim = 3 if ndim == 3 else 2
-        x = halo(x, mesh, h_dim, padding)
-        padding = (padding, 0, padding) if ndim == 3 else (0, padding)
+        if padding == 0:
+            x = mesh.valid_window(x, h_dim, k)
+        else:
+            x = halo(x, mesh, h_dim, padding)
+            padding = (padding, 0, padding) if ndim == 3 else (0, padding)
     if dtype is None:
         return _conv(ndim)(x, w, b, stride, padding)
     y = _conv(ndim)(x.to(dtype), w.to(dtype), None, stride, padding)
@@ -314,18 +324,26 @@ class _BatchNorm(nn.Module):
 
     def _mesh_forward(self, x: torch.Tensor,
                       update_stats: bool) -> torch.Tensor:
-        """Batch statistics over every rank's block: the per-channel sum,
-        sum of squares and count in one differentiable all-reduce."""
+        """Batch statistics over every rank's block, as stable as
+        ``F.batch_norm``'s two passes, in one differentiable all-gather:
+        each rank's count, mean and sum of squared deviations from its
+        own mean, combined by the parallel-variance formula
+        (``E[x^2] - E[x]^2`` would lose the variance where the mean
+        dominates, as under the baselines' zero padding)."""
         dims = [d for d in range(x.dim()) if d != 1]
         c = x.shape[1]
-        count = x.new_full((1,), x.numel() // c)
-        sums = self.mesh.all_sum(torch.cat([x.sum(dim=dims),
-                                            (x * x).sum(dim=dims), count]))
-        mean = sums[:c] / sums[-1]
-        var = sums[c:2 * c] / sums[-1] - mean * mean   # biased, as flax
-        if update_stats:
-            self._move_running_stats(mean.detach(), var.detach())
         shape = (1, c) + (1,) * (x.dim() - 2)
+        mean = x.mean(dim=dims)
+        m2 = (x - mean.reshape(shape)).square().sum(dim=dims)
+        rows = self.mesh.gather_rows(torch.cat(
+            [x.new_full((1,), x.numel() // c), mean, m2]))
+        counts, means = rows[:, :1], rows[:, 1:c + 1]
+        total = counts.sum()
+        mean = (counts * means).sum(dim=0) / total
+        var = (rows[:, c + 1:].sum(dim=0) + (
+            counts * (means - mean).square()).sum(dim=0)) / total
+        if update_stats:   # the biased variance, as flax
+            self._move_running_stats(mean.detach(), var.detach())
         scale = (self.weight * torch.rsqrt(var + BN_EPS)).reshape(shape)
         return (x - mean.reshape(shape)) * scale + self.bias.reshape(shape)
 

@@ -76,6 +76,10 @@ previous stage's output is resized to the stage's size plus the VALID
 convs' shrink, and noise (``noises[idx]``, shaped like that resize) is
 added with ``amps[idx]``; in rec mode the upscale is zero-padded instead.
 They return the sample alone, not a triple (``returns_triple``).
+Under a mesh with a spatial axis their zero padding is the whole H's
+(``networks.pad_spatial``) and each VALID conv runs on the window of the
+whole input its output block needs (``models/blocks.py``), so every
+stage's output is blocked as any H is.
 
 ``--remat``/``--remat-blocks`` (``models/remat.py``, JAX
 ``generators.py:47-90``): every refinement stage, the VAE decoder and
@@ -172,14 +176,20 @@ class _PyramidModule(nn.Module):
             x = interpolate_2d(x, size)
         return x if self.mesh is None else self.mesh.slice_h(x, h_dim)
 
-    def _local(self, t, dtype=None) -> torch.Tensor:
+    def _local(self, t, dtype=None, batch_only: bool = False
+               ) -> torch.Tensor:
         """A whole NTHWC (NHWC) input in the model layout on this module's
-        device, cut to this rank's block under a mesh."""
+        device, cut to this rank's block under a mesh: its batch rows and
+        its H rows, or its batch rows alone (``batch_only``: a global
+        latent, which every rank of a spatial ring holds whole)."""
         x = to_model_layout(t, self.device, dtype)
         if self.mesh is None:
             return x
         fmt = (torch.channels_last_3d if x.dim() == 5
                else torch.channels_last)
+        if batch_only:
+            b0, b1 = self.mesh.batch_rows(x.shape[0])
+            return x[b0:b1].contiguous(memory_format=fmt)
         return self.mesh.shard(x, self.ndim).contiguous(memory_format=fmt)
 
     def _run(self, module, x: torch.Tensor, train: bool,
@@ -477,6 +487,20 @@ class GeneratorVAE_nb(GeneratorHPVAEGAN):
         eps_bern = torch.rand((b, 1, *spatial), **kw)
         return to_public_layout(eps_norm), to_public_layout(eps_bern)
 
+    def _whole_eps(self, real_zero_shape, bern, train: bool, generator):
+        """The rec forward's ``(eps_norm, eps_bern)`` drawn whole under a
+        mesh, as one process draws them: in eval mode ``eps_bern`` is the
+        Bernoulli sample of the whole gate (gathered first)."""
+        if train:
+            return self.draw_eps(real_zero_shape, generator)
+        eps_norm = torch.randn(
+            (real_zero_shape[0], *(1,) * (len(real_zero_shape) - 2),
+             self.cfg.latent_dim), dtype=self.dtype or torch.float32,
+            device=self.device, generator=generator)
+        whole = self.mesh.gather_whole(to_public_layout(bern.detach()),
+                                       self.ndim - 1)   # H of NTHWC / NHWC
+        return eps_norm, torch.bernoulli(whole.float(), generator=generator)
+
     def draw_latents(self, noise_init,
                      generator: Optional[torch.Generator] = None):
         """The rand forward's latents for the geometry of ``noise_init``
@@ -510,11 +534,12 @@ class GeneratorVAE_nb(GeneratorHPVAEGAN):
         (each drawn from ``generator`` when None), or, in rand mode, the
         explicit ``noise_init_norm``/``noise_init_bern``, else
         ``draw_latents(noise_init)``.  Stage noises as
-        ``GeneratorHPVAEGAN.apply``'s, at every stage."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "GeneratorVAE_nb under a mesh: its pooled latents are not "
-                "partitioned (train it in one process)")
+        ``GeneratorHPVAEGAN.apply``'s, at every stage.
+
+        Under a mesh every draw is made whole and cut: ``z_norm`` and
+        ``eps_norm`` over the batch alone (every rank of a spatial ring
+        holds the same rows), ``z_bern`` and ``eps_bern`` as any spatial
+        map."""
         with full_f32():
             if noise_init_norm is None and noise_init is not None:
                 noise_init_norm, noise_init_bern = self.draw_latents(
@@ -522,18 +547,21 @@ class GeneratorVAE_nb(GeneratorHPVAEGAN):
             if noise_init_norm is None:
                 assert real_zero is not None
                 mu, logvar, bern = self.encode(self._local(real_zero))
+                if eps is None and self.mesh is not None:
+                    eps = self._whole_eps(np.shape(real_zero), bern, train,
+                                          generator)
                 eps_norm, eps_bern = (None, None) if eps is None else eps
                 z_norm = reparameterize(
                     mu, logvar, train,
-                    None if eps_norm is None else self._local(eps_norm),
-                    generator)
+                    None if eps_norm is None
+                    else self._local(eps_norm, batch_only=True), generator)
                 z_bern = reparameterize_bern(
                     bern, train,
                     None if eps_bern is None else self._local(eps_bern),
                     generator)
                 stats = (mu, logvar, bern)
             else:
-                z_norm = self._local(noise_init_norm)
+                z_norm = self._local(noise_init_norm, batch_only=True)
                 z_bern = self._local(noise_init_bern)
                 stats = None
             fmt = (torch.channels_last_3d if z_bern.dim() == 5
@@ -571,15 +599,6 @@ class _Baseline(_PyramidModule):
         self.body.append(copy.deepcopy(self.body[-1]))
         return self
 
-    def _check_mesh(self) -> None:
-        """The batch may be split over a mesh; H may not: the VALID convs
-        and the zero padding would need a halo that changes with every
-        conv."""
-        if self.mesh is not None and self.mesh.n_spatial > 1:
-            raise NotImplementedError(
-                f"{type(self).__name__} over a spatial mesh axis: its VALID "
-                f"convs are not partitioned along H (use a Dx1 mesh)")
-
     def _noise_shape(self, idx: int, batch: int) -> Tuple[int, ...]:
         """NTHWC shape of stage ``idx``'s rand-mode noise."""
         size = tuple(d + 2 * self.shrink for d in self._shape(idx))
@@ -600,7 +619,7 @@ class _Baseline(_PyramidModule):
         output ``x``."""
         x_up = self._upscale(x, idx)
         if mode == "rand":
-            size = tuple(d + 2 * self.shrink for d in x_up.shape[2:])
+            size = tuple(d + 2 * self.shrink for d in self._shape(idx))
             x_pad = self._resize(x, size)
             if noises is not None:
                 noise = self._local(noises[idx], x_pad.dtype)
@@ -612,7 +631,7 @@ class _Baseline(_PyramidModule):
                 noise = generate_noise(ref=x_pad, generator=generator)
             # f32, as the JAX package's f32 amps make it
             return x_pad.float() + noise.float() * amps[idx], x_up
-        return pad_spatial(x_up, self.shrink), x_up
+        return pad_spatial(x_up, self.shrink, self.mesh), x_up
 
 
 class GeneratorCSG(_Baseline):
@@ -644,11 +663,11 @@ class GeneratorCSG(_Baseline):
               update_stats: bool = False) -> torch.Tensor:
         """The sample (NTHWC) from ``noise_init`` (rand: a fresh draw;
         rec: the fixed ``Z_init``), in the compute dtype."""
-        self._check_mesh()
         amps = [float(a) for a in amps]
         with full_f32():
             x = self.head(self._local(noise_init), train, update_stats)
-            x = self._run(self.body[0], pad_spatial(x, self.shrink), train,
+            x = self._run(self.body[0], pad_spatial(x, self.shrink,
+                                                    self.mesh), train,
                           update_stats)
             for idx in range(1, len(self.body)):
                 x_in, x_up = self._stage_input(x, idx, amps, mode, noises,
@@ -680,12 +699,11 @@ class GeneratorSG(_Baseline):
               generator: Optional[torch.Generator] = None,
               update_stats: bool = False) -> torch.Tensor:
         """As ``GeneratorCSG.apply``."""
-        self._check_mesh()
         amps = [float(a) for a in amps]
         with full_f32():
-            x = self._run(self.body[0], pad_spatial(self._local(noise_init),
-                                                    self.shrink), train,
-                          update_stats)
+            x = self._run(self.body[0],
+                          pad_spatial(self._local(noise_init), self.shrink,
+                                      self.mesh), train, update_stats)
             for idx in range(1, len(self.body)):
                 x_in, x_up = self._stage_input(torch.tanh(x), idx, amps,
                                                mode, noises, generator)

@@ -136,7 +136,13 @@ class EncodeVAE_nb(nn.Module):
     a sigmoid gate ``bern`` (one channel) scales the features, and ``mu``
     and ``logvar`` are averaged over the spatial axes (the reference's
     ``AdaptiveAvgPool(1)``).  Returns ``(mu, logvar, bern)``, the first two
-    of spatial size 1."""
+    of spatial size 1.  Under a ``mesh`` with a spatial axis each mean is
+    the block's sum, summed over the rank's spatial ring
+    (``Mesh.ring_sum``, whose backward sums over the ring too), over the
+    whole count: every rank of a ring holds the whole ``mu``/``logvar``
+    of its batch rows."""
+
+    mesh = None
 
     def __init__(self, in_features: int, latent_dim: int, nfc: int,
                  ker_size: int, enc_blocks: int = 2, ndim: int = 2,
@@ -158,10 +164,18 @@ class EncodeVAE_nb(nn.Module):
         feats = self.features(x)
         bern = torch.sigmoid(self.bern(feats))
         feats = bern * feats
-        spatial = tuple(range(2, x.dim()))
-        mu = self.mu(feats).mean(dim=spatial, keepdim=True)
-        logvar = self.logvar(feats).mean(dim=spatial, keepdim=True)
-        return mu, logvar, bern
+        return (self._pool(self.mu(feats)), self._pool(self.logvar(feats)),
+                bern)
+
+    def _pool(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the spatial axes, of the whole H under a mesh
+        (summed in f32, in ``t``'s dtype)."""
+        spatial = tuple(range(2, t.dim()))
+        if self.mesh is None or self.mesh.n_spatial == 1:
+            return t.mean(dim=spatial, keepdim=True)
+        count = self.mesh.ring_count(t[0, 0].numel())
+        total = self.mesh.ring_sum(t.float().sum(dim=spatial, keepdim=True))
+        return (total / count).to(t.dtype)
 
 
 class EncodeVAE1x1(nn.Module):
@@ -326,12 +340,18 @@ def _remat_forward(D, x, use_kernels: bool, update_stats, level):
                  enabled=level, update_stats=update_stats)
 
 
-def pad_spatial(x: torch.Tensor, p: int) -> torch.Tensor:
+def pad_spatial(x: torch.Tensor, p: int, mesh=None) -> torch.Tensor:
     """Zero-pad every spatial axis of an NCDHW / NCHW tensor by ``p`` on
     both sides (the JAX package's ``_pad_spatial``), keeping its memory
-    format."""
+    format.  Under a ``mesh`` with a spatial axis ``x`` is this rank's H
+    block and so is the result, of the padded H: the zero rows fall in
+    the end blocks (the whole is gathered, padded and sliced,
+    ``Mesh.gather_h``/``slice_h``)."""
     if p == 0:
         return x
+    if mesh is not None and mesh.n_spatial > 1:
+        h_dim = x.dim() - 2
+        return mesh.slice_h(pad_spatial(mesh.gather_h(x, h_dim), p), h_dim)
     y = F.pad(x, (p,) * (2 * (x.dim() - 2)))
     fmt = (torch.channels_last_3d if x.dim() == 5 else torch.channels_last)
     return y.contiguous(memory_format=fmt) if x.is_contiguous(
@@ -347,7 +367,9 @@ class WDiscriminatorBaselines(nn.Module):
     package.  BatchNorm in train mode uses the batch's statistics; the
     forward moves the running ones only when asked (``update_stats``), as
     the step's critic forwards on the real and the fake batch do and its
-    gradient penalty's does not (``steps.py:534-541``)."""
+    gradient penalty's does not (``steps.py:534-541``).  Under a ``mesh``
+    the padding is the whole H's (``pad_spatial``) and every conv takes
+    its halo."""
 
     mesh = None
 
@@ -378,7 +400,8 @@ class WDiscriminatorBaselines(nn.Module):
 
     def _forward(self, x: torch.Tensor, use_kernels: bool, blocks: bool,
                  update_stats: bool = False) -> torch.Tensor:
-        x = remat(self.head, pad_spatial(x, self.pad), enabled=blocks)
+        x = remat(self.head, pad_spatial(x, self.pad, self.mesh),
+                  enabled=blocks)
         for block in self.body:
             x = remat(block, x, True, enabled=blocks,
                       update_stats=update_stats)

@@ -43,13 +43,14 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["maybe_initialize", "launcher_env", "choose_backend", "backend",
-           "process_index", "process_count", "LAUNCHER_VARS",
-           "DEFAULT_TIMEOUT_S", "all_reduce_", "all_gather", "broadcast_",
-           "send_recv"]
+           "process_index", "process_count", "group_timeout_s",
+           "LAUNCHER_VARS", "DEFAULT_TIMEOUT_S", "all_reduce_", "all_gather",
+           "broadcast_", "send_recv"]
 
 LAUNCHER_VARS = ("HPVAEGAN_COORDINATOR", "HPVAEGAN_NUM_PROCESSES",
                  "HPVAEGAN_PROCESS_ID")
 DEFAULT_TIMEOUT_S = 600.0
+_timeout_s = DEFAULT_TIMEOUT_S   # the group's, once maybe_initialize made it
 
 _log = logging.getLogger("hpvaegan_tpu_torch.parallel")
 
@@ -88,7 +89,8 @@ def maybe_initialize(enable: bool,
             env = launcher_env()
             if env is None:
                 raise RuntimeError(
-                    "--distributed needs a launcher: set "
+                    "a process of a launch (--distributed, or a sharded "
+                    "sampler) needs a launcher: set "
                     + ", ".join(LAUNCHER_VARS)
                     + " (coordinator host:port, process count, this "
                     "process's id) for every process")
@@ -107,6 +109,8 @@ def maybe_initialize(enable: bool,
             chosen, init_method=f"tcp://{coordinator_address}",
             world_size=int(num_processes), rank=int(process_id),
             timeout=datetime.timedelta(seconds=timeout_s))
+        global _timeout_s
+        _timeout_s = float(timeout_s)
         _log.info(f"torch.distributed: process {process_id}/{num_processes}"
                   f", backend {chosen}"
                   + (" (ranks share a card: CUDA tensors staged through "
@@ -121,6 +125,13 @@ def process_index() -> int:
 
 def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def group_timeout_s() -> float:
+    """The seconds after which a collective of the group fails: the
+    ``timeout_s`` the group was made with here (``DEFAULT_TIMEOUT_S`` for
+    a group made elsewhere)."""
+    return _timeout_s
 
 
 def backend() -> Optional[str]:

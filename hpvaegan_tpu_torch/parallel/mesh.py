@@ -23,8 +23,15 @@ a conv goes point to point between ring neighbours
 Operators (``spatial_constraint``'s counterpart, around the inter-stage
 resize, which mixes all of H): ``gather_h`` (all-gather forward, the
 rank's own block backward) and ``slice_h`` (own block forward,
-all-gather backward), and ``all_sum``, the differentiable all-reduce
-(its backward sums too, as in ``SyncBatchNorm``).
+all-gather backward), ``all_sum``, the differentiable all-reduce
+(its backward sums too, as in ``SyncBatchNorm``), and ``gather_rows``,
+the differentiable all-gather of small per-rank statistics.  ``ring_sum`` is the
+same over the spatial ring alone (``GeneratorVAE_nb``'s pooled latents,
+which every rank of a ring holds whole).  ``valid_window`` gives a VALID
+conv the input rows its block of the output needs: it gathers the whole
+H and narrows it, and its backward sums the windows' cotangents over the
+ring (a window may reach past the neighbour's block; a point-to-point
+exchange of just those rows is a later optimisation).
 
 The JAX package's ``batch_spec`` chooses which axis a device_put shards;
 the port always shards B and H, so it has ``shard`` instead.
@@ -110,17 +117,66 @@ class _Slice(torch.autograd.Function):
         return _Gather.apply(g, ctx.mesh, ctx.dim), None, None
 
 
-class _AllSum(torch.autograd.Function):
-    """Sum over every rank of the mesh; the backward sums the cotangents,
-    since each rank's loss share reached the same sum."""
+class _GatherSummed(torch.autograd.Function):
+    """All of H from the spatial ring's blocks; backward sums the ring's
+    cotangents of the whole and keeps this rank's block: the adjoint
+    whatever each rank does with its copy."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _dist.all_reduce_(x.clone())
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.gather_blocks(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _AllSum.apply(g.contiguous())
+        return _SumSlice.apply(g.contiguous(), ctx.mesh, ctx.dim), None, None
+
+
+class _SumSlice(torch.autograd.Function):
+    """This rank's block of the ring's sum of a whole tensor; backward
+    gathers the cotangent's blocks (the adjoint of ``_GatherSummed``)."""
+
+    @staticmethod
+    def forward(ctx, g, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        total = _dist.all_reduce_(g.clone(), mesh.spatial_group)
+        start, stop = mesh.block(g.shape[dim])
+        return total.narrow(dim, start, stop - start).clone()
+
+    @staticmethod
+    def backward(ctx, gg):
+        return (_GatherSummed.apply(gg.contiguous(), ctx.mesh, ctx.dim),
+                None, None)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's ``x`` stacked along a new first dim, in rank order;
+    backward sums the cotangents over the ranks and keeps this rank's
+    row (through ``_AllSum``, so it is differentiable again)."""
+
+    @staticmethod
+    def forward(ctx, x, rank):
+        ctx.rank = rank
+        return torch.stack(_dist.all_gather(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllSum.apply(g.contiguous())[ctx.rank], None
+
+
+class _AllSum(torch.autograd.Function):
+    """Sum over the ranks of ``group`` (the world by default); the
+    backward sums the cotangents, since each rank's loss share reached
+    the same sum."""
+
+    @staticmethod
+    def forward(ctx, x, group=None):
+        ctx.group = group
+        return _dist.all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllSum.apply(g.contiguous(), ctx.group), None
 
 
 @dataclasses.dataclass(eq=False)
@@ -191,7 +247,7 @@ class Mesh:
         if self.n_spatial == 1:
             return x
         rows = [stop - start for start, stop in
-                block_rows(self._total(x.shape[dim]), self.n_spatial)]
+                block_rows(self.ring_count(x.shape[dim]), self.n_spatial)]
         longest = rows[0]
         pad = longest - x.shape[dim]
         if pad:
@@ -201,12 +257,6 @@ class Mesh:
         parts = _dist.all_gather(x, self.spatial_group)
         return torch.cat([p.narrow(dim, 0, r) for p, r in zip(parts, rows)],
                          dim)
-
-    def _total(self, local: int) -> int:
-        """The whole H from this rank's block: every rank's block length
-        summed over the ring (one all-reduce)."""
-        n = torch.tensor([local], dtype=torch.int64)
-        return int(_dist.all_reduce_(n, self.spatial_group)[0])
 
     def gather_h(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Differentiable all-gather of H; its backward keeps the block."""
@@ -219,6 +269,38 @@ class Mesh:
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Differentiable sum over every rank of the mesh."""
         return x if self.size == 1 else _AllSum.apply(x)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Differentiable all-gather over every rank of the mesh: the
+        ranks' ``x`` stacked along a new first dim."""
+        if self.size == 1:
+            return x.unsqueeze(0)
+        return _GatherRows.apply(x.contiguous(), self.rank)
+
+    def ring_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Differentiable sum over this rank's spatial ring."""
+        return (x if self.n_spatial == 1
+                else _AllSum.apply(x, self.spatial_group))
+
+    def ring_count(self, n: int) -> int:
+        """``n`` summed over this rank's spatial ring."""
+        if self.n_spatial == 1:
+            return n
+        t = torch.tensor([n], dtype=torch.int64)
+        return int(_dist.all_reduce_(t, self.spatial_group)[0])
+
+    def valid_window(self, x: torch.Tensor, dim: int, k: int
+                     ) -> torch.Tensor:
+        """The rows of the whole input along ``dim`` that this rank's
+        block of a VALID conv's output needs, from the blocks ``x``: the
+        output of ``H - k + 1`` rows is blocked as any H is
+        (``block_rows``), so the window is ``[o_start, o_stop + k - 1)``
+        of the whole.  Differentiable any number of times."""
+        if self.n_spatial == 1 or k == 1:
+            return x
+        whole = _GatherSummed.apply(x, self, dim)
+        start, stop = self.block(whole.shape[dim] - k + 1)
+        return whole.narrow(dim, start, stop - start + k - 1)
 
     def count(self, t: torch.Tensor) -> int:
         """The elements of the whole tensor whose block ``t`` is."""

@@ -44,8 +44,21 @@ noise through the decoder (rand, rec, inject), the baselines
 ``GeneratorCSG``/``GeneratorSG`` from image-channel noise (reference
 train_video_baselines.py:41), and reconstruct from the fixed ``Z_init``
 checkpointed beside ``netG`` (JAX ``serving.py:226-248``); they have no
-inject mode.  A sharded batch (``mesh_shape``, ROADMAP Queue 1 item 12)
-raises.
+inject mode.
+
+``mesh_shape`` ("DxS" or "D"; JAX ``serving.py:177-182, 218-224``)
+samples over a (data, spatial) mesh of ranks, one process each: every
+rank joins the launch (``parallel.maybe_initialize``, from the launcher
+environment, or a group already up), loads ``netG`` and replicates rank
+0's weights (``parallel.replicate``, checked bit for bit).  The samplers
+keep their signatures and every rank calls them alike: each draw is made
+whole from the session's generator (or handed in), ``G.apply`` cuts the
+rank's block (batch over data, H over spatial), and the output is
+gathered whole on every rank (``Mesh.gather_whole``).  A batch that D
+does not divide raises, naming both numbers.  Sampling uses the batch
+statistics, which under a mesh are the whole mesh's, so the samples
+equal the one-process session's within the f32 (or bf16) bar, not bit
+for bit.
 """
 from __future__ import annotations
 
@@ -66,6 +79,7 @@ from .core.pyramid import ScaledPyramid
 from .data.image import SingleImageDataset
 from .data.video import SingleVideoDataset
 from .models.registry import make_generator
+from .parallel import make_mesh, maybe_initialize, parse_mesh_shape, replicate
 from .tools.decode_frames import frames_path
 from .utils.saver import restore_file, restore_generator, write_png
 from .utils.video_io import write_avi
@@ -179,20 +193,19 @@ class SamplerSession:
     geometry, the model and the samplers.  ``device`` defaults to the card
     and raises when there is none.  Each sampler runs under
     ``torch.inference_mode`` itself (a per-thread mode), so the server's
-    threads may call it.
+    threads may call it.  ``mesh_shape``: sample over a mesh of ranks
+    (see the module docstring); every rank makes the same calls.
     """
 
     def __init__(self, cfg: Config, *, batch_size: int = 2,
                  manual_seed: int = 0, h_factor: float = 1.0,
                  w_factor: float = 1.0, t_factor: float = 1.0,
                  mesh_shape: str = "", device="cuda"):
-        if mesh_shape:
-            raise NotImplementedError(
-                f"mesh_shape={mesh_shape!r}: sampling over several cards "
-                f"is not ported yet (ROADMAP Queue 1 item 12)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch_size = int(batch_size)
+        self.mesh = self._join(parse_mesh_shape(mesh_shape)) \
+            if mesh_shape else None
         if not cfg.video_path and not cfg.image_path:
             raise RuntimeError(
                 "no source clip/image configured: pass --video-path/"
@@ -226,6 +239,8 @@ class SamplerSession:
             pyramid = ScaledPyramid(pyramid, h_factor, w_factor, t_factor)
             G.pyramid = pyramid
         self.G = G.to(self.device)
+        if self.mesh is not None:
+            replicate(self.G, self.mesh)
         self.pyramid = pyramid
         self.amps = [float(a) for a in raw["noise_amps"]]
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -239,6 +254,27 @@ class SamplerSession:
                               else pyramid.shape2d(0)),
                             cfg.latent_dim if self.is_triple else cfg.nc_im)
         self._rec_input = self._z_init = None
+
+    def _join(self, shape):
+        """This rank's mesh of ``shape``: a mesh of several ranks joins
+        the launch first (on the rank's card under CUDA); the session's
+        batch must split over the data axis."""
+        if math.prod(shape) > 1:
+            maybe_initialize(True, device_type=self.device.type)
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+        mesh = make_mesh(shape)
+        mesh.batch_rows(self.batch_size)
+        return mesh
+
+    def _host(self, out: torch.Tensor) -> np.ndarray:
+        """A sampler's output on the host as float32, whole: under a mesh
+        gathered from every rank's block (every rank gets it)."""
+        out = out.float()
+        if self.mesh is not None:
+            out = self.mesh.gather_whole(out, 2 if self.ndim == 3 else 1)
+        return out.cpu().numpy()
 
     # ---- the clip (rec and inject modes) ----
 
@@ -328,7 +364,7 @@ class SamplerSession:
                                     device=self.device)
             out = self._apply(noise_init=noise, mode="rand", noises=noises,
                               generator=g, **self._latent_kw(latents))
-            return out.float().cpu().numpy()
+            return self._host(out)
 
     def reconstruct_batch(self, real_zero: Optional[np.ndarray] = None,
                           generator: Optional[torch.Generator] = None, *,
@@ -352,7 +388,7 @@ class SamplerSession:
             else:
                 out = self._apply(real_zero=real_zero, mode="rec", eps=eps,
                                   generator=g)
-            return out.float().cpu().numpy()
+            return self._host(out)
 
     def inject_batch(self, x_init: np.ndarray, start: int,
                      generator: Optional[torch.Generator] = None, *,
@@ -372,7 +408,7 @@ class SamplerSession:
             out = self._apply(noise_init=zeros, sample_init=(start, x_init),
                               mode="rand", noises=noises, generator=g,
                               **self._latent_kw(latents))
-            return out.float().cpu().numpy()
+            return self._host(out)
 
     def write_sample(self, frame: np.ndarray, path_base: str) -> str:
         """A [-1, 1] clip (T, H, W, 3) -> ``path_base + ".avi"``,

@@ -207,7 +207,7 @@ def vae_step(G, opt_g, cfg, real, real_zero, amps: Sequence[float],
             generator=generator, update_stats=True)
         kl = kl_criterion(stats[0], stats[1], mesh)
         if len(stats) == 3:   # GeneratorVAE_nb's Bernoulli gate
-            kl = kl + kl_bern_criterion(stats[2])
+            kl = kl + kl_bern_criterion(stats[2], mesh)
         rec_vae = (mse(generated, _local(real, dev, mesh), mesh)
                    + mse(generated_vae, _local(real_zero, dev, mesh), mesh))
         total = cfg.rec_weight * rec_vae + cfg.kl_weight * kl

@@ -46,11 +46,11 @@ critic (``WDiscriminatorBaselines``) the ``--gp-chunked`` rung changes
 nothing (its penalty stays batched) and the ladder climbs on, as in the
 JAX package.
 
-Under a mesh (``--spmd --mesh-shape Dx1``; ``:94-105``) the generator and
+Under a mesh (``--spmd --mesh-shape DxS``; ``:94-105``) the generator and
 the critic are attached to it by the CLI, the batch is split over
-``data`` and the gradients summed, as in ``train_scale``; a spatial axis
-raises (the baselines' VALID convs are not partitioned along H).  Only
-rank 0 writes.
+``data``, H over ``spatial`` (the VALID convs and the zero padding see
+the whole H, ``models/blocks.py``) and the gradients summed, as in
+``train_scale``.  Only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -98,10 +98,6 @@ def train_scale_baselines(cfg, G, dataset, saver, summary=None,
     scale_idx = cfg.scale_idx
     dev, mesh = G.device, G.mesh
     seed = int(cfg.manualSeed or 0) if seed is None else int(seed)
-    if mesh is not None and mesh.n_spatial > 1:
-        raise NotImplementedError(
-            f"{cfg.generator} over a spatial mesh axis: its VALID convs are "
-            f"not partitioned along H (use a Dx1 mesh)")
     G.requires_grad_(True)
 
     if getattr(cfg, "Z_init", None) is None:

@@ -19,7 +19,8 @@ import torch
 
 from .logger import logbook as _logbook
 
-__all__ = ["ProgressBar", "create_progressbar", "seeded_generator"]
+__all__ = ["ProgressBar", "create_progressbar", "seed_value",
+           "seeded_generator"]
 
 _LOG_INTERVAL_S = 10.0   # between lines when stderr is not a terminal
 
@@ -88,10 +89,15 @@ def create_progressbar(total: int, desc: str = "",
     return ProgressBar(total=total, desc=desc, initial=initial)
 
 
-def seeded_generator(seed: int, *key: int, device=None) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` whose state depends only on
-    ``(seed, *key)`` (numpy's ``SeedSequence`` mixes them)."""
+def seed_value(seed: int, *key: int) -> int:
+    """The 64-bit seed that ``seeded_generator(seed, *key)`` gives its
+    generator (numpy's ``SeedSequence`` mixes them)."""
     state = np.random.SeedSequence(entropy=int(seed),
                                    spawn_key=tuple(int(k) for k in key))
-    value = int(state.generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(value)
+    return int(state.generate_state(1, np.uint64)[0])
+
+
+def seeded_generator(seed: int, *key: int, device=None) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` whose state depends only on
+    ``(seed, *key)``."""
+    return torch.Generator(device=device).manual_seed(seed_value(seed, *key))

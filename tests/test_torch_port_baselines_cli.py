@@ -19,7 +19,6 @@ what the port reads is the files.  Tolerance: f32 ``rtol=2e-3,
 atol=2e-4``."""
 import json
 import os
-import types
 from collections import Counter
 
 import flax.serialization
@@ -199,28 +198,24 @@ def test_baselines_train_over_a_data_mesh(clip, first_run, tmp_path,
     summed), and rank 0 writes one run: its amps equal the single-process
     run's (which also ran ``--visualize``, whose forwards touch no
     weight), its weights differ only where a summation order flipped the
-    sign of an Adam step (at most ``2 * lr`` a step, ten steps); a
-    spatial axis raises before any step."""
+    sign of an Adam step (at most ``2 * lr`` a step, ten steps).  A
+    spatial axis (``1x2``: each rank one block of H, the VALID convs and
+    the zero padding on windows of the whole H) trains the same run."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    _run(clip, tmp_path / "m", "--spmd", "--mesh-shape", "2x1")
-    exp = experiment(tmp_path / "m")
-    assert not os.path.exists(experiment(tmp_path / "m", 1))
     one = first_run[1]
-    for name in ("Noise_Amps.json",):
-        with open(os.path.join(exp, name)) as f, \
-                open(os.path.join(one, name)) as g:
-            np.testing.assert_allclose(json.load(f)["noise_amps"],
-                                       json.load(g)["noise_amps"],
-                                       rtol=RTOL)
-    a, b = (_load(os.path.join(d, "netG"))["gvars"] for d in (exp, one))
-    worst = max(float((a[k] - b[k]).abs().max()) for k in a)
-    assert worst <= 10 * 2 * 0.0005 * 1.01, worst
-    cfg = types.SimpleNamespace(scale_idx=0, manualSeed=0,
-                                generator="GeneratorCSG")
-    G = types.SimpleNamespace(device="cpu",
-                              mesh=types.SimpleNamespace(n_spatial=2))
-    with pytest.raises(NotImplementedError, match="spatial mesh"):
-        trainer_baselines.train_scale_baselines(cfg, G, None, None)
+    for sub, shape in (("m", "2x1"), ("s", "1x2")):
+        _run(clip, tmp_path / sub, "--spmd", "--mesh-shape", shape)
+        exp = experiment(tmp_path / sub)
+        assert not os.path.exists(experiment(tmp_path / sub, 1))
+        for name in ("Noise_Amps.json",):
+            with open(os.path.join(exp, name)) as f, \
+                    open(os.path.join(one, name)) as g:
+                np.testing.assert_allclose(json.load(f)["noise_amps"],
+                                           json.load(g)["noise_amps"],
+                                           rtol=RTOL)
+        a, b = (_load(os.path.join(d, "netG"))["gvars"] for d in (exp, one))
+        worst = max(float((a[k] - b[k]).abs().max()) for k in a)
+        assert worst <= 10 * 2 * 0.0005 * 1.01, (shape, worst)
 
 
 def test_vae_nb_trains_and_resumes_through_train_video(clip, tmp_path):

@@ -3,9 +3,8 @@ with ``--no-cuda``, on the tiny 3D run that the JAX CLI trained and on
 the port's own: the 3D counterparts of tests/test_generate_cli.py (rand
 samples distinct, rec with ``--metrics``, ``--inject-scale`` and its range
 check, ``--h-factor``, the snapshot alone, an explicit flag winning over
-it, a missing checkpoint), ``--mesh-shape`` (not ported yet) raising
-before anything is written, ``--svfid``, ``--sifid`` and ``--image-path``
-running, the card required without ``--no-cuda``, and the parser equal
+it, a missing checkpoint), ``--svfid``, ``--sifid`` and ``--image-path``
+running (``--mesh-shape``: tests/test_torch_port_mesh_cli.py), the card required without ``--no-cuda``, and the parser equal
 to the JAX CLI's."""
 import logging
 import os
@@ -155,16 +154,6 @@ def test_config_snapshot_cli_override(runs, which, tmp_path):
 def test_missing_checkpoint_fails(runs, tmp_path):
     with pytest.raises(RuntimeError, match="no <G> checkpoint"):
         _gen("/does/not/exist", tmp_path, "--video-path", "clip.avi")
-
-
-@pytest.mark.parametrize("flag,item", [(["--mesh-shape", "2"], 12)])
-def test_unported_flags_raise_naming_their_roadmap_item(runs, tmp_path,
-                                                       flag, item):
-    out = tmp_path / "out"
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag[0]}.*ROADMAP Queue 1 item {item}"):
-        _gen(runs["port"], out, *flag)
-    assert not out.exists()
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ import hpvaegan_tpu_torch.parallel
 import hpvaegan_tpu_torch.parallel.distributed
 import hpvaegan_tpu_torch.parallel.mesh
 import hpvaegan_tpu_torch.parallel.multihost
+import hpvaegan_tpu_torch.parallel.launch
 import hpvaegan_tpu_torch.losses
 import hpvaegan_tpu_torch.train.trainer
 import hpvaegan_tpu_torch.train.trainer_baselines

@@ -188,8 +188,3 @@ def test_rand_sampling_needs_no_frames_file(runs, tmp_path):
     psess.warmup(("rand", "rec"))   # rec on zeros without the frames
     with pytest.raises(FileNotFoundError, match="decode_frames"):
         psess.rec_input()
-
-
-def test_mesh_shape_names_its_roadmap_item(runs):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _port_session(runs["port"], mesh_shape="2")

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from hpvaegan_tpu_torch.cli import train_video
+from hpvaegan_tpu_torch.parallel.launch import free_port
 from hpvaegan_tpu_torch.tools.decode_frames import decode_frames
 from hpvaegan_tpu_torch.utils.tb_events import read_events
 
@@ -127,7 +128,7 @@ def _assert_like_single(run_dir, single_dir):
 
 def test_distributed_ranks_from_the_launcher_environment(clip, single,
                                                          tmp_path):
-    coordinator = f"127.0.0.1:{train_video._free_port()}"
+    coordinator = f"127.0.0.1:{free_port()}"
     argv = [sys.executable, "-m", "hpvaegan_tpu_torch.cli.train_video",
             "--video-path", clip, *ARGS, *SHARDED, "--distributed",
             "--run-dir", str(tmp_path)]

@@ -11,6 +11,11 @@ The test process writes the inputs into ``dir`` first (``inputs.pt``) and
 holds the results against JAX.  ``start_ranks`` starts a group and
 ``wait_ranks`` waits for it with a time limit, so a mismatched
 collective fails instead of hanging.
+
+    python tests/torch_port_ranks.py serve <rank> <world> <port> \
+        <timeout_s> <serve args...>
+
+runs one rank of ``cli.serve`` over a group with a shortened timeout.
 """
 from __future__ import annotations
 
@@ -231,6 +236,132 @@ def program_steps(meshes, workdir):
     return out
 
 
+def run_model_case(case: dict, mesh=None) -> dict:
+    """One training step of ``case`` (a dict of the models' config
+    overrides, weights, data and draws; see
+    tests/test_torch_port_mesh_models.py) on ``mesh`` (None: one
+    process): ``vae`` and ``gan`` run ``vae_step``/``gan_step``,
+    ``baseline`` runs ``baseline_step``.  Returns the metrics, the
+    gradients that reach Adam, the states after the step and the ranks'
+    parameter digest; for ``vae``, first an eval-mode rec forward drawing
+    from a generator of seed 7 (``evaluated``, whole)."""
+    import torch
+    from hpvaegan_tpu_torch.core.config import Config
+    from hpvaegan_tpu_torch.models.registry import (make_discriminator,
+                                                    make_generator)
+    from hpvaegan_tpu_torch.parallel import attach
+    from hpvaegan_tpu_torch.parallel.mesh import state_digest
+    from hpvaegan_tpu_torch.train import optim, steps
+
+    cfg = Config(**case["cfg"])
+    cfg.ar, cfg.org_fps = case["ar"], case["org_fps"]
+    cfg.adjust_scales()
+    cfg.scale_idx = scale = case["scale"]
+    G = make_generator(cfg.generator, cfg, cfg.pyramid(), ndim=3)
+    G.init(torch.Generator().manual_seed(0))
+    while len(G.body) < case["stages"]:
+        G.init_next_stage()
+    G.load_state_dict(case["G"])
+    attach(G.requires_grad_(True), mesh)
+    g_grads, d_grads = {}, {}
+    opt_g = record_grads(optim.build_g_optimizer(cfg, G, scale), G, g_grads)
+    evaluated = None
+    if case["step"] == "vae":   # an eval-mode rec forward on its own draws
+        with torch.no_grad():
+            out, _, _ = G.apply(case["amps"], real_zero=case["data"][1],
+                                mode="rec", train=False,
+                                generator=torch.Generator().manual_seed(7))
+            evaluated = out if mesh is None else mesh.gather_whole(out, 2)
+    D = None
+    if case["step"] != "vae":
+        D = make_discriminator(cfg.discriminator, cfg, 3)
+        D.load_state_dict(case["D"])
+        attach(D, mesh)
+        opt_d = record_grads(optim.build_d_optimizer(cfg, D), D, d_grads)
+    if case["step"] == "vae":
+        metrics = steps.vae_step(G, opt_g, cfg, *case["data"], case["amps"],
+                                 eps=case["eps"])
+    elif case["step"] == "gan":
+        metrics = steps.gan_step(G, D, opt_g, opt_d, cfg, *case["data"],
+                                 case["amps"], noises=case["noises"],
+                                 eps=case["eps"], alpha=case["alpha"],
+                                 latents=case["latents"])
+    else:
+        metrics = steps.baseline_step(G, D, opt_g, opt_d, cfg, *case["data"],
+                                      case["amps"], noises=case["noises"],
+                                      alphas=case["alphas"])
+    modules = [G] if D is None else [G, D]
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                evaluated=evaluated,
+                grads=g_grads, d_grads=d_grads, state=G.state_dict(),
+                d_state={} if D is None else D.state_dict(),
+                digest=torch.cat([state_digest(m) for m in modules]))
+
+
+def program_models(meshes, workdir):
+    """Every case of ``models.pt`` (``run_model_case``) on each mesh."""
+    import torch
+    from hpvaegan_tpu_torch.parallel import make_mesh
+    cases = torch.load(os.path.join(workdir, "models.pt"),
+                       weights_only=False)
+    out = {}
+    for shape in meshes:
+        mesh = make_mesh(shape)
+        for name, case in cases.items():
+            out[(shape, name)] = run_model_case(case, mesh)
+    return out
+
+
+def port_session(netG: str, **kw):
+    """The port's ``SamplerSession`` of the experiment ``netG`` on the
+    CPU, configured from its snapshot as the CLIs do (batch 2, seed 3
+    unless ``kw`` says otherwise)."""
+    from hpvaegan_tpu_torch.core.config import Config
+    from hpvaegan_tpu_torch.serving import SamplerSession, apply_snapshot
+    cfg = Config(netG=netG)
+    apply_snapshot(cfg, netG, explicit=set(), user_chose_source=False)
+    cfg.adjust_scales()
+    kw = {"batch_size": 2, "manual_seed": 3, **kw}
+    return SamplerSession(cfg, device="cpu", **kw)
+
+
+def session_calls(sess, calls) -> list:
+    """Each ``(mode, kwargs)`` of ``calls`` on ``sess``: ``rand``,
+    ``rec`` or ``inject`` batches."""
+    fns = {"rand": sess.sample_batch, "rec": sess.reconstruct_batch,
+           "inject": sess.inject_batch}
+    return [fns[mode](**kw) for mode, kw in calls]
+
+
+def program_sampling(meshes, workdir):
+    """Every case of ``sampling.pt`` (an experiment, the session's
+    arguments and its calls) through ``SamplerSession(mesh_shape=...)``
+    on each mesh: the calls' outputs, K4's calls, and, on a mesh with a
+    data axis, the error of a batch that axis does not divide."""
+    import torch
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4
+    cases = torch.load(os.path.join(workdir, "sampling.pt"),
+                       weights_only=False)
+    out = {}
+    for shape in meshes:
+        spec = "x".join(str(n) for n in shape)
+        for name, case in cases.items():
+            k4.counts.reset()
+            sess = port_session(case["netG"], mesh_shape=spec,
+                                **case["session"])
+            out[(shape, name)] = dict(
+                outs=session_calls(sess, case["calls"]),
+                k4=k4.counts.plain_calls,
+                block=sess.mesh.block(sess.pyramid.shape2d(sess.scale)[0]))
+        if shape[0] > 1:
+            try:
+                port_session(next(iter(cases.values()))["netG"],
+                             mesh_shape=spec, batch_size=3)
+            except ValueError as e:
+                out[(shape, "odd_batch")] = str(e)
+    return out
+
+
 def _ladder_run(mesh, oom_ranks, remat=False):
     """``train_scale`` in memory on ``mesh`` (3 GAN iterations of a tiny
     model, the critic on the mesh too); on the ranks in ``oom_ranks`` the
@@ -303,10 +434,29 @@ def program_ladder_one(meshes, workdir):
 
 PROGRAMS = {"k4": program_k4, "halo": program_halo, "steps": program_steps,
             "ladder_both": program_ladder_both,
-            "ladder_one": program_ladder_one}
+            "ladder_one": program_ladder_one, "models": program_models,
+            "sampling": program_sampling}
+
+
+def serve_rank(argv) -> None:
+    """``serve <rank> <world> <port> <timeout_s> <serve args...>``: one
+    rank of ``cli.serve`` over a group whose collectives time out after
+    ``timeout_s``."""
+    rank, world, port, timeout_s, *args = argv
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(1)
+    from hpvaegan_tpu_torch.cli import serve
+    from hpvaegan_tpu_torch.parallel import maybe_initialize
+    maybe_initialize(True, coordinator_address=f"127.0.0.1:{port}",
+                     num_processes=int(world), process_id=int(rank),
+                     timeout_s=float(timeout_s))
+    serve.main(args)
 
 
 def main(argv) -> None:
+    if argv[0] == "serve":
+        return serve_rank(argv[1:])
     program, rank, world, port, workdir = argv
     rank, world = int(rank), int(world)
     sys.path.insert(0, REPO)
