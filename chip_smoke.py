@@ -159,7 +159,7 @@ Phases; any failure exits non-zero and prints no result:
    ``WDiscriminatorBaselines`` run, which launches no kernel;
 13. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
    in bf16 and K4 in both, each with its launches over the main-path
-   runs, phases 14, 15 and 16 included, and K3's three instances with
+   runs, phases 14, 15, 16 and 17 included, and K3's three instances with
    their own phase's), the card line, and last ``{"ok": true, "device":
    {...}}``;
 14. the training fast path, phase 6's CLI (default model, the clip,
@@ -220,8 +220,29 @@ Phases; any failure exits non-zero and prints no result:
    the mesh's statistics on a 1x1 mesh, measured here), each rank's
    launches (derived), seconds and peak memory.
 
-Phases 6c, 11, 12, 14 and 15 run after 6b, before 7; phases 9, 16 and 10
-after 7b, before 8.
+17. the WGAN-GP's second order through the kernels (K1 and K4 are
+   differentiable any number of times, as the JAX package's recursive
+   ``conv3d64`` rule makes them): (a) ``sum (|grad_x sum tanh(K1(x))|
+   - 1)^2`` at the top stage's shape, f32 and bf16, with and without the
+   LeakyReLU, its gradients w.r.t. x, w and b through the kernels against
+   the same through ``conv3d64_plain`` (f32 at the kernel bar, bf16 at 2
+   ulp), 1 K1-fwd, 3 K1-dx and 2 K1-dw a call (derived: the inner pass
+   takes no dw), and ``Conv3d64DwFunction``'s backward against autograd
+   through ``conv3d64_dw_plain``; (b) the penalty and its backward into
+   the parameters on the scale-9 default critic (``--pconv``, no
+   ``--pfuse``, weights from ``--seed``) for interpolates of two
+   (2, 3, 13, 144, 256) volumes, through the K1 critic and through the
+   stock critic the trainer runs, f32 and bf16: the penalty and every
+   gradient (f32 at the kernel bar, bf16 at the model bar), each route's
+   median ms of five, its peak allocated memory, and the kernel route's
+   launches a call (5 K1-fwd and 5 K1-dx in the inner pass, 5 K1-dx and
+   5 K1-dw in the outer one, derived from the critic's five body convs;
+   under ``--profile`` the top device ops of each route); (c) (a)'s
+   penalty (f32, LeakyReLU) through K4 on a 1x2 mesh of ranks sharing the
+   card (``--rank k4gp``) against K1's second order on the whole volume.
+
+Phases 6c, 11, 12, 14, 15 and 17 run after 6b, before 7; phases 9, 16
+and 10 after 7b, before 8.
 """
 from __future__ import annotations
 
@@ -3991,6 +4012,379 @@ def mesh_main_path(dev, seed: int, runs: Path, keep: dict):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the WGAN-GP's second order through the kernels
+# ---------------------------------------------------------------------------
+
+GP_ITERS = 5            # timed penalties a route, after one warm-up
+GP_MESH = (1, 2)        # 17c's mesh
+GP_SLOPE = 0.2          # the critic's LeakyReLU
+
+
+def penalty_grads(conv, x, w, b, wrt):
+    """d/d``wrt`` of ``sum (|grad_x sum tanh(conv(x, w, b))|_channels -
+    1)^2``: the WGAN-GP's second order through one conv, its inner
+    gradient taken under ``input_grads_only()`` as the penalty takes it.
+    Under a mesh ``x`` is this rank's block and the sum its share."""
+    import torch
+    from hpvaegan_tpu_torch.ops.kernels.conv3d_pack import input_grads_only
+    y = conv(x, w, b)
+    with input_grads_only():
+        (g,) = torch.autograd.grad(torch.tanh(y.float()).sum(), x,
+                                   create_graph=True)
+    p = (g.float().square().sum(-1).sqrt() - 1.0).square().sum()
+    return torch.autograd.grad(p, wrt)
+
+
+def k1_launches(fwd: int, dx: int, dw: int, bf16: bool, base=None) -> dict:
+    """``base``'s keys (``all_counts()``'s by default), zero but for the
+    given K1 launches in one dtype."""
+    sfx = "_bf16" if bf16 else ""
+    want = {k: 0 for k in (base or all_counts())}
+    want.update({f"conv3d64_fwd{sfx}": fwd, f"conv3d64_dx{sfx}": dx,
+                 f"conv3d64_dw{sfx}": dw})
+    return want
+
+
+def _launched_since(before: dict, counts=all_counts) -> dict:
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+@contextlib.contextmanager
+def plain_k1(y_first=None):
+    """K1's Functions on the plain versions inside the block, on the card:
+    the same rule, with its bf16 roundings at the same points, each
+    kernel launch a plain conv (nothing counted).  ``y_first``: the
+    output of the first forward with a LeakyReLU (the kernel's own, so
+    that the mask is the kernel's: a pre-activation within rounding of
+    zero takes the other slope in another forward, and the inner
+    gradient there differs by 0.8 of the cotangent)."""
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
+    forward, dw = cp._forward, cp.conv3d64_dw
+    first = [y_first]
+
+    def plain(x, w, b, neg_slope, kind):
+        if neg_slope is not None and first[0] is not None:
+            y, first[0] = first[0], None
+            return y
+        return cp.conv3d64_plain(x, w, b, neg_slope)
+
+    cp._forward = plain
+    cp.conv3d64_dw = cp.conv3d64_dw_plain
+    try:
+        yield
+    finally:
+        cp._forward, cp.conv3d64_dw = forward, dw
+
+
+def gp_k1_second_order(dev, total: dict) -> None:
+    """17a: the penalty through K1 alone at the top stage's shape, f32 and
+    bf16, with and without the LeakyReLU: its gradients w.r.t. x, w and b
+    through the kernels against the same rule on ``conv3d64_plain``
+    with the kernel's LeakyReLU mask (``plain_k1``; f32 at KERNEL_TOL,
+    bf16 at 2 ulp: each gradient is a conv over an earlier bf16 output's
+    1-ulp flips), and against autograd through ``conv3d64_plain`` itself
+    (f32 at KERNEL_TOL; bf16 rounds at other points there:
+    BF16_MODEL_BAR) where no mask can differ: every gradient without the
+    LeakyReLU, dw and db (sums over the volume) with it; then
+    ``Conv3d64DwFunction``'s
+    backward against autograd through ``conv3d64_dw_plain`` for a
+    bf16-exact cotangent (one bf16 conv each: 1 ulp).  Every call's
+    launches against the derivation; ``total`` gathers them."""
+    import torch
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
+    label = card_line()
+    g = torch.Generator(device=dev).manual_seed(1717)
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        x, w, b = conv_inputs(dev, g, TOP_SHAPE)
+        x = x.bfloat16() if bf16 else x
+        for slope in (None, GP_SLOPE):
+            def grads(conv):
+                leaves = tuple(t.clone().requires_grad_(True)
+                               for t in (x, w, b))
+                return penalty_grads(
+                    lambda x, w, b: conv(x, w, b, neg_slope=slope),
+                    *leaves, leaves)
+
+            before = all_counts()
+            t0 = time.perf_counter()
+            got = grads(cp.conv3d64)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = _launched_since(before)
+            total.update(_add(total, launched))
+            # the forward, the inner dx; the outer dx and dw of the inner
+            # dx's node and of the forward's (tanh' reaches y); no inner dw
+            want = k1_launches(1, 3, 2, bf16)
+            if launched != want:
+                fail(f"17a K1 {dt} lrelu={slope}: launched "
+                     f"{_nonzero(launched)}, want {_nonzero(want)}")
+            with torch.no_grad():   # a comparison's launch: not counted
+                y = cp.conv3d64(x, w, b, neg_slope=slope) if slope else None
+            with plain_k1(y):
+                rule = grads(cp.conv3d64)
+            for name, a, r in zip("xwb", got, rule):
+                check_close(f"17a K1 second order {dt} lrelu={slope} d/d{name}"
+                            f" at {TOP_SHAPE}, against the rule on plain "
+                            f"convs", a, r, BF16_TOL2 if bf16 else KERNEL_TOL)
+            del rule, y
+            ref = grads(cp.conv3d64_plain)
+            for name, a, r in list(zip("xwb", got, ref))[bool(slope):]:
+                check_close(f"17a K1 second order {dt} lrelu={slope} d/d{name}"
+                            f" at {TOP_SHAPE}, against autograd through "
+                            f"conv3d64_plain", a, r,
+                            BF16_MODEL_BAR if bf16 else KERNEL_TOL)
+            print(f"17a K1 {dt} lrelu={slope} ({label}): the penalty's "
+                  f"gradients through the kernels in {secs * 1e3:.3f} ms "
+                  f"(first call), launches {_nonzero(launched)} (derived: "
+                  f"forward, inner dx; outer dx and dw of both nodes)",
+                  flush=True)
+            del got, ref
+            torch.cuda.empty_cache()
+        dy = torch.randn(TOP_SHAPE, device=dev, generator=g).to(x.dtype)
+        cot = torch.randn((3, 3, 3, 64, 64), device=dev,
+                          generator=g).to(x.dtype).float()
+
+        def dw_grads(dw_of):
+            leaves = tuple(t.clone().requires_grad_(True) for t in (x, dy))
+            return torch.autograd.grad(dw_of(*leaves), leaves, cot)
+
+        before = all_counts()
+        got = dw_grads(cp.Conv3d64DwFunction.apply)
+        torch.cuda.synchronize()
+        launched = _launched_since(before)
+        total.update(_add(total, launched))
+        want = k1_launches(1, 1, 1, bf16)
+        if launched != want:
+            fail(f"17a dw Function {dt}: launched {_nonzero(launched)}, "
+                 f"want {_nonzero(want)}")
+        for name, a, r in zip(("x", "dy"), got,
+                              dw_grads(cp.conv3d64_dw_plain)):
+            check_close(f"17a Conv3d64DwFunction {dt} d/d{name} at "
+                        f"{TOP_SHAPE}", a, r, BF16_TOL if bf16 else KERNEL_TOL)
+        del x, w, b, dy, got
+        torch.cuda.empty_cache()
+
+
+def print_top_device_ops(what: str, tracer, n: int = 8) -> None:
+    """The ``n`` device ops of a profile with the most device time."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)), e.count)
+            for e in tracer.key_averages()
+            if e.device_type != DeviceType.CPU]
+    total = sum(t for _, t, _ in rows)
+    print(f"{what}: {total / 1e3:.3f} ms of device time", flush=True)
+    for key, t, c in sorted(rows, key=lambda r: -r[1])[:n]:
+        print(f"  {t / 1e3:.3f} ms ({100 * t / max(total, 1):.2f}%) over {c}"
+              f": {key[:120]}", flush=True)
+
+
+def gp_critic_routes(dev, seed: int, profile: bool, total: dict) -> None:
+    """17b: the WGAN-GP plus its backward into the parameters on the
+    scale-9 default critic (nfc 64, num_layer 5, SN, ``--pconv``, no
+    ``--pfuse``; weights from ``seed``) for interpolates of two
+    (2, 3, 13, 144, 256) volumes, through the K1 critic and through the
+    stock critic (the trainer's route), f32 and bf16, inside the training
+    steps' ``full_f32()`` and ``deterministic()``: the penalty and every
+    parameter's gradient (f32 at KERNEL_TOL, bf16 at BF16_MODEL_BAR), each
+    route's median ms of GP_ITERS (CUDA events, after a warm-up) and peak
+    allocated memory, the K1 launches of every kernel-route call against
+    those derived from the critic (none in the stock route)."""
+    import statistics
+    import torch
+    from hpvaegan_tpu_torch import deterministic, full_f32, losses
+    from hpvaegan_tpu_torch.models.generators import to_model_layout
+    from hpvaegan_tpu_torch.models.registry import make_discriminator
+    label = card_line()
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        cfg = main_config(bf16=bf16, pconv=True)
+        D = make_discriminator(cfg.discriminator, cfg, 3)
+        D.reset_parameters(torch.Generator().manual_seed(seed + 1))
+        D.to(dev)
+        n = sum(blk.kernel_route for blk in D.body)
+        if D.pfuse or n != cfg.num_layer or D.head.kernel_route:
+            fail(f"17b: the critic routes {n} body convs to K1, pfuse "
+                 f"{D.pfuse}")
+        g = torch.Generator(device=dev).manual_seed(seed + 17)
+        shape = (BATCH, *cfg.pyramid().shape3d(SCALE), 3)
+        real, fake = (to_model_layout(torch.randn(
+            shape, device=dev, generator=g).tanh_()) for _ in range(2))
+        alpha = torch.rand((), device=dev, generator=g)
+
+        def route(use_kernels):
+            D.zero_grad(set_to_none=True)
+            with full_f32(), deterministic():
+                gp = losses.calc_gradient_penalty(
+                    lambda x: D(x, use_kernels=use_kernels), real, fake,
+                    cfg.lambda_grad, alpha)
+                inner = all_counts()
+                gp.backward()
+            return gp.detach(), inner
+
+        # per call: the inner pass n forward and n dx, no dw; the outer
+        # pass n dx (the inner dx's node) and n dw; the stock route none
+        want = {True: (k1_launches(n, n, 0, bf16), k1_launches(n, 2 * n, n,
+                                                               bf16)),
+                False: (k1_launches(0, 0, 0, bf16),) * 2}
+        res = {}
+        for use_kernels in (True, False):
+            name = "kernel" if use_kernels else "stock"
+
+            def call():
+                before = all_counts()
+                gp, inner = route(use_kernels)
+                torch.cuda.synchronize()
+                got = (_launched_since(before, lambda: inner),
+                       _launched_since(before))
+                total.update(_add(total, got[1]))
+                if got != want[use_kernels]:
+                    fail(f"17b {name} route {dt}: launched (inner, all) "
+                         f"{[_nonzero(c) for c in got]}, want "
+                         f"{[_nonzero(c) for c in want[use_kernels]]}")
+                return gp
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            gp = call()
+            peak = torch.cuda.max_memory_allocated(dev)
+            grads = {k: torch.zeros_like(p) if p.grad is None
+                     else p.grad.clone() for k, p in D.named_parameters()}
+            times = []
+            for i in range(GP_ITERS + 1):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                call()
+                e1.record()
+                e1.synchronize()
+                if i:    # the first is the warm-up
+                    times.append(e0.elapsed_time(e1))
+            res[name] = dict(gp=gp, grads=grads, peak=peak, base=base,
+                             ms=statistics.median(times), times=times)
+            if profile:
+                from torch.profiler import ProfilerActivity, profile as prof
+                with prof(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as tracer:
+                    call()
+                print_top_device_ops(f"17b {name} route {dt}, one penalty "
+                                     f"and its backward ({label})", tracer)
+        bar = BF16_MODEL_BAR if bf16 else KERNEL_TOL
+        k, st = res["kernel"], res["stock"]
+        check_close(f"17b penalty {dt}, kernel route vs stock", k["gp"],
+                    st["gp"], bar)
+        worst = max(check_close(f"17b d/d{name} {dt}, kernel route vs stock",
+                                k["grads"][name], st["grads"][name], bar)
+                    for name in st["grads"])
+        for name, r in res.items():
+            print(f"17b {name} route {dt} ({label}): penalty "
+                  f"{float(r['gp']):.6e}; {r['ms']:.4f} ms a penalty and its "
+                  f"backward (median of {GP_ITERS}: "
+                  f"{[round(t, 4) for t in r['times']]}); peak allocated "
+                  f"{r['peak']} bytes ({r['peak'] - r['base']} above the "
+                  f"critic and inputs); launches a call "
+                  f"{[_nonzero(c) for c in want[name == 'kernel']]} "
+                  f"(inner, all; derived, checked)", flush=True)
+        print(f"17b {dt}: the kernel route {k['ms']:.4f} ms against the "
+              f"stock route's {st['ms']:.4f} ms "
+              f"({st['ms'] / k['ms']:.3f}x), peak {k['peak']} against "
+              f"{st['peak']} bytes; gradients within {worst:.3e}",
+              flush=True)
+        del D, real, fake, res, k, st
+        torch.cuda.empty_cache()
+
+
+def rank_k4gp(out: Path, seed: int) -> None:
+    """One rank of phase 17c: 17a's penalty (f32, the critic's LeakyReLU)
+    through K4 on a 1x2 mesh at the top stage's shape, held against K1's
+    second order on the whole volume (every rank runs it itself) at
+    KERNEL_TOL: this rank's dx block, dw and db summed over the ranks;
+    the K4 call's launches against the derivation; a JSON result with
+    them (the whole-volume comparison's launches are not counted) in
+    ``out``."""
+    import torch
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4
+    from hpvaegan_tpu_torch.parallel import make_mesh, maybe_initialize
+    from hpvaegan_tpu_torch.parallel.distributed import all_reduce_, backend
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = maybe_initialize(True, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(GP_MESH)
+    g = torch.Generator(device=dev).manual_seed(seed + 1717)
+    x, w, b = conv_inputs(dev, g, TOP_SHAPE)
+    leaves = tuple(t.clone().requires_grad_(True) for t in (x, w, b))
+    ref = penalty_grads(lambda x, w, b: cp.conv3d64(
+        x, w, b, neg_slope=GP_SLOPE), *leaves, leaves)
+    del leaves
+
+    def k4_grads():
+        xl = mesh.shard(x, 2).requires_grad_(True)
+        wl, bl = (t.clone().requires_grad_(True) for t in (w, b))
+        return penalty_grads(lambda x, w, b: k4.conv3d64_spmd(
+            x, w, b, mesh, neg_slope=GP_SLOPE), xl, wl, bl, (xl, wl, bl))
+
+    before = spmd_counts()
+    dx, dw, db = k4_grads()
+    torch.cuda.synchronize()
+    counts = _launched_since(before, spmd_counts)
+    want = k1_launches(1, 3, 2, False, counts)
+    want["conv3d64_spmd"] = 1
+    _rank_counts(counts, _nonzero(want), f"17c K4 rank {rank}")
+    errs = [check_close(f"17c K4 {GP_MESH} rank {rank} d/dx (its block) vs "
+                        f"K1 on the whole volume", dx, mesh.shard(ref[0], 2)),
+            check_close(f"17c K4 {GP_MESH} rank {rank} d/dw (summed over the "
+                        f"ranks) vs K1", all_reduce_(dw.clone()), ref[1]),
+            check_close(f"17c K4 {GP_MESH} rank {rank} d/db (summed) vs K1",
+                        all_reduce_(db.clone()), ref[2])]
+    ms = _concurrent_ms(k4_grads, 3)
+    print(f"17c K4 second order {GP_MESH} rank {rank} ({sharded_label()}, "
+          f"backend {backend()}): launches {_nonzero(counts)} (derived, "
+          f"checked); {ms:.3f} ms the penalty's gradients, all ranks at "
+          f"once", flush=True)
+    (out / f"k4gp_{rank}.json").write_text(json.dumps(
+        {"counts": counts, "errs": errs, "ms": ms}))
+
+
+def gp_main_path(dev, seed: int, profile: bool) -> dict:
+    """Phase 17 (see the module's docstring).  Returns the launches of its
+    kernel runs: 17a's and 17b's in this process, 17c's summed over the
+    ranks."""
+    import torch
+    from hpvaegan_tpu_torch import full_f32
+    total = {}
+    t0 = time.perf_counter()
+    with full_f32():   # the plain references in full f32
+        gp_k1_second_order(dev, total)                            # 17a
+    print(f"phase 17a: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    gp_critic_routes(dev, seed, profile, total)                   # 17b
+    print(f"phase 17b: {time.perf_counter() - t0:.3f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="gp17_"))
+    try:                                                          # 17c
+        world = GP_MESH[0] * GP_MESH[1]
+        run_ranks(world, ["k4gp", "--out", str(out), "--seed", str(seed)],
+                  f"K4 second order {GP_MESH}")
+        total = _add(total, _ranks_counts(out, "k4gp_{rank}.json", world))
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"phase 17c: {time.perf_counter() - t0:.3f} s", flush=True)
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3998,7 +4392,8 @@ def main() -> None:
     # phase 8 starts its ranks as this script with --rank (the launcher's
     # environment names each rank)
     ap.add_argument("--rank", choices=("k4", "train", "sample", "serve",
-                                       "steps"), help=argparse.SUPPRESS)
+                                       "steps", "k4gp"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     ap.add_argument("--mesh", help=argparse.SUPPRESS)
     ap.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
@@ -4020,6 +4415,8 @@ def main() -> None:
         return rank_serve(Path(args.out), args.seed)
     if args.rank == "steps":
         return rank_steps(Path(args.out), args.seed)
+    if args.rank == "k4gp":
+        return rank_k4gp(Path(args.out), args.seed)
     # phases 3-4 with TF32 off: the f32 kernels' references (plain
     # versions, cuDNN yardsticks) and the bf16 plain versions' f32 sums are
     # full f32.  Phase 5 runs with PyTorch's own defaults, so that the
@@ -4110,6 +4507,8 @@ def main() -> None:
         paths["fast path"] = fast_path_main_path(dev, args.seed,  # 14
                                                  runs, timings)
         paths["memory ladder"] = ladder_main_path(dev, args.seed)  # 15
+        paths["GP second order"] = gp_main_path(dev, args.seed,   # 17
+                                                args.profile)
         kept = {}
         for bf16 in (False, True):                           # phase 7
             paths[f"generate {dtype_name(bf16)}"] = generate_main_path(

@@ -9,7 +9,10 @@ one place where they differ (see ``calc_gradient_penalty``).
 
 The WGAN-GP's double backprop is ``torch.autograd.grad`` with
 ``create_graph=True``, as in the reference.  The critic it differentiates
-must be made of stock ops: the kernels' gradients are first order only.
+may run stock convs (the trainer's route, as in the JAX package) or the
+K1 kernels, whose gradients are differentiable any number of times; the
+inner gradient is taken under ``input_grads_only()``, so K1 computes no
+weight gradient there.  K2's gradients are first order only.
 ``chunked`` (``--gp-chunked``) evaluates it one sample at a time and
 backpropagates each sample's term at once, so that one sample's double
 backward graph lives at a time (the JAX package's ``lax.map``).
@@ -28,6 +31,8 @@ import math
 from typing import Callable, Optional
 
 import torch
+
+from .ops.kernels.conv3d_pack import input_grads_only
 
 __all__ = ["global_mean", "kl_criterion", "kl_bern_criterion", "mse",
            "calc_gradient_penalty"]
@@ -117,5 +122,7 @@ def _penalty(d_apply, interpolates: torch.Tensor) -> torch.Tensor:
     """``(|grad_x D(x)|_channels - 1)^2`` at the (detached) ``x``, with
     the graph of its gradient kept for the double backprop."""
     x = interpolates.detach().requires_grad_(True)
-    (grads,) = torch.autograd.grad(d_apply(x).sum(), x, create_graph=True)
+    out = d_apply(x).sum()
+    with input_grads_only():
+        (grads,) = torch.autograd.grad(out, x, create_graph=True)
     return (grads.square().sum(dim=1).sqrt() - 1.0).square()

@@ -19,9 +19,13 @@ Replaces the TPU kernels behind ``conv3d64``
 * the bias gradient is a plain sum, as the JAX package computes it
   outside Pallas.
 
-``conv3d64`` is differentiable through ``Conv3d64Function`` (marked
-``once_differentiable``: the WGAN-GP's double backprop runs the stock
-critic, as in the JAX package, and a second-order use raises).
+``conv3d64`` is differentiable any number of times, as the JAX rule is
+(``conv3d_pack.py:388-447``): ``Conv3d64Function``'s backward computes dx
+through ``conv3d64`` itself on ``flip_swap(w)`` and dw through
+``Conv3d64DwFunction``, whose backward is again two K1 convs, so every
+derivative of every order runs on these kernels.  Inside
+``input_grads_only()`` (the WGAN-GP's inner gradient, taken w.r.t. the
+critic's input alone) the backward skips dw and db.
 
 Two compute dtypes, as in the JAX package (``conv3d_pack.py:190-197,
 315-320, 423-444``):
@@ -53,6 +57,7 @@ it launches its kernel or raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -60,11 +65,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 __all__ = ["conv3d64", "conv3d64_plain", "conv3d64_dw", "conv3d64_dw_plain",
            "conv3d64_dx", "flip_swap", "as_compute", "scalar_as",
-           "Conv3d64Function",
+           "Conv3d64Function", "Conv3d64DwFunction", "input_grads_only",
            "counts", "KernelCounts", "kernel_config", "dw_kernel_config",
            "DwPlan", "dw_plan", "FwdPlan", "fwd_plan", "SOURCE", "DW_SOURCE",
            "REPLACES", "DX_REPLACES", "DW_REPLACES"]
@@ -446,48 +450,131 @@ def _lrelu_grad(dy: torch.Tensor, y: torch.Tensor, slope: float):
     return torch.where(y >= 0, dy, scalar_as(slope, dy.dtype) * dy)
 
 
+_inputs_only = 0   # depth of the input_grads_only() contexts now open
+
+
+@contextlib.contextmanager
+def input_grads_only():
+    """Within: K1's backward computes the input gradient only, no dw and
+    no db.  ``ctx.needs_input_grad`` is fixed when the graph is built, so
+    a gradient taken w.r.t. the input alone (the WGAN-GP's inner
+    ``autograd.grad``, ``losses.calc_gradient_penalty``) would otherwise
+    launch a dw per conv for nothing.  The setting is process-wide while
+    open (the autograd engine runs a CUDA backward on its own thread):
+    take no gradient of a kernel conv's weights in another thread
+    meanwhile."""
+    global _inputs_only
+    _inputs_only += 1
+    try:
+        yield
+    finally:
+        _inputs_only -= 1
+
+
+def _differentiable(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _conv(x, w, b, neg_slope, kind: str):
+    """The forward kernel counted as ``kind``, through the Function when
+    a gradient may be taken."""
+    if _differentiable(x, w, b):
+        return Conv3d64Function.apply(x, w, b, neg_slope, kind)
+    return _forward(x, w, b, neg_slope, kind)
+
+
+def _dw(x, dy):
+    if _differentiable(x, dy):
+        return Conv3d64DwFunction.apply(x, dy)
+    return conv3d64_dw(x, dy)
+
+
 class Conv3d64Function(torch.autograd.Function):
-    """``conv3d64`` with its gradients on the kernels: dx on the forward
-    kernel with ``flip_swap(w)``, dw on the dw kernel, db a plain f32 sum
-    (``conv3d_pack.py:414-447``).  The cotangent is rounded to x's dtype
-    first; dx comes back in the cotangent's dtype, dw and db in the
-    parameters'.  Gradients not asked for are skipped."""
+    """``conv3d64`` with its gradients on the kernels (``conv3d_pack.py:
+    414-447``): dx is ``conv3d64`` again on ``flip_swap(w)`` (counted as a
+    dx launch), dw is ``Conv3d64DwFunction``, db a plain f32 sum, all of
+    them differentiable, so the backward can itself be differentiated.
+    The cotangent is rounded to x's dtype first; dx comes back in the
+    cotangent's dtype, dw and db in the parameters'.  Gradients not asked
+    for are skipped, and so are dw and db inside ``input_grads_only()``.
+    An undefined cotangent stays undefined (no launch): the outer pass of
+    the WGAN-GP sends one into every forward node of the critic (a stock
+    conv's double backward has no input gradient when the inner pass took
+    no weight gradient), and materialised zeros would cost a dx and a dw
+    each."""
 
     @staticmethod
-    def forward(ctx, x, w, b, neg_slope):
-        y = _forward(x, w, b, neg_slope, "fwd")
+    def forward(ctx, x, w, b, neg_slope, kind):
+        y = _forward(x, w, b, neg_slope, kind)
         ctx.neg_slope = neg_slope
         ctx.b_dtype = b.dtype if b is not None else None
         ctx.save_for_backward(x, w, y if neg_slope is not None else None)
+        ctx.set_materialize_grads(False)
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
+        if dy is None:
+            return None, None, None, None, None
         x, w, y = ctx.saved_tensors
         out_dtype = dy.dtype
         dy = as_compute(dy.contiguous(), x.dtype)
         if ctx.neg_slope is not None:
             dy = _lrelu_grad(dy, y, ctx.neg_slope)
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx = conv3d64_dx(dy, w).to(out_dtype) if need_x else None
-        dw = conv3d64_dw(x, dy).to(w.dtype) if need_w else None
+        if _inputs_only:
+            need_w = need_b = False
+        dx = (_conv(dy, flip_swap(w), None, None, "dx").to(out_dtype)
+              if need_x else None)
+        dw = _dw(x, dy).to(w.dtype) if need_w else None
         db = (dy.float().sum(dim=(0, 1, 2, 3)).to(ctx.b_dtype)
               if need_b and ctx.b_dtype is not None else None)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
+
+
+class Conv3d64DwFunction(torch.autograd.Function):
+    """``conv3d64_dw`` made differentiable, the counterpart of the JAX
+    package's ``_dw`` (``conv3d_pack.py:387-400``).  dw is bilinear in
+    (x, dy), and its reverse-mode rule for a cotangent g ``(3,3,3,64,64)``
+    is the transpose of ``_dw_jvp``, two K1 convs: grad x =
+    ``conv3d64(dy, flip_swap(g))`` (sum over k, co of
+    ``g[k,ci,co] dy[q-k+1,co]``), counted as dx, and grad dy =
+    ``conv3d64(x, g)`` (sum over k, ci of ``g[k,ci,co] x_pad[p+k-1,ci]``),
+    counted as fwd; g is rounded to the compute dtype, grad x comes back in
+    x's dtype and grad dy in dy's.  An undefined g launches nothing."""
+
+    @staticmethod
+    def forward(ctx, x, dy):
+        ctx.dy_dtype = dy.dtype
+        dy = as_compute(dy, x.dtype)
+        ctx.save_for_backward(x, dy)
+        ctx.set_materialize_grads(False)
+        return conv3d64_dw(x, dy)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None
+        x, dy = ctx.saved_tensors
+        g = g.contiguous()
+        need_x, need_dy = ctx.needs_input_grad
+        gx = (_conv(dy, flip_swap(g), None, None, "dx").to(x.dtype)
+              if need_x else None)
+        gdy = (_conv(x, g, None, None, "fwd").to(ctx.dy_dtype)
+               if need_dy else None)
+        return gx, gdy
 
 
 def conv3d64(x: torch.Tensor, w: torch.Tensor,
              b: Optional[torch.Tensor] = None,
              neg_slope: Optional[float] = None) -> torch.Tensor:
     """3x3x3 SAME conv + bias (+ LeakyReLU) for x ``(B,T,H,W,64)``,
-    differentiable once, computed in x's dtype (float32, or bfloat16 with
-    ``w`` and ``b`` rounded to it and f32 accumulation).
+    differentiable any number of times, computed in x's dtype (float32,
+    or bfloat16 with ``w`` and ``b`` rounded to it and f32 accumulation).
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels
-    on the current stream.  Anything the kernels do not take raises."""
+    on the current stream, for every derivative too.  Anything the
+    kernels do not take raises."""
     _check(x, w, b)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, b)):
-        return Conv3d64Function.apply(x, w, b, neg_slope)
-    return _forward(x, w, b, neg_slope, "fwd")
+    return _conv(x, w, b, neg_slope, "fwd")

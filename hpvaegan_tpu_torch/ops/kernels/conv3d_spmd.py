@@ -29,6 +29,9 @@ mesh once (``train/steps.py``), as ``shard_map``'s transpose inserts one
 itself a Function whose backward is the exchange again: it is
 differentiable any number of times, which the WGAN-GP's double backprop
 through the stock critic's haloed convs needs (``models/blocks.py``).
+K1's Functions are too, so K4 is differentiable any number of times, as
+the JAX package's K4 is: every derivative runs K1's kernels on the
+haloed block and the halo's exchanges around them.
 
 Gate (``pconv_spmd_ok``): the JAX package takes the composition only for
 even shards whose haloed block passes ``pconv_ok``, and sends the rest to
@@ -42,8 +45,10 @@ one H row a rank.  The trainer checks every stage's shape with it before
 a scale starts (``train/trainer.py``).
 
 Launches are counted in ``counts`` where K4 launches K1's forward (a CUDA
-block), by dtype; CPU blocks take K1's plain version through the same
-composition and count as ``plain_calls``.  ``conv3d64_spmd_plain`` is the
+block), by dtype, once a composition; CPU blocks take K1's plain version
+through the same composition and count as ``plain_calls``.  The
+gradients' K1 launches re-enter ``conv3d64``, not K4, and count in K1's
+own ``conv3d_pack.counts`` only.  ``conv3d64_spmd_plain`` is the
 same composition around ``conv3d64_plain``, for the tests.
 """
 from __future__ import annotations
@@ -179,7 +184,7 @@ def conv3d64_spmd(x: torch.Tensor, w: torch.Tensor,
     """K1 over ``mesh``: ``x`` is this rank's block (B/D, T, h, W, 64) of a
     (B, T, H, W, 64) tensor sharded B -> data, H -> spatial; ``w`` and
     ``b`` replicated.  The output is sharded like ``x``.  Differentiable
-    once, through K1 (the halo any number of times)."""
+    any number of times, through K1 and the halo."""
     if x.dim() != 5 or x.shape[-1] != 64:
         raise ValueError(f"x must be a (B,T,h,W,64) block, got "
                          f"{tuple(x.shape)}")

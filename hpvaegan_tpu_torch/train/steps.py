@@ -62,7 +62,12 @@ The fast-path modes of ``gan_step`` (``steps.py:150-199, 264-374``):
   prefix.  The frozen prefix's BatchNorm running statistics then see only
   the rec forward's update (the JAX package's deviation).
 
-The WGAN-GP runs the stock critic in every mode.
+The WGAN-GP runs the stock critic in every mode.  The kernel route
+exists (K1 and K4 are differentiable any number of times, and
+``calc_gradient_penalty(lambda x: D(x, use_kernels=True), ...)`` works
+on a critic without ``pfuse``), but the trainer keeps the JAX package's
+routing (``steps.py:316-323``), chosen there because on a TPU the kernel
+route measured slower; switching it waits for a benchmark cell.
 
 The memory rungs (``train/fallback.py``; ``steps.py:153-156, 305-325,
 492-530``): under ``--remat``/``--remat-blocks`` the critic's forwards

@@ -8,6 +8,10 @@ the ranks (K4 sums nothing itself).  Where the JAX gate refuses a shape
 JAX's lax conv, as tests/test_pconv_spmd.py:70-101 does.  Also the halo
 exchange: its adjoint in float64 and a double-backward check through a
 haloed stock conv.  Tolerance: the f32 default, rtol 2e-3 / atol 2e-4.
+K4's second order (a WGAN-GP-style penalty through ``conv3d64_spmd``)
+on every mesh against JAX's ``conv3d64_spmd`` on the 1x2 virtual mesh:
+its gradients w.r.t. the whole x, w and b, at 1e-4 * max(|ref|, 1)
+(test_pconv.py's f32 bar).
 
 The ranks run once per module (``torch_port_ranks.py``), each a fresh
 interpreter that imports torch and the port only."""
@@ -26,6 +30,8 @@ from hpvaegan_tpu.parallel import make_mesh
 from torch_port_ranks import MESHES, results, start_ranks, wait_ranks
 
 RTOL, ATOL = 2e-3, 2e-4
+GP_TOL = 1e-4
+PROGRAMS = "k4,halo,k4gp"
 # H = 16 splits evenly over 2 spatial ranks; H = 15 does not (T >= 3 and
 # an even W for the JAX kernel's own gate)
 SHAPES = {"even": (2, 3, 16, 8, 64), "uneven": (2, 3, 15, 8, 64)}
@@ -48,11 +54,13 @@ def ranks(tmp_path_factory):
     world."""
     d = tmp_path_factory.mktemp("k4")
     torch.save({"k4": {n: tuple(torch.from_numpy(a) for a in _inputs(n))
-                       for n in SHAPES}}, d / "inputs.pt")
-    groups = {w: start_ranks("k4,halo", w, d) for w in (2, 4)}
+                       for n in SHAPES},
+                "k4gp": tuple(torch.from_numpy(a)
+                              for a in _inputs("even"))}, d / "inputs.pt")
+    groups = {w: start_ranks(PROGRAMS, w, d) for w in (2, 4)}
     for procs in groups.values():
         wait_ranks(procs)
-    return {w: results("k4,halo", w, d) for w in groups}
+    return {w: results(PROGRAMS, w, d) for w in groups}
 
 
 def _xla(x, w, b):
@@ -137,3 +145,49 @@ def test_haloed_stock_conv_passes_gradgradcheck(ranks, mesh_shape, live):
     world = mesh_shape[0] * mesh_shape[1]
     assert all(r[(mesh_shape, "gradgradcheck", live)] is True
                for r in ranks[world])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_second_order():
+    """dx, dw, db of the WGAN-GP-style penalty through JAX's K4 on the 1x2
+    virtual mesh (Pallas in interpret mode), on the whole tensors."""
+    x, w, b = _inputs("even")
+    mesh = make_mesh((1, 2))
+    assert pconv_spmd_ok(x.shape, w.shape, mesh)
+    old = jcp.INTERPRET, jcp.FORCE
+    jcp.INTERPRET = jcp.FORCE = True
+    try:
+        xs = jax.device_put(x, NamedSharding(
+            mesh, P("data", None, "spatial", None, None)))
+
+        def penalty(x, w, b):
+            g = jax.grad(lambda xx: jnp.sum(jnp.tanh(
+                conv3d64_spmd(xx, w, b, mesh))))(x)
+            return jnp.sum((jnp.sqrt(jnp.sum(g * g, axis=-1)) - 1.0) ** 2)
+
+        grads = jax.jit(jax.grad(penalty, (0, 1, 2)))(xs, w, b)
+        return [np.asarray(a) for a in grads]
+    finally:
+        jcp.INTERPRET, jcp.FORCE = old
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 1), (2, 2)])
+def test_k4_second_order_matches_jax(ranks, mesh_shape):
+    """Each rank's dx block, and dw and db summed over the ranks; every
+    rank ran K4 once and K1 six times (forward, inner dx, then the outer
+    dx and dw of both nodes: the halo's adjoints carry the rest)."""
+    world = mesh_shape[0] * mesh_shape[1]
+    outs = [r[(mesh_shape, "k4gp")] for r in ranks[world]]
+    dx_ref, dw_ref, db_ref = _jax_second_order()
+    dx = np.zeros_like(dx_ref)
+    for o in outs:
+        (b0, b1), (h0, h1) = o["rows"], o["block"]
+        dx[b0:b1, :, h0:h1] = o["dx"].numpy()
+        assert (o["k4_calls"], o["k1_calls"]) == (1, 6)
+    dw = sum(o["dw"].numpy() for o in outs)
+    db = sum(o["db"].numpy() for o in outs)
+    for what, got, ref in (("dx", dx, dx_ref), ("dw", dw, dw_ref),
+                           ("db", db, db_ref)):
+        err = float(np.max(np.abs(got - ref)))
+        scale = max(float(np.max(np.abs(ref))), 1.0)
+        assert err < GP_TOL * scale, (what, err, scale)

@@ -4,8 +4,12 @@ plain versions on the CPU), ``SNConv.spectral_update``,
 ``load_discriminator``, the parameter gradients through the kernels'
 Functions, and the losses with the WGAN-GP on an injected alpha.  The JAX
 critic runs its lax path; its variable tree is the same by construction.
+The WGAN-GP through the K1 critic (``pconv``, ``pfuse`` off: the kernels'
+second order) against the stock critic's and the JAX step's lax critic's.
 
-Tolerance: f32 rtol 2e-3 / atol 2e-4 (tests/test_torch_parity.py)."""
+Tolerance: f32 rtol 2e-3 / atol 2e-4 (tests/test_torch_parity.py); the
+penalty through the K1 critic: 1e-4 * max(|ref|, 1) in f32
+(test_pconv.py's bar), 5e-2 * max(|ref|, 1) in bf16 (its bf16 bar)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +32,7 @@ from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
 from hpvaegan_tpu_torch.utils import convert
 
 RTOL, ATOL = 2e-3, 2e-4
+GP_TOLS = {None: 1e-4, torch.bfloat16: 5e-2}
 SHAPE = (2, 4, 8, 6, 3)
 NUM_LAYER = 3
 
@@ -148,6 +153,97 @@ def test_gradient_penalty_with_injected_alpha_matches_jax(critics):
     _close(_grad_to_flax(D.body[0].weight.grad),
            np.asarray(ref_grads["block0"]["kernel"]))
     _close(D.head.bias.grad.numpy(), np.asarray(ref_grads["head"]["bias"]))
+
+
+def _grads(D):
+    """Every parameter's gradient by name; one the penalty does not reach
+    (the tail's bias; the K1 convs' biases, which move only the masks) is
+    zero, as JAX gives it."""
+    return {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for n, p in D.named_parameters()}
+
+
+def _gp_grads(D, real, fake, alpha, use_kernels):
+    """The penalty and every parameter's gradient, by name."""
+    D.zero_grad(set_to_none=True)
+    gp = losses.calc_gradient_penalty(
+        lambda x: D(x, use_kernels=use_kernels), to_model_layout(real),
+        to_model_layout(fake), 0.1, alpha=torch.tensor(alpha))
+    gp.backward()
+    return gp.detach(), _grads(D)
+
+
+def _assert_within(got, ref, tol):
+    ref = np.asarray(ref, dtype=np.float32)
+    scale = max(float(np.max(np.abs(ref))), 1.0)
+    err = float(np.max(np.abs(np.asarray(got, dtype=np.float32) - ref)))
+    assert err < tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_gradient_penalty_through_the_kernel_critic(critics, dtype):
+    """The WGAN-GP on the K1 critic (three body convs): the inner pass
+    launches the forward and dx only (6 plain calls, no dw), the outer one
+    dx and dw on each body conv (6 more); the penalty and every
+    parameter's gradient equal the stock critic's (what the trainer runs)
+    and the JAX step's lax critic's."""
+    jD, dvars, _ = critics
+    real, fake = _x(seed=2), _x(seed=3)
+    key = jax.random.PRNGKey(9)
+    alpha = float(jax.random.uniform(key, ()))
+    jdtype = None if dtype is None else jnp.bfloat16
+    jDt = JCritic(nfc=64, ker_size=3, num_layer=NUM_LAYER, ndim=3,
+                  dtype=jdtype)
+
+    def jgp(params):
+        return j_gp(lambda x: jDt.apply({**dvars, "params": params}, x),
+                    jnp.asarray(real), jnp.asarray(fake), 0.1, key)
+
+    ref, ref_grads = jax.jit(jax.value_and_grad(jgp))(dvars["params"])
+    D = WDiscriminator(3, 64, 3, NUM_LAYER, ndim=3, pconv=True,
+                       dtype=dtype)
+    convert.load_discriminator(D, dvars)
+    assert not D.pfuse and all(b.kernel_route for b in D.body)
+    stock_gp, stock = _gp_grads(D, real, fake, alpha, use_kernels=False)
+    cp.counts.reset()
+    D.zero_grad(set_to_none=True)
+    gp = losses.calc_gradient_penalty(
+        lambda x: D(x, use_kernels=True), to_model_layout(real),
+        to_model_layout(fake), 0.1, alpha=torch.tensor(alpha))
+    assert cp.counts.plain_calls == 2 * NUM_LAYER
+    gp.backward()
+    assert cp.counts.plain_calls == 4 * NUM_LAYER
+    assert (cp.counts.fwd_launches, cp.counts.dx_launches,
+            cp.counts.dw_launches) == (0, 0, 0)
+    kernel = _grads(D)
+    tol = GP_TOLS[dtype]
+    _assert_within(gp.item(), stock_gp.item(), tol)
+    _assert_within(gp.item(), float(ref), tol)
+    for name, g in kernel.items():
+        _assert_within(g.numpy(), stock[name].numpy(), tol)
+    flax = {"head": D.head, "tail": D.tail,
+            **{f"block{i}": b for i, b in enumerate(D.body)}}
+    for name, m in flax.items():
+        want = ref_grads[name]["conv"] if name == "tail" else ref_grads[name]
+        prefix = "tail" if name == "tail" else dict(
+            head="head", **{f"block{i}": f"body.{i}"
+                            for i in range(NUM_LAYER)})[name]
+        _assert_within(_grad_to_flax(kernel[f"{prefix}.weight"]),
+                       want["kernel"], tol)
+        _assert_within(kernel[f"{prefix}.bias"].numpy(), want["bias"], tol)
+
+
+def test_gradient_penalty_through_the_fused_critic_raises(critics):
+    """K2 is first order only, as its JAX counterpart: the penalty's
+    backward through the pfuse critic's pair raises."""
+    _, _, D = critics
+    real, fake = _x(seed=2), _x(seed=3)
+    D.zero_grad(set_to_none=True)
+    gp = losses.calc_gradient_penalty(
+        lambda x: D(x, use_kernels=True), to_model_layout(real),
+        to_model_layout(fake), 0.1, alpha=torch.tensor(0.3))
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gp.backward()
 
 
 def test_losses_match_jax():

@@ -9,6 +9,8 @@ JAX is not installed (add ``--noconftest`` there: tests/conftest.py pins
 JAX to the CPU).
 """
 import copy
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -20,6 +22,10 @@ from hpvaegan_tpu_torch.models.registry import (make_discriminator,
 from hpvaegan_tpu_torch.ops.kernels import conv3d_fuse as cf
 from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
 from hpvaegan_tpu_torch.train import optim, steps
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import penalty_grads, plain_k1  # noqa: E402  (phase 17's)
 
 # kernel vs plain version, both f32 (and K1-dw from bf16 operands: the
 # same products, f32 sums in another order): max error below
@@ -325,14 +331,123 @@ def test_pair_backward_matches_plain_on_card(cuda_device, shape):
         _close_to_plain(a, b)
 
 
+# second order through the kernels against the same rule on the plain
+# versions (chip_smoke's plain_k1: the same bf16 roundings at the same
+# points, the kernel's LeakyReLU mask): f32 at TOL; in bf16 a gradient is
+# the output of a conv over an earlier bf16 output's 1-ulp flips: 2 ulp
+# (BF16_PAIR_TOL)
+def _second_order_tol(bf16: bool) -> float:
+    return BF16_PAIR_TOL if bf16 else TOL
+
+
+def _launches(bf16: bool):
+    c = cp.counts
+    return ((c.fwd_bf16_launches, c.dx_bf16_launches, c.dw_bf16_launches)
+            if bf16 else (c.fwd_launches, c.dx_launches, c.dw_launches))
+
+
 @pytest.mark.gpu
-def test_second_order_use_raises_on_card(cuda_device):
-    x = torch.randn(1, 3, 8, 8, 64, device=cuda_device, requires_grad=True)
-    w = torch.randn(3, 3, 3, 64, 64, device=cuda_device) * 0.05
-    y = cp.conv3d64(x, w, neg_slope=0.2)
-    (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        gx.sum().backward()
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("neg_slope", [None, 0.2])
+def test_second_order_matches_plain_on_card(cuda_device, neg_slope, bf16):
+    """The WGAN-GP's shape through one conv: d/d(x, w, b) of the penalty
+    on the inner gradient w.r.t. x, every derivative on the kernels (the
+    forward, the inner dx; the outer dx and dw of both nodes)."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    shape = (2, 5, 45, 81, 64)
+    x = _randn(g, cuda_device, *shape)
+    x = x.bfloat16() if bf16 else x
+    w = _randn(g, cuda_device, 3, 3, 3, 64, 64, scale=0.05)
+    b = _randn(g, cuda_device, 64, scale=0.1)
+
+    def grads(conv):
+        leaves = tuple(t.clone().requires_grad_(True) for t in (x, w, b))
+        return penalty_grads(
+            lambda x, w, b: conv(x, w, b, neg_slope=neg_slope), *leaves,
+            leaves)
+
+    cp.counts.reset()
+    got = grads(cp.conv3d64)
+    torch.cuda.synchronize()
+    assert _launches(bf16) == (1, 3, 2) and cp.counts.plain_calls == 0
+    y = cp.conv3d64(x, w, b, neg_slope=neg_slope) if neg_slope else None
+    with plain_k1(y):
+        refs = grads(cp.conv3d64)
+    for a, r in zip(got, refs):
+        assert a.dtype == r.dtype
+        err = float((a.float() - r.float()).abs().max())
+        assert err < _second_order_tol(bf16) * max(
+            float(r.float().abs().max()), 1.0), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_dw_function_backward_matches_plain_on_card(cuda_device, bf16):
+    """``Conv3d64DwFunction``'s backward: grad x on K1 with
+    ``flip_swap(g)``, grad dy on K1 with g, against autograd through
+    ``conv3d64_dw_plain``."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    shape = GRAD_SHAPES[1]
+    x, dy = (_randn(g, cuda_device, *shape) for _ in range(2))
+    if bf16:
+        x, dy = x.bfloat16(), dy.bfloat16()
+    # bf16-exact, so that the plain version's f32 sums see what the
+    # kernels see (they round it to the compute dtype)
+    cot = _randn(g, cuda_device, 3, 3, 3, 64, 64).to(x.dtype).float()
+
+    def grads(dw_of):
+        leaves = tuple(t.clone().requires_grad_(True) for t in (x, dy))
+        return torch.autograd.grad(dw_of(*leaves), leaves, cot)
+
+    cp.counts.reset()
+    got = grads(cp.Conv3d64DwFunction.apply)
+    torch.cuda.synchronize()
+    assert _launches(bf16) == (1, 1, 1) and cp.counts.plain_calls == 0
+    for a, r in zip(got, grads(cp.conv3d64_dw_plain)):
+        assert a.dtype == r.dtype
+        err = float((a.float() - r.float()).abs().max())
+        assert err < (BF16_TOL if bf16 else TOL) * max(
+            float(r.float().abs().max()), 1.0), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_gradient_penalty_through_the_kernel_critic_on_card(cuda_device,
+                                                            bf16):
+    """The WGAN-GP on a K1 critic (nfc 64, three body convs): 3 forward
+    and 3 dx launches in the inner pass, no dw; 3 dx and 3 dw in the
+    outer one; the penalty and every gradient against the stock critic's
+    (the f32 step bar; bf16 the JAX package's bf16 bar)."""
+    from hpvaegan_tpu_torch import losses
+    from hpvaegan_tpu_torch.models.networks import WDiscriminator
+    torch.manual_seed(3)
+    D = WDiscriminator(3, 64, 3, 3, ndim=3, pconv=True,
+                       dtype=torch.bfloat16 if bf16 else None).to(
+                           cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    real, fake = (torch.randn((2, 3, 5, 24, 40), device=cuda_device,
+                              generator=g).tanh() for _ in range(2))
+
+    def penalty(use_kernels):
+        D.zero_grad(set_to_none=True)
+        gp = losses.calc_gradient_penalty(
+            lambda x: D(x, use_kernels=use_kernels), real, fake, 0.1,
+            alpha=torch.tensor(0.3))
+        inner = _launches(bf16)
+        gp.backward()
+        return inner, gp.detach(), [
+            torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for p in D.parameters()]
+
+    cp.counts.reset()
+    inner, gp, got = penalty(True)
+    assert inner == (3, 3, 0)
+    assert _launches(bf16) == (3, 6, 3) and cp.counts.plain_calls == 0
+    _, gp_ref, refs = penalty(False)
+    tol = 5e-2 if bf16 else TOL
+    for a, r in zip([gp] + got, [gp_ref] + refs):
+        err = float((a.float() - r.float()).abs().max())
+        assert err < tol * max(float(r.float().abs().max()), 1.0), err
 
 
 @pytest.mark.gpu

@@ -118,6 +118,33 @@ def program_k4(meshes, workdir):
     return out
 
 
+def program_k4gp(meshes, workdir):
+    """The WGAN-GP-style second order through K4 (chip_smoke's
+    ``penalty_grads`` of ``conv3d64_spmd``) on each mesh: this rank's dx
+    block, its shares of dw and db, and K1's calls."""
+    import torch
+    from chip_smoke import penalty_grads
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
+    from hpvaegan_tpu_torch.ops.kernels import conv3d_spmd as k4
+    from hpvaegan_tpu_torch.parallel import make_mesh
+    x, w, b = torch.load(os.path.join(workdir, "inputs.pt"))["k4gp"]
+    out = {}
+    for shape in meshes:
+        mesh = make_mesh(shape)
+        xl = mesh.shard(x, 2).requires_grad_(True)
+        wl, bl = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        cp.counts.reset()
+        k4.counts.reset()
+        dx, dw, db = penalty_grads(
+            lambda x, w, b: k4.conv3d64_spmd(x, w, b, mesh), xl, wl, bl,
+            (xl, wl, bl))
+        out[(shape, "k4gp")] = dict(
+            dx=dx, dw=dw, db=db, k1_calls=cp.counts.plain_calls,
+            k4_calls=k4.counts.plain_calls, block=mesh.block(x.shape[2]),
+            rows=mesh.batch_rows(x.shape[0]))
+    return out
+
+
 def program_halo(meshes, workdir):
     """The halo exchange in float64: ``<E x, y>`` and ``<x, E^T y>`` over
     the mesh, and ``gradgradcheck`` through a haloed stock conv."""
@@ -432,7 +459,8 @@ def program_ladder_one(meshes, workdir):
     return {}
 
 
-PROGRAMS = {"k4": program_k4, "halo": program_halo, "steps": program_steps,
+PROGRAMS = {"k4": program_k4, "halo": program_halo, "k4gp": program_k4gp,
+            "steps": program_steps,
             "ladder_both": program_ladder_both,
             "ladder_one": program_ladder_one, "models": program_models,
             "sampling": program_sampling}
