@@ -159,7 +159,7 @@ Phases; any failure exits non-zero and prints no result:
    ``WDiscriminatorBaselines`` run, which launches no kernel;
 13. a ``{"kernels": [...]}`` line (thirteen rows: four kernels in f32 and
    in bf16 and K4 in both, each with its launches over the main-path
-   runs, phases 14, 15, 16 and 17 included, and K3's three instances with
+   runs, phases 14, 15, 16, 17 and 18 included, and K3's three instances with
    their own phase's), the card line, and last ``{"ok": true, "device":
    {...}}``;
 14. the training fast path, phase 6's CLI (default model, the clip,
@@ -241,8 +241,26 @@ Phases; any failure exits non-zero and prints no result:
    penalty (f32, LeakyReLU) through K4 on a 1x2 mesh of ranks sharing the
    card (``--rank k4gp``) against K1's second order on the whole volume.
 
-Phases 6c, 11, 12, 14, 15 and 17 run after 6b, before 7; phases 9, 16
-and 10 after 7b, before 8.
+18. ``--wpack``, the width-packed Stage and SN critic (``ops/wpack.py``,
+   ``models/packed.py``; stock convs, no kernel of their own): (a)
+   ``conv_packed`` (qpack, the packed conv, unpack_p) against the direct
+   stock conv at the critic's (2, 64, 13, 144, 256), f32 and bf16: max
+   |diff|, each op's ms (``rephase`` too) and the peak memory; (b) one
+   scale-9 GAN step of the default model (``--pconv --pconv-all
+   --pfuse``), f32 and bf16, with and without ``--wpack`` on the same
+   weights and draws (phase 15's ``ladder_step``): the metrics and every
+   gradient of both optimizer steps at the model bars, s/step and peak
+   memory, the launches equal to ``gan_step_launches(..., wpack=True)``
+   (90/0/40/40: stages 7-9 and the critic pack); (c) 17b's penalty and
+   its backward through the packed critic against the stock critic, f32
+   and bf16: ms, peak memory, the gradients, no launch; (d) one rand
+   request of 2 top-scale clips through ``SamplerSession`` from a
+   checkpoint whose config.json says ``wpack``, against the unpacked
+   request on the same draws, f32 and bf16: the clips (bf16 against the
+   model's own bf16 noise, measured), ms, 30 K1 launches (45 unpacked).
+
+Phases 6c, 11, 12, 14, 15, 17 and 18 run after 6b, before 7; phases 9,
+16 and 10 after 7b, before 8.
 """
 from __future__ import annotations
 
@@ -1987,7 +2005,8 @@ FAST_ITERS, SCAN_K, SCAN_ITERS = 2, 4, 9
 
 def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
                       vae_levels: int = 3, train_depth: int = 1,
-                      remat=False) -> dict:
+                      remat=False, wpack: bool = False,
+                      widths=None) -> dict:
     """The kernel launches of one GAN step at a scale of ``stages`` body
     stages, derived from the model's structure: ``num_layer`` K1 convs a
     stage forward; the critic's body ``num_layer // 2`` K2 pairs and
@@ -2012,14 +2031,33 @@ def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
     critic), twice under ``--remat-blocks`` (the stage, then its block),
     the critic's K2 pairs once more under either (a pair is not wrapped
     on its own).  dx and dw do not change, nor does ``--gp-chunked`` (the
-    penalty runs stock convs)."""
+    penalty runs stock convs).
+
+    ``wpack`` (``--wpack``): a stage whose input's W (``widths[idx +
+    1]``, the pyramid's W at each level; the main configuration's by
+    default) is even and at least ``packed.WPACK_MIN_W`` runs over packed
+    W on stock convs and launches nothing, and so does the critic when
+    the scale's W qualifies."""
+    from hpvaegan_tpu_torch.ops.wpack import can_wpack
+    from hpvaegan_tpu_torch.models import packed
+    if widths is None:
+        pyr = main_config().pyramid()
+        widths = [pyr.shape3d(i)[-1] for i in range(stages + 1)]
+
+    def packs(level):
+        return wpack and can_wpack((widths[level],), packed.WPACK_MIN_W)
+
     L = num_layer
     pairs, blocks = divmod(num_layer, 2)
-    crit = {"fwd": blocks, "pair": pairs, "dx": 2 * pairs + blocks,
-            "dw": 2 * pairs + blocks}
-    trained = {"plain": stages - (vae_levels - 1)}.get(mode, train_depth)
-    gen_fwd = {"plain": 3 * stages, "hoist": 2 * stages + train_depth,
-               "fused": 2 * stages}[mode]
+    crit = ({"fwd": 0, "pair": 0, "dx": 0, "dw": 0} if packs(stages) else
+            {"fwd": blocks, "pair": pairs, "dx": 2 * pairs + blocks,
+             "dw": 2 * pairs + blocks})
+    n_trained = {"plain": stages - (vae_levels - 1)}.get(mode, train_depth)
+    kept = [idx for idx in range(stages) if not packs(idx + 1)]
+    trained = sum(idx >= stages - n_trained for idx in kept)
+    # stage forwards: the critic step's and the generator step's
+    gen_fwd = {"plain": 3 * len(kept), "hoist": 2 * len(kept) + trained,
+               "fused": 2 * len(kept)}[mode]
     gen_passes = 1 if mode == "fused" else 2   # backward through stages
     again = {False: 0, True: 1, "blocks": 2}[remat]
     return {"conv3d64_fwd": (gen_fwd + again * gen_passes * trained) * L
@@ -2227,12 +2265,29 @@ def ladder_inputs(dev, cfg, seed: int):
                                (BATCH, *pyr.shape3d(0), cfg.latent_dim)))
 
 
+def record_first_grads(opt, module, into: dict):
+    """``opt`` whose first ``step`` copies the gradients it is about to
+    apply into ``into``, by parameter name of ``module``."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    step = opt.step
+
+    def recorded(*a, **kw):
+        if not into:
+            into.update({names[id(p)]: p.grad.detach().clone()
+                         for group in opt.param_groups
+                         for p in group["params"] if p.grad is not None})
+        return step(*a, **kw)
+    opt.step = recorded
+    return opt
+
+
 def ladder_step(dev, seed: int, bf16: bool, flags: dict, G0, D0, inputs,
                 steps_n: int = 2):
     """``steps_n`` GAN steps of copies of ``G0``/``D0`` under ``flags``,
     each with its launches: the first from an emptied allocator cache
-    (its metrics, weights and peak reserved memory), the last timed on
-    the warm cache (its seconds and peak allocated memory)."""
+    (its metrics, weights, the gradients each optimizer applied and peak
+    reserved memory), the last timed on the warm cache (its seconds and
+    peak allocated memory)."""
     import copy
     import torch
     from hpvaegan_tpu_torch.train import optim, steps
@@ -2242,10 +2297,12 @@ def ladder_step(dev, seed: int, bf16: bool, flags: dict, G0, D0, inputs,
     G.cfg = cfg
     if cfg.fast_grads:
         optim.freeze_frozen(cfg, G, SCALE)
-    opt_g = optim.build_g_optimizer(cfg, G, SCALE)
-    opt_d = optim.build_d_optimizer(cfg, D)
+    out = {"launches": [], "grads": {"G": {}, "D": {}}}
+    opt_g = record_first_grads(optim.build_g_optimizer(cfg, G, SCALE), G,
+                               out["grads"]["G"])
+    opt_d = record_first_grads(optim.build_d_optimizer(cfg, D), D,
+                               out["grads"]["D"])
     real, real_zero, noise_init = inputs
-    out = {"launches": []}
     for i in range(steps_n):
         draws = steps.gan_draws(
             G, noise_init, tuple(real_zero.shape),
@@ -4385,6 +4442,367 @@ def gp_main_path(dev, seed: int, profile: bool) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 18: --wpack, the width-packed Stage and SN-critic path
+# ---------------------------------------------------------------------------
+
+WPACK_CONV_SHAPE = (BATCH, 64, 13, 144, 256)   # the critic's, NCDHW
+WPACK_ITERS = 10
+
+
+def _bar_close(what: str, got, ref, bf16: bool, extra: float = 0.0) -> float:
+    """``got`` against ``ref`` at the model bars (f32: the tests' rtol and
+    atol elementwise; bf16: BF16_MODEL_BAR of max(1, max|ref|)), plus
+    ``extra``; fails the run on a miss or a non-finite value."""
+    import torch
+    got, ref = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    if bf16:
+        ok = err <= BF16_MODEL_BAR * max(1.0, float(ref.abs().max())) + extra
+    else:
+        ok = bool(((got - ref).abs() <= ATOL + RTOL * ref.abs() + extra)
+                  .all())
+    if not ok or not bool(torch.isfinite(got).all()):
+        fail(f"{what}: packed against unpacked max |diff| {err:.3e}, past "
+             f"the {'bf16 model' if bf16 else 'f32'} bar")
+    return err
+
+
+def wpack_conv(dev) -> None:
+    """18a: ``conv_packed`` (qpack, the packed conv, unpack_p) against the
+    direct stock conv at the critic's (2, 64, 13, 144, 256), f32 and bf16:
+    max |diff| (f32 at KERNEL_TOL, bf16 at 2 ulps of max(1, max|ref|)),
+    each op's ms and the peak memory allocated above the inputs."""
+    import torch
+    from hpvaegan_tpu_torch.models.blocks import _stock_conv
+    from hpvaegan_tpu_torch.ops import wpack
+    label = card_line()
+    g = torch.Generator(device=dev).manual_seed(1818)
+    scale = 1.0 / (27 * 64) ** 0.5
+    x = torch.randn(WPACK_CONV_SHAPE, device=dev, generator=g).contiguous(
+        memory_format=torch.channels_last_3d)
+    w = (torch.rand((64, 64, 3, 3, 3), device=dev, generator=g) * 2 - 1) \
+        * scale
+    b = (torch.rand(64, device=dev, generator=g) * 2 - 1) * scale
+    for bf16 in (False, True):
+        dt = torch.bfloat16 if bf16 else None
+        xc = x if dt is None else x.to(dt)
+
+        def packed():
+            return wpack.unpack_p(wpack.conv_packed(wpack.qpack(xc), w, b,
+                                                    dt))
+
+        def stock():
+            return _stock_conv(xc, w, b, 3, 1, 1, dt)
+
+        peaks = {}
+        for name, fn in (("packed", packed), ("stock", stock)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+        got, ref = packed(), stock()
+        if not got.is_contiguous(memory_format=torch.channels_last_3d):
+            fail("18a: the packed conv's output is not channels_last_3d")
+        check_close(f"18a conv_packed {dtype_name(bf16)} vs the stock conv",
+                    got, ref, BF16_TOL2 if bf16 else KERNEL_TOL)
+        xq = wpack.qpack(xc)
+        yp = wpack.conv_packed(xq, w, b, dt)
+        ms = {"qpack": time_ms(lambda: wpack.qpack(xc), WPACK_ITERS),
+              "conv_packed": time_ms(lambda: wpack.conv_packed(xq, w, b, dt),
+                                     WPACK_ITERS),
+              "unpack_p": time_ms(lambda: wpack.unpack_p(yp), WPACK_ITERS),
+              "rephase": time_ms(lambda: wpack.rephase(yp), WPACK_ITERS),
+              "packed": time_ms(packed, WPACK_ITERS),
+              "stock": time_ms(stock, WPACK_ITERS)}
+        print(f"18a {dtype_name(bf16)} at {WPACK_CONV_SHAPE} ({label}): ms "
+              f"{ {k: round(v, 4) for k, v in ms.items()} } (packed = "
+              f"qpack + conv_packed + unpack_p; the packed conv does 1.33x "
+              f"the stock conv's FLOPs); peak allocated above the inputs "
+              f"{peaks} bytes", flush=True)
+        del xc, xq, yp, got, ref
+    torch.cuda.empty_cache()
+
+
+def wpack_step(dev, seed: int) -> dict:
+    """18b: one scale-9 GAN step of the default model (``--pconv
+    --pconv-all --pfuse``, f32 and bf16) with and without ``--wpack`` on
+    the same weights and draws (phase 15's ``ladder_step``): the metrics
+    and every gradient of both optimizer steps packed against unpacked at
+    the model bars (errG and the total may also move by the critic tail
+    bias's difference, whose exact gradient is 0: ``check_sharded_step``),
+    s/step warm and peak memory, each step's launches equal to
+    ``gan_step_launches(..., wpack=True)``.  Returns the launches."""
+    import torch
+    from hpvaegan_tpu_torch.models.registry import make_discriminator
+    label = card_line()
+    total = {k: 0 for k in all_counts()}
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        cfg = main_config(bf16=bf16, **TRAIN_FLAGS)
+        cfg.scale_idx = SCALE
+        G0 = build_generator(cfg, SCALE, seed).to(dev).requires_grad_(True)
+        D0 = make_discriminator(cfg.discriminator, cfg, 3)
+        D0.reset_parameters(torch.Generator().manual_seed(seed + 1))
+        D0.to(dev)
+        inputs = ladder_inputs(dev, cfg, seed)
+        runs = {}
+        for name, flags in (("plain", {}), ("--wpack", dict(wpack=True))):
+            reset_counts()
+            run = ladder_step(dev, seed, bf16, flags, G0, D0, inputs)
+            for k, v in all_counts().items():
+                total[k] += v
+            want = step_launches(gan_step_launches("plain", wpack=bool(
+                flags)), bf16)
+            for i, got in enumerate(run["launches"]):
+                if got != want:
+                    fail(f"18b {name} {dt}: step {i} launched "
+                         f"{_nonzero(got)}, want {_nonzero(want)}")
+            runs[name] = run
+            print(f"18b {dt} {name} ({label}): {run['seconds']:.4f} s a "
+                  f"scale-{SCALE} GAN step, peak memory {run['peak']} "
+                  f"bytes allocated, {run['reserved']} reserved; launches "
+                  f"a step {_nonzero(want)} (derived, checked)", flush=True)
+        got, ref = runs["--wpack"], runs["plain"]
+        drift = abs(float(got["state"]["D.tail.bias"])
+                    - float(ref["state"]["D.tail.bias"]))
+        worst = {}
+        for k, v in ref["metrics"].items():
+            worst[k] = _bar_close(f"18b {dt} {k}", got["metrics"][k], v,
+                                  bf16, drift if k in ("errG", "loss")
+                                  else 0.0)
+        for which in ("D", "G"):
+            if set(got["grads"][which]) != set(ref["grads"][which]):
+                fail(f"18b {dt}: the {which} gradients differ in their set")
+            worst[f"grad {which}"] = max(
+                _bar_close(f"18b {dt} d/d{which}.{n}", got["grads"][which][n],
+                           g, bf16)
+                for n, g in ref["grads"][which].items())
+        print(f"18b {dt}: --wpack {got['seconds']:.4f} s / {got['peak']} "
+              f"bytes against {ref['seconds']:.4f} s / {ref['peak']} bytes "
+              f"({got['seconds'] / ref['seconds']:.3f}x); metrics and "
+              f"gradients within the {'bf16 model' if bf16 else 'f32'} bar, "
+              f"max |diff| { {k: f'{v:.3e}' for k, v in worst.items()} } "
+              f"(critic tail bias drift {drift:.3e})", flush=True)
+        del G0, D0, inputs, runs, got, ref
+        torch.cuda.empty_cache()
+    return total
+
+
+def wpack_gp(dev, seed: int) -> None:
+    """18c: the WGAN-GP plus its backward into the parameters on the
+    scale-9 default critic (17b's weights and interpolates) through the
+    packed critic, which the trainer runs under ``--wpack``, and through
+    the stock critic, f32 and bf16, inside ``full_f32()`` and
+    ``deterministic()``: the penalty and every gradient at the model bars,
+    each route's median ms of GP_ITERS (CUDA events, after a warm-up) and
+    peak allocated memory; neither route launches a kernel."""
+    import statistics
+    import torch
+    from hpvaegan_tpu_torch import deterministic, full_f32, losses
+    from hpvaegan_tpu_torch.models.generators import to_model_layout
+    from hpvaegan_tpu_torch.models.packed import wdisc_apply_packed
+    from hpvaegan_tpu_torch.models.registry import make_discriminator
+    label = card_line()
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        cfg = main_config(bf16=bf16, pconv=True, wpack=True)
+        D = make_discriminator(cfg.discriminator, cfg, 3)
+        D.reset_parameters(torch.Generator().manual_seed(seed + 1))
+        D.to(dev)
+        g = torch.Generator(device=dev).manual_seed(seed + 17)
+        shape = (BATCH, *cfg.pyramid().shape3d(SCALE), 3)
+        real, fake = (to_model_layout(torch.randn(
+            shape, device=dev, generator=g).tanh_()) for _ in range(2))
+        alpha = torch.rand((), device=dev, generator=g)
+        forwards = {"packed": lambda x: wdisc_apply_packed(D, x),
+                    "stock": lambda x: D(x, use_kernels=False)}
+        res = {}
+        for name, fwd in forwards.items():
+            def call():
+                D.zero_grad(set_to_none=True)
+                before = all_counts()
+                with full_f32(), deterministic():
+                    gp = losses.calc_gradient_penalty(
+                        fwd, real, fake, cfg.lambda_grad, alpha)
+                    gp.backward()
+                torch.cuda.synchronize()
+                if _nonzero(_launched_since(before)):
+                    fail(f"18c {name} {dt}: launched "
+                         f"{_nonzero(_launched_since(before))}")
+                return gp.detach()
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            gp = call()
+            peak = torch.cuda.max_memory_allocated(dev)
+            grads = {k: p.grad.clone() for k, p in D.named_parameters()
+                     if p.grad is not None}
+            times = []
+            for i in range(GP_ITERS + 1):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                call()
+                e1.record()
+                e1.synchronize()
+                if i:    # the first is the warm-up
+                    times.append(e0.elapsed_time(e1))
+            res[name] = dict(gp=gp, grads=grads, peak=peak - base,
+                             ms=statistics.median(times), times=times)
+        p, st = res["packed"], res["stock"]
+        _bar_close(f"18c penalty {dt}", p["gp"], st["gp"], bf16)
+        if set(p["grads"]) != set(st["grads"]):
+            fail(f"18c {dt}: the routes' gradients differ in their set")
+        worst = max(_bar_close(f"18c d/d{n} {dt}", p["grads"][n], v, bf16)
+                    for n, v in st["grads"].items())
+        for name, r in res.items():
+            print(f"18c {name} critic {dt} ({label}): penalty "
+                  f"{float(r['gp']):.6e}; {r['ms']:.4f} ms a penalty and its "
+                  f"backward (median of {GP_ITERS}: "
+                  f"{[round(t, 4) for t in r['times']]}); peak allocated "
+                  f"{r['peak']} bytes above the critic and inputs; no "
+                  f"launch", flush=True)
+        print(f"18c {dt}: the packed critic {p['ms']:.4f} ms against the "
+              f"stock critic's {st['ms']:.4f} ms "
+              f"({st['ms'] / p['ms']:.3f}x), peak {p['peak']} against "
+              f"{st['peak']} bytes; gradients within {worst:.3e}",
+              flush=True)
+        del D, real, fake, res, p, st
+        torch.cuda.empty_cache()
+
+
+def wpack_sample(dev, seed: int) -> dict:
+    """18d: one rand request of 2 top-scale clips through
+    ``SamplerSession`` on a scale-9 checkpoint whose config.json says
+    ``wpack`` (and ``--pconv-all``), f32 and bf16, against the same
+    session's unpacked request on the same draws (made once in f32 and
+    handed to every request): f32 at the tests' bar; in bf16 the
+    packed clips' distance to the f32 clips, in RMS and max, within 1.5x
+    the unpacked bf16 clips' (the model's own bf16 noise, measured here,
+    as phase 4 measures its bar: two bf16 orders of summation round
+    apart by about that much); the ms of each (median of 3 after a
+    warm-up), each request's K1 launches (5 a stage that does not pack:
+    30 packed, stages 7-9 packing; 45 unpacked).  Returns the packed
+    requests' launches."""
+    import numpy as np
+    import torch
+    from hpvaegan_tpu_torch.core.config import Config
+    from hpvaegan_tpu_torch.models.packed import wpack_ok
+    from hpvaegan_tpu_torch.serving import SamplerSession, apply_snapshot
+    from hpvaegan_tpu_torch.utils.saver import save_generator
+    label = card_line()
+    total = {k: 0 for k in all_counts()}
+    g = torch.Generator(device=dev).manual_seed(seed + 18)
+    draws, f32_clips = None, None
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))
+
+    for bf16 in (False, True):
+        dt = dtype_name(bf16)
+        cfg = main_config(bf16=bf16, wpack=True)
+        pyr = cfg.pyramid()
+        kept = sum(not wpack_ok(cfg, (BATCH, 3, *pyr.shape3d(i + 1)))
+                   for i in range(SCALE))
+        with tempfile.TemporaryDirectory() as tmp:
+            netG = os.path.join(tmp, "netG")
+            G = build_generator(cfg, SCALE, seed)
+            save_generator(netG, G, SCALE, [1.0] + [cfg.noise_amp] * SCALE)
+            with open(os.path.join(tmp, "config.json"), "w") as f:
+                json.dump(cfg.snapshot_dict(), f)
+            del G
+            scfg = Config(netG=netG)
+            apply_snapshot(scfg, netG, explicit=set(),
+                           user_chose_source=False)
+            if not (scfg.wpack and scfg.pconv_all):
+                fail("18d: the snapshot did not restore wpack and pconv_all")
+            scfg.adjust_scales()
+            session = SamplerSession(scfg, batch_size=BATCH,
+                                     manual_seed=seed, device=dev)
+        if draws is None:
+            draws = dict(
+                noise=torch.randn(session.noise_shape, generator=g,
+                                  device=dev),
+                noises=[torch.randn((BATCH, *pyr.shape3d(i + 1), 3),
+                                    generator=g, device=dev)
+                        for i in range(SCALE)])
+        out, ms = {}, {}
+        for packed in (True, False):
+            session.cfg.wpack = packed
+            reset_counts()
+            times = []
+            for i in range(4):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                clips = session.sample_batch(**draws)
+                e1.record()
+                e1.synchronize()
+                if i:
+                    times.append(e0.elapsed_time(e1))
+            counts = all_counts()
+            per_request = {k: v // 4 for k, v in counts.items()}
+            k1 = "conv3d64_fwd_bf16" if bf16 else "conv3d64_fwd"
+            want = {**{k: 0 for k in counts},
+                    k1: cfg.num_layer * (kept if packed else SCALE)}
+            if per_request != want or any(v % 4 for v in counts.values()):
+                fail(f"18d {dt} wpack={packed}: launched {_nonzero(counts)} "
+                     f"over 4 requests, want {_nonzero(want)} a request")
+            if packed:
+                total = _add(total, counts)
+            if not np.all(np.isfinite(clips)) or np.abs(clips).max() > 1.0:
+                fail(f"18d {dt}: clips not finite or outside [-1, 1]")
+            out[packed], ms[packed] = clips, sorted(times)[1]
+        if bf16:
+            got, noise = out[True] - f32_clips, out[False] - f32_clips
+            said = (f"packed bf16 vs f32 rms {rms(got):.3e}, max "
+                    f"{np.abs(got).max():.3e}; unpacked bf16 vs f32 (the "
+                    f"bar is 1.5x these) rms {rms(noise):.3e}, max "
+                    f"{np.abs(noise).max():.3e}; packed vs unpacked bf16 "
+                    f"max {np.abs(out[True] - out[False]).max():.3e}")
+            if rms(got) > 1.5 * rms(noise) or \
+                    np.abs(got).max() > 1.5 * np.abs(noise).max():
+                fail(f"18d bf16: {said}")
+        else:
+            f32_clips = out[False]
+            said = (f"clips within "
+                    f"{_bar_close('18d f32 clips', out[True], out[False], False):.3e}")
+        print(f"18d {dt} ({label}): a rand request of {BATCH} clips "
+              f"{out[True].shape}: packed {ms[True]:.3f} ms, unpacked "
+              f"{ms[False]:.3f} ms (median of 3); {said}; K1 launches a "
+              f"request {cfg.num_layer * kept} packed, "
+              f"{cfg.num_layer * SCALE} unpacked (checked)", flush=True)
+        del session
+        torch.cuda.empty_cache()
+    return total
+
+
+def wpack_main_path(dev, seed: int) -> dict:
+    """Phase 18 (see the module's docstring).  Returns the launches of
+    its model runs (18b's steps, 18d's packed requests)."""
+    from hpvaegan_tpu_torch import full_f32
+    t0 = time.perf_counter()
+    with full_f32():   # 18a's f32 convs without TF32, as the model's
+        wpack_conv(dev)                                           # 18a
+    print(f"phase 18a: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    total = wpack_step(dev, seed)                                 # 18b
+    print(f"phase 18b: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    wpack_gp(dev, seed)                                           # 18c
+    print(f"phase 18c: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    total = _add(total, wpack_sample(dev, seed))                  # 18d
+    print(f"phase 18d: {time.perf_counter() - t0:.3f} s", flush=True)
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4509,6 +4927,7 @@ def main() -> None:
         paths["memory ladder"] = ladder_main_path(dev, args.seed)  # 15
         paths["GP second order"] = gp_main_path(dev, args.seed,   # 17
                                                 args.profile)
+        paths["wpack"] = wpack_main_path(dev, args.seed)          # 18
         kept = {}
         for bf16 in (False, True):                           # phase 7
             paths[f"generate {dtype_name(bf16)}"] = generate_main_path(

@@ -13,10 +13,11 @@ into its frames file (``python -m hpvaegan_tpu_torch.tools.decode_frames
 The flags are the JAX CLI's: the fast path's (``--fast-grads``,
 ``--scan-steps``, the device-resident cache unless ``--host-loader``)
 train as in ``cli/train_video.py``, the memory ladder's (``--remat``,
-``--gp-chunked``, ``--remat-blocks``, and the automatic escalation) too,
-``--compile-ahead`` and ``--wpack`` are accepted and change nothing, as
-there (``note_noop_flags``); ``--spmd --mesh-shape DxS`` trains over a
-mesh as there.
+``--gp-chunked``, ``--remat-blocks``, and the automatic escalation) and
+``--wpack`` (the 2D stages and critic over packed W, ``models/packed.py``)
+too, ``--compile-ahead`` is accepted and changes nothing, as there
+(``note_noop_flags``); ``--spmd --mesh-shape DxS`` trains over a mesh as
+there.
 The 2D models hold no TPU kernel: every conv runs on stock PyTorch ops.
 
 With ``--tag`` and ``$NEPTUNE_PROJECT`` set and the neptune client

@@ -14,8 +14,11 @@ flags are the JAX CLI's, the fast path's included (``--fast-grads``,
 replays on the card, the device-resident frame cache unless
 ``--host-loader``; ``train/trainer.py``) and the memory ladder's
 (``--remat``, ``--gp-chunked``, ``--remat-blocks``, and the automatic
-escalation of ``train/fallback.py``).  ``--compile-ahead`` and
-``--wpack`` are accepted and change nothing (``note_noop_flags``).  As
+escalation of ``train/fallback.py``); ``--wpack`` runs the refinement
+stages and the critic over W-pair-packed activations at the scales
+whose W is even and at least 128 (``models/packed.py``).
+``--compile-ahead`` is accepted and changes nothing
+(``note_noop_flags``).  As
 in the JAX CLI, every run opens an event file in its experiment directory
 (``utils/summaries.py``), which ``--visualize`` fills with the scalars
 and sample grids; ``--profile-dir`` writes a ``torch.profiler`` trace per
@@ -74,18 +77,12 @@ NOOP_FLAGS = {
         "it schedules the next scale's XLA compiles; eager PyTorch "
         "compiles nothing per scale and the kernels build once into "
         "build/kernels/"),
-    "--wpack": (
-        lambda c: c.wpack,
-        "a TPU lane-packing layout, numerically equivalent "
-        "(hpvaegan_tpu/models/packed.py); the card's kernels take the "
-        "64 channels as they are"),
 }
 
 
 def note_noop_flags(cfg) -> None:
     """One log line for each flag asked for that the port accepts and
-    that changes nothing here (the JAX package's XLA scheduling and TPU
-    layout options)."""
+    that changes nothing here (the JAX package's XLA scheduling)."""
     for flag, (on, why) in NOOP_FLAGS.items():
         if on(cfg):
             logging.info(f"{flag}: accepted, nothing to do: {why}")

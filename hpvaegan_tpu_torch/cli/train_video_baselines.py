@@ -15,8 +15,9 @@ growth and reloads the run's ``Z_init`` instead of drawing a new one (the
 JAX package's fix of a reference resume bug).  As ``cli.train_video``:
 the clip's frames file must exist, it trains on the card unless
 ``--no-cuda``, the memory ladder climbs as there (``--gp-chunked``
-changes nothing under the BatchNorm critic), ``--compile-ahead`` and
-``--wpack`` change nothing (``note_noop_flags``), the batches come
+changes nothing under the BatchNorm critic), ``--compile-ahead``
+changes nothing (``note_noop_flags``), ``--wpack`` is taken and, as by
+the JAX baselines steps, not used (they never pack), the batches come
 from the device-resident cache unless ``--host-loader``, the fast-path flags of ``cli.train_video``
 are taken and, as by the JAX baselines CLI, not used, every run opens an
 event file, and ``--spmd

@@ -88,6 +88,14 @@ backward at the level the generator's ``cfg`` asks for at call time, in
 every apply mode (``apply``, ``apply_prefix``/``apply_suffix``,
 ``apply_fused``); the encoder and the baselines' head and tail are not
 wrapped, as in the JAX package.
+
+``--wpack`` (``models/packed.py``; JAX ``generators.py:55-80, 260-263,
+305-309, 410-413``): the refinement stages of ``GeneratorHPVAEGAN`` and
+``GeneratorVAE_nb`` run over W-pair-packed activations wherever their
+input's W is even and at least ``packed.WPACK_MIN_W``
+(``_run_stage``), in every apply mode, at the same remat levels.  The
+decoder and the baselines' stages never pack, as in the JAX package,
+which passes them no ``cfg``.
 """
 from __future__ import annotations
 
@@ -107,6 +115,7 @@ from .blocks import ConvBlock, ConvND
 from .networks import (CSGStage, Decoder, EncodeVAE, EncodeVAE_nb, SGStage,
                        Stage, pad_spatial, reparameterize,
                        reparameterize_bern)
+from .packed import stage_apply_packed, wpack_ok
 from .remat import remat, remat_level
 
 __all__ = ["GeneratorHPVAEGAN", "GeneratorVAE_nb", "GeneratorCSG",
@@ -410,6 +419,19 @@ class GeneratorHPVAEGAN(_PyramidModule):
                 if self._stage_has_noise(idx) else None
                 for idx in range(len(self.body))]
 
+    def _run_stage(self, stage, x: torch.Tensor, train: bool,
+                   update_stats: bool) -> torch.Tensor:
+        """A refinement stage: over packed W under ``--wpack`` at a
+        qualifying shape (``models/packed.py``; JAX ``_apply_bn_module``
+        with ``cfg``, ``generators.py:55-80``), recomputed in the backward
+        at the config's remat level as ``_run``; else ``_run``."""
+        if not wpack_ok(self.cfg, x.shape):
+            return self._run(stage, x, train, update_stats)
+        level = remat_level(self.cfg)
+        return remat(stage_apply_packed, stage, x, train, enabled=level,
+                     update_stats=update_stats,
+                     remat_blocks=level == "blocks")
+
     def _refinement_layers(self, start_idx: int, x: torch.Tensor,
                            amps: Sequence[float], mode: str, train: bool,
                            noises: Optional[Sequence],
@@ -440,7 +462,7 @@ class GeneratorHPVAEGAN(_PyramidModule):
                 x_in = x_up.float() + noise.float() * amps[idx + 1]
             else:
                 x_in = x_up
-            y = self._run(self.body[idx], x_in, train, update_stats)
+            y = self._run_stage(self.body[idx], x_in, train, update_stats)
             x = torch.tanh(y + x_up)
         return x
 

@@ -24,6 +24,11 @@ Every sampler takes its draws from a ``torch.Generator`` on the session's
 device, or explicitly (``noise``, ``noises``, ``eps``), so that tests can
 feed the JAX package's draws.
 
+A config with ``wpack`` (the snapshot's, or the caller's) samples the
+refinement stages whose W is even and at least 128 over packed W
+(``models/packed.py``), as the JAX session does through ``G.apply``
+when its config asks.
+
 A snapshot with ``bf16: true`` samples in bf16 (the generator reads
 ``cfg.bf16``), as the JAX session does; the JAX sampler returns that bf16
 array, and numpy has no bf16, so the port returns the same values as
@@ -114,16 +119,17 @@ def explicit_cli_keys(build_parser, argv=None) -> set:
 
 # training-time keys restored from the experiment's config.json snapshot
 # (written at train start); any flag the user passes explicitly wins.
-# The JAX package's keys, and ``pconv_all``: a run trained with
-# --pconv-all samples with its stage convs on K1 as it trained (the JAX
-# session samples with stock convs whatever the run used; the flag only
-# routes, the weights and the outputs are the same)
+# The JAX package's keys, and ``pconv_all`` and ``wpack``: a run trained
+# with --pconv-all samples with its stage convs on K1, and one trained
+# with --wpack with its top stages over packed W, as it trained (the JAX
+# session samples unpacked on stock convs unless its caller's config
+# asks; the flags only route, the weights and the outputs are the same)
 SNAPSHOT_KEYS = (
     "generator", "nc_im", "nfc", "latent_dim", "vae_levels", "enc_blocks",
     "ker_size", "num_layer", "padd_size", "scale_factor", "noise_amp",
     "min_size", "max_size", "img_size", "sampling_rates", "stop_scale_time",
     "start_frame", "max_frames", "train_all", "bf16",
-    "video_path", "image_path", "pconv_all",
+    "video_path", "image_path", "pconv_all", "wpack",
 )
 
 

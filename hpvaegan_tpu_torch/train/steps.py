@@ -62,8 +62,16 @@ The fast-path modes of ``gan_step`` (``steps.py:150-199, 264-374``):
   prefix.  The frozen prefix's BatchNorm running statistics then see only
   the rec forward's update (the JAX package's deviation).
 
-The WGAN-GP runs the stock critic in every mode.  The kernel route
-exists (K1 and K4 are differentiable any number of times, and
+``--wpack`` (``models/packed.py``; JAX ``steps.py:43-70, 306-326``):
+every critic forward of ``gan_step`` (the critic step's, the WGAN-GP's,
+the generator step's) runs the SN critic over packed W at a qualifying
+shape (``_critic``), ahead of the kernel routes, and the generator's
+refinement stages pack as ``G.cfg`` says (``models/generators.py``).
+``baseline_step`` never packs, as the JAX package's baselines steps.
+
+Without ``--wpack`` the WGAN-GP runs the stock critic in every mode.
+The kernel route exists (K1 and K4 are differentiable any number of
+times, and
 ``calc_gradient_penalty(lambda x: D(x, use_kernels=True), ...)`` works
 on a critic without ``pfuse``), but the trainer keeps the JAX package's
 routing (``steps.py:316-323``), chosen there because on a TPU the kernel
@@ -121,8 +129,9 @@ from ..losses import (calc_gradient_penalty, global_mean, kl_bern_criterion,
                       kl_criterion, mse)
 from ..models.blocks import SNConv
 from ..models.generators import to_model_layout
-from ..models.networks import WDiscriminatorBaselines
-from ..models.remat import remat_level
+from ..models.networks import WDiscriminator, WDiscriminatorBaselines
+from ..models.packed import wdisc_apply_packed, wpack_ok
+from ..models.remat import remat, remat_level
 from ..parallel.mesh import shard
 from .optim import clip_grad_norm_, hoist_index
 
@@ -170,6 +179,21 @@ def _gp_chunked(cfg, D):
     if isinstance(D, WDiscriminatorBaselines):
         return False
     return getattr(cfg, "gp_chunked", False)
+
+
+def _critic(D, cfg, level):
+    """The critic's forward as ``gan_step`` runs it, at remat ``level``
+    (JAX ``apply_disc`` with ``cfg``, ``steps.py:43-70``): the SN critic
+    over packed W under ``--wpack`` at a qualifying shape
+    (``models/packed.py``), whatever ``use_kernels`` asks, since the
+    JAX package's WGAN-GP critic keeps ``cfg`` (``:316-326``); else
+    ``D``'s own routes."""
+    def forward(x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+        if isinstance(D, WDiscriminator) and wpack_ok(cfg, x.shape):
+            return remat(wdisc_apply_packed, D, x, level == "blocks",
+                         enabled=level)
+        return D(x, use_kernels=use_kernels, remat=level)
+    return forward
 
 
 def _whole(metrics: Dict[str, torch.Tensor], mesh
@@ -268,7 +292,7 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
     fused = (cfg.fused_forwards and G.split_forwards
              and noise_init.shape[1:-1] == real_zero.shape[1:-1])
     hoist = None if fused else hoist_index(cfg, G, len(G.body))
-    level = remat_level(cfg)
+    critic = _critic(D, cfg, remat_level(cfg))
     with full_f32(), deterministic():
         update_g_spectral(G)
         update_d_spectral(D)
@@ -292,11 +316,11 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
         x_real, x_fake = to_model_layout(real), to_model_layout(fake)
         nb = x_real.shape[0]
         D.zero_grad(set_to_none=True)
-        out = D(torch.cat([x_real, x_fake]), remat=level)
+        out = critic(torch.cat([x_real, x_fake]))
         errD_real = -global_mean(out[:nb], mesh)
         errD_fake = global_mean(out[nb:], mesh)
         gp = calc_gradient_penalty(
-            lambda x: D(x, use_kernels=False, remat=level), x_real, x_fake,
+            lambda x: critic(x, use_kernels=False), x_real, x_fake,
             cfg.lambda_grad, d["alpha"], mesh=mesh,
             chunked=_gp_chunked(cfg, D))
         (errD_real + errD_fake + gp).backward()
@@ -323,7 +347,7 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
                                            mode="rand", train=True,
                                            update_stats=True, **rand_kw)
             rec = mse(generated, real, mesh)
-            errG = -global_mean(D(to_model_layout(fake_g), remat=level),
+            errG = -global_mean(critic(to_model_layout(fake_g)),
                                 mesh) * cfg.disc_loss_weight
             total = cfg.rec_weight * rec + errG
             total.backward()

@@ -1050,3 +1050,50 @@ def test_2d_session_batches_match_the_cpu_path_on_card(cuda_device,
         assert card[mode].shape == cpu[mode].shape == (2, 27, 48, 3)
         np.testing.assert_allclose(card[mode], cpu[mode], rtol=RTOL,
                                    atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_packed_gan_step_launches_the_derived_kernels_on_card(
+        cuda_device, bf16, monkeypatch):
+    """``--wpack`` on the small pyramid (3 stages, W 10, 12, 14) with
+    ``WPACK_MIN_W`` 14, nfc 64 under ``--pconv --pconv-all --pfuse``: the
+    top stage and the critic run packed on stock convs and launch
+    nothing, stages 0-1 keep K1; a GAN step's launches equal
+    ``chip_smoke.gan_step_launches(..., wpack=True)`` (no K2) in the
+    run's dtype alone, and its losses are finite."""
+    from chip_smoke import gan_step_launches
+    from hpvaegan_tpu_torch.models import packed
+    monkeypatch.setattr(packed, "WPACK_MIN_W", 14)
+    cfg, G, D = _small_models("GeneratorHPVAEGAN", bf16, wpack=True)
+    G.to(cuda_device)
+    D.to(cuda_device)
+    x = _draws(cfg, G)
+    widths = [cfg.pyramid().shape3d(i)[-1] for i in range(cfg.scale_idx + 1)]
+    assert widths == [8, 10, 12, 14]
+    cp.counts.reset()
+    cf.counts.reset()
+    metrics = steps.gan_step(
+        G, D, optim.build_g_optimizer(cfg, G, cfg.scale_idx),
+        optim.build_d_optimizer(cfg, D), cfg, x["real"], x["real_zero"],
+        x["noise_init"], [1.0, 0.3, 0.2, 0.1],
+        generator=torch.Generator(device=cuda_device).manual_seed(2))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v) for v in metrics.values())
+    want = gan_step_launches("plain", stages=cfg.scale_idx,
+                             num_layer=cfg.num_layer,
+                             vae_levels=cfg.vae_levels, wpack=True,
+                             widths=widths)
+    assert want == {"conv3d64_fwd": 18, "conv3d64_pair": 0,
+                    "conv3d64_dx": 6, "conv3d64_dw": 6}
+    c, k2 = cp.counts, cf.counts
+    sfx, other = ("_bf16", "") if bf16 else ("", "_bf16")
+    got = {"conv3d64_fwd": getattr(c, f"fwd{sfx}_launches"),
+           "conv3d64_pair": k2.bf16_launches if bf16 else k2.launches,
+           "conv3d64_dx": getattr(c, f"dx{sfx}_launches"),
+           "conv3d64_dw": getattr(c, f"dw{sfx}_launches")}
+    assert got == want
+    assert all(getattr(c, f"{k}{other}_launches") == 0
+               for k in ("fwd", "dx", "dw"))
+    assert (k2.launches if bf16 else k2.bf16_launches) == 0
+    assert c.plain_calls == k2.plain_calls == 0

@@ -271,15 +271,19 @@ def run_model_case(case: dict, mesh=None) -> dict:
     ``baseline`` runs ``baseline_step``.  Returns the metrics, the
     gradients that reach Adam, the states after the step and the ranks'
     parameter digest; for ``vae``, first an eval-mode rec forward drawing
-    from a generator of seed 7 (``evaluated``, whole)."""
+    from a generator of seed 7 (``evaluated``, whole).  A case with
+    ``wpack_min_w`` sets ``models.packed.WPACK_MIN_W`` to it first."""
     import torch
     from hpvaegan_tpu_torch.core.config import Config
+    from hpvaegan_tpu_torch.models import packed
     from hpvaegan_tpu_torch.models.registry import (make_discriminator,
                                                     make_generator)
     from hpvaegan_tpu_torch.parallel import attach
     from hpvaegan_tpu_torch.parallel.mesh import state_digest
     from hpvaegan_tpu_torch.train import optim, steps
 
+    if "wpack_min_w" in case:
+        packed.WPACK_MIN_W = case["wpack_min_w"]
     cfg = Config(**case["cfg"])
     cfg.ar, cfg.org_fps = case["ar"], case["org_fps"]
     cfg.adjust_scales()
