@@ -259,8 +259,25 @@ Phases; any failure exits non-zero and prints no result:
    request on the same draws, f32 and bf16: the clips (bf16 against the
    model's own bf16 noise, measured), ms, 30 K1 launches (45 unpacked).
 
-Phases 6c, 11, 12, 14, 15, 17 and 18 run after 6b, before 7; phases 9,
-16 and 10 after 7b, before 8.
+19. ``--compile-ahead`` (``train/precompile.py``): ten-scale CLI runs of
+   the default model (``--pconv --pconv-all --pfuse``, ``--niter 5``,
+   chunks of 4 and 1) with and without the flag: (a) f32 on the device
+   cache, ``--scan-steps 4``, against phase 14d's run; (b) bf16
+   ``--wpack`` on the host loader, ``--scan-steps 4`` against
+   ``--scan-steps 1`` (``--wpack`` under CUDA graphs), then the flag at
+   4 and at 1.  Each pair bit-equal (``netG``, ``netD_9``), no
+   ``failed`` line, a ``ready`` line and an ``"ahead"`` event each scale
+   after the first; at K = 4 every such scale's first chunk is 4 replays
+   and launches nothing on the main path (the thread's launches count
+   apart, ``ahead_counts``); at K = 1 the eager steps launch the same as
+   without the flag.  Printed: each scale's first-chunk seconds (first
+   step at K = 1) with and without the flag, the thread's seconds (the
+   build) and the warm-up's and capture's, graph pool bytes and
+   launches, whether a warm-up ahead shortened the first eager step,
+   and the peak allocated at the 8 -> 9 boundary.
+
+Phases 6c, 11, 12, 14, 15, 17, 18 and 19 run after 6b, before 7; phases
+9, 16 and 10 after 7b, before 8.
 """
 from __future__ import annotations
 
@@ -1606,9 +1623,11 @@ def run_cli(main, flags, name: str, dev, want_step=None, stop=None,
     launches equal to ``want_step`` (when given).  ``stop(scale, event,
     it)`` is called at every event and may raise ``_Stop`` to end the run.
     ``record`` (a dict) receives each scale's step seconds (``"steps"``),
-    its chunks (``"chunks"``: k, seconds, replays, graph pool bytes) and
-    the scale-9 steps' peak bytes (``"peaks9"``).  Returns ``(cfg or
-    None, steps per scale, scale-9 step seconds)``."""
+    its chunks (``"chunks"``: k, seconds, replays, graph pool bytes),
+    the scale-9 steps' peak bytes (``"peaks9"``) and every event
+    (``"events"``: scale, event, iteration, seconds, peak bytes,
+    launches, values).  Returns ``(cfg or None, steps per scale, scale-9
+    step seconds)``."""
     import torch
     from hpvaegan_tpu_torch.utils.logger import kept_logging
 
@@ -1635,6 +1654,9 @@ def run_cli(main, flags, name: str, dev, want_step=None, stop=None,
             fail(f"{name} scale {scale} {event} {it}: a value is not finite")
         if delta["plain"]:
             fail(f"{name}: the plain versions ran {delta['plain']} times")
+        if record is not None:
+            record.setdefault("events", []).append(
+                (scale, event, it, wall, peak, delta, values))
         if event == "step":
             state["steps"][scale] = state["steps"].get(scale, 0) + 1
             if record is not None:
@@ -2229,6 +2251,7 @@ def fast_path_main_path(dev, seed: int, runs: Path, timings: dict):
           f"{time.perf_counter() - t0:.3f} s for ten scales, finite losses; "
           f"scale-{SCALE} chunks (k, s, replays, pool bytes) "
           f"{rec['chunks'][SCALE]}", flush=True)
+    timings["scan_cache"] = rec   # phase 19's run without the flag
     return total
 
 
@@ -4081,14 +4104,12 @@ GP_SLOPE = 0.2          # the critic's LeakyReLU
 def penalty_grads(conv, x, w, b, wrt):
     """d/d``wrt`` of ``sum (|grad_x sum tanh(conv(x, w, b))|_channels -
     1)^2``: the WGAN-GP's second order through one conv, its inner
-    gradient taken under ``input_grads_only()`` as the penalty takes it.
+    gradient taken w.r.t. x alone as the penalty takes it.
     Under a mesh ``x`` is this rank's block and the sum its share."""
     import torch
-    from hpvaegan_tpu_torch.ops.kernels.conv3d_pack import input_grads_only
     y = conv(x, w, b)
-    with input_grads_only():
-        (g,) = torch.autograd.grad(torch.tanh(y.float()).sum(), x,
-                                   create_graph=True)
+    (g,) = torch.autograd.grad(torch.tanh(y.float()).sum(), x,
+                               create_graph=True)
     p = (g.float().square().sum(-1).sqrt() - 1.0).square().sum()
     return torch.autograd.grad(p, wrt)
 
@@ -4803,6 +4824,187 @@ def wpack_main_path(dev, seed: int) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 19: --compile-ahead, each next scale readied while one trains
+# ---------------------------------------------------------------------------
+
+AHEAD_ITERS = SCAN_K + 1   # a scale's chunks: 4 and 1
+AHEAD_WPACK = ["--bf16", "--wpack", "--host-loader"]
+
+
+def _scale_events(rec: dict, scale: int, *kinds) -> list:
+    return [e for e in rec["events"] if e[0] == scale and e[1] in kinds]
+
+
+def _main_launches(rec: dict, scale: int) -> int:
+    """The main path's kernel launches in a scale's chunks and steps."""
+    return sum(v for e in _scale_events(rec, scale, "chunk", "step")
+               for k, v in e[5].items() if k != "plain")
+
+
+def check_ahead_run(what: str, ref_dir: Path, run_dir: Path, ref: dict,
+                    rec: dict, captured: bool) -> None:
+    """A ``--compile-ahead`` run against the same run without the flag:
+    ``netG``/``netD_9`` bit-equal, a ``ready`` line and an ``"ahead"``
+    event each scale after the first, no ``failed`` line; with a capture
+    ahead, every later scale's first chunk all replays and no main-path
+    launch in its chunks and steps (the thread's count apart).  Prints
+    each scale's first-chunk (or first-step) seconds with and without
+    the flag, the thread's (build) and the warm-up's and capture's
+    seconds, pool bytes and launches."""
+    for file in ("netG", f"netD_{SCALE}"):
+        bit_equal(f"--compile-ahead against the run without it, {what}",
+                  experiment_dir(ref_dir) / file,
+                  experiment_dir(run_dir) / file)
+    log = (experiment_dir(run_dir) / "logbook.txt").read_text()
+    if "failed" in log:
+        fail(f"{what}: a 'failed' line in the logbook: "
+             f"{[l for l in log.splitlines() if 'failed' in l][:3]}")
+    label = card_line()
+    for scale in range(SCALE + 1):
+        ahead = _scale_events(rec, scale, "ahead")
+        if scale == 0:
+            if ahead:
+                fail(f"{what}: an 'ahead' event at scale 0")
+            continue
+        if len(ahead) != 1 or f"compile-ahead scale {scale}: " not in log:
+            fail(f"{what}: scale {scale} took no state from the thread")
+        info = ahead[0][6]
+        if bool(info["captured"]) != captured:
+            fail(f"{what}: scale {scale} 'ahead' event {info}")
+        if captured:
+            mine, theirs = rec["chunks"][scale], ref["chunks"][scale]
+            if mine[0][2] != mine[0][0] != SCAN_K or \
+                    theirs[0][2] != SCAN_K - 1:
+                fail(f"{what}: scale {scale} first chunks (k, s, replays, "
+                     f"pool) {mine[0]} with the flag, {theirs[0]} without")
+            if _main_launches(rec, scale):
+                fail(f"{what}: scale {scale} launched "
+                     f"{_main_launches(rec, scale)} kernels on the main "
+                     f"path; all replays, it should launch none")
+            first = (f"first chunk {mine[0][1]:.4f} s (without "
+                     f"{theirs[0][1]:.4f}), the next, beside the thread, "
+                     f"{mine[1][1]:.4f} s (without {theirs[1][1]:.4f})")
+            started = (mine[0][1], theirs[0][1])
+        else:
+            mine, theirs = rec["steps"][scale][0], ref["steps"][scale][0]
+            first = f"first step {mine:.4f} s (without {theirs:.4f})"
+            started = (mine, theirs)
+        # the scale's start end to end: the boundary (with the flag, the
+        # wait for the thread and the adoption), the calibration, the
+        # first chunk or step
+        cal = (_scale_events(rec, scale, "calibrate")[0][3],
+               _scale_events(ref, scale, "calibrate")[0][3])
+        print(f"{what} scale {scale} ({label}): {first}; thread "
+              f"{info['seconds']:.4f} s, warm-up and capture "
+              f"{info['prime_seconds']:.4f} s, graph pool "
+              f"{int(info['graph_pool_bytes'])} bytes, "
+              f"{int(info['launches'])} launches; from the previous "
+              f"scale's last step to the end of the first chunk "
+              f"{ahead[0][3] + cal[0] + started[0]:.4f} s (without "
+              f"{cal[1] + started[1]:.4f})", flush=True)
+
+
+def _boundary_peak(rec: dict) -> int:
+    """The peak allocated bytes over scale 8's events and scale 9's
+    'ahead' event, if any: the scale-8 steps with the thread beside them,
+    then the boundary."""
+    return max(e[4] for e in rec["events"]
+               if e[0] == SCALE - 1 or (e[0] == SCALE and e[1] == "ahead"))
+
+
+def compile_ahead_main_path(dev, seed: int, runs: Path,
+                            timings: dict) -> dict:
+    """Phase 19 (see the module's docstring).  Returns the launches of
+    its runs, the thread's (``ahead_counts``) included."""
+    import numpy as np
+    from hpvaegan_tpu_torch.cli import train_video
+    from hpvaegan_tpu_torch.train.precompile import ahead_launches
+
+    ref_cache = timings.get("scan_cache")
+    if ref_cache is None:
+        fail("phase 19 needs phase 14d's --scan-steps run on the cache")
+    base = ["--video-path", str(ROOT / MAIN_CFG["video_path"]), "--pconv",
+            "--pconv-all", "--pfuse", "--manualSeed", str(seed), "--niter",
+            str(AHEAD_ITERS)]
+    label = card_line()
+    total = {k: 0 for k in all_counts()}
+
+    def run(tag: str, flags: list) -> dict:
+        reset_counts()
+        before = ahead_launches()
+        rec = {}
+        t0 = time.perf_counter()
+        _, steps, _ = run_cli(train_video.main, base + flags + [
+            "--run-dir", str(runs / tag)], tag, dev, record=rec)
+        now = ahead_launches()
+        thread = {k: now[k] - before[k] for k in now}
+        main_counts = all_counts()
+        for k in total:
+            total[k] += main_counts[k] + thread.get(k, 0)
+        if steps != {s: AHEAD_ITERS for s in range(SCALE + 1)}:
+            fail(f"the {tag} run ran steps {steps}")
+        if thread["plain"]:
+            fail(f"{tag}: the thread ran the plain versions")
+        rec["thread"] = thread
+        print(f"{tag} ({label}): {time.perf_counter() - t0:.3f} s for ten "
+              f"scales; the thread's launches "
+              f"{ {k: v for k, v in thread.items() if v} }", flush=True)
+        return rec
+
+    # 19a: f32 on the device cache, against phase 14d's run
+    scan = ["--scan-steps", str(SCAN_K)]
+    rec = run("ahead_cache_f32", scan + ["--compile-ahead"])
+    check_ahead_run("f32 device cache", runs / "scan_cache",
+                    runs / "ahead_cache_f32", ref_cache, rec, True)
+    print(f"f32 peak allocated at the 8 -> 9 boundary ({label}): "
+          f"{_boundary_peak(rec)} bytes with the flag, "
+          f"{_boundary_peak(ref_cache)} without", flush=True)
+
+    # 19b: bf16 --wpack on the host loader: the CUDA graphs against
+    # --scan-steps 1, then the flag at K = 4 (a capture ahead) and at
+    # K = 1 (a warm-up ahead, the first step eager)
+    recs = {}
+    for tag, flags in (("wpack_scan1", ["--scan-steps", "1"]),
+                       ("wpack_scan4", scan),
+                       ("wpack_scan4_ahead", scan + ["--compile-ahead"]),
+                       ("wpack_scan1_ahead", ["--scan-steps", "1",
+                                              "--compile-ahead"])):
+        recs[tag] = run(tag, AHEAD_WPACK + flags)
+    for file in ("netG", f"netD_{SCALE}"):
+        bit_equal(f"--wpack --scan-steps {SCAN_K} (CUDA graphs) against "
+                  f"--scan-steps 1, --host-loader bf16",
+                  experiment_dir(runs / "wpack_scan1") / file,
+                  experiment_dir(runs / "wpack_scan4") / file)
+    check_ahead_run("bf16 --wpack host loader", runs / "wpack_scan4",
+                    runs / "wpack_scan4_ahead", recs["wpack_scan4"],
+                    recs["wpack_scan4_ahead"], True)
+    check_ahead_run("bf16 --wpack host loader, --scan-steps 1",
+                    runs / "wpack_scan1", runs / "wpack_scan1_ahead",
+                    recs["wpack_scan1"], recs["wpack_scan1_ahead"], False)
+    # the thread's launches count apart: the eager steps launch the same
+    # with and without it
+    steps_of = {tag: [(e[0], e[2], e[5]) for e in recs[tag]["events"]
+                      if e[1] == "step"]
+                for tag in ("wpack_scan1", "wpack_scan1_ahead")}
+    if steps_of["wpack_scan1"] != steps_of["wpack_scan1_ahead"]:
+        fail("an eager step launched other kernels beside the thread than "
+             "without it")
+    firsts = [(recs["wpack_scan1_ahead"]["steps"][s][0],
+               recs["wpack_scan1"]["steps"][s][0])
+              for s in range(1, SCALE + 1)]
+    ratio = float(np.median([a / b for a, b in firsts]))
+    print(f"--scan-steps 1, bf16 --wpack ({label}): each scale's first "
+          f"(eager) step after a warm-up ahead / without one, "
+          f"median over scales 1-{SCALE}: {ratio:.4f} "
+          f"({'shorter' if ratio < 1 else 'not shorter'}); "
+          f"{[(round(a, 4), round(b, 4)) for a, b in firsts]}", flush=True)
+    print(f"bf16 --wpack peak allocated at the 8 -> 9 boundary ({label}): "
+          f"{_boundary_peak(recs['wpack_scan4_ahead'])} bytes with the flag,"
+          f" {_boundary_peak(recs['wpack_scan4'])} without", flush=True)
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4928,6 +5130,10 @@ def main() -> None:
         paths["GP second order"] = gp_main_path(dev, args.seed,   # 17
                                                 args.profile)
         paths["wpack"] = wpack_main_path(dev, args.seed)          # 18
+        t0 = time.perf_counter()
+        paths["compile ahead"] = compile_ahead_main_path(         # 19
+            dev, args.seed, runs, timings)
+        print(f"phase 19: {time.perf_counter() - t0:.3f} s", flush=True)
         kept = {}
         for bf16 in (False, True):                           # phase 7
             paths[f"generate {dtype_name(bf16)}"] = generate_main_path(

@@ -16,6 +16,7 @@ for the CPU; without a card they raise instead of falling back.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -24,7 +25,55 @@ __version__ = "0.1.0"
 __all__ = ["resolve_device", "full_f32", "deterministic"]
 
 
-@contextlib.contextmanager
+class _HeldFlags:
+    """Process-wide flags held while any thread is inside the block: the
+    first holder saves the previous values and sets the block's, the last
+    one out restores them.  A plain save-and-restore would let a thread
+    leaving the block restore the old values while another thread's step
+    is still inside it (``--compile-ahead`` runs the next scale's step on
+    a thread of its own)."""
+
+    def __init__(self, get, put, value):
+        self._get, self._put, self._value = get, put, value
+        self._lock = threading.Lock()
+        self._holders = 0
+        self._saved = None
+
+    @contextlib.contextmanager
+    def hold(self):
+        with self._lock:
+            if self._holders == 0:
+                self._saved = self._get()
+                self._put(self._value)
+            self._holders += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._holders -= 1
+                if self._holders == 0:
+                    self._put(self._saved)
+
+
+def _get_tf32():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _put_tf32(flags) -> None:
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _put_deterministic(flag) -> None:
+    torch.backends.cudnn.deterministic = flag
+
+
+_F32 = _HeldFlags(_get_tf32, _put_tf32, (False, False))
+_DETERMINISTIC = _HeldFlags(lambda: torch.backends.cudnn.deterministic,
+                            _put_deterministic, True)
+
+
 def full_f32():
     """Run stock f32 convs and matmuls in full f32 inside the block.
 
@@ -32,20 +81,14 @@ def full_f32():
     so the stock convs of the model (encoder, 3 -> 64 heads, 64 -> 3 tails,
     decoder) would drift from the JAX package's f32 result while the K1
     kernel computes in f32.  The port holds f32 semantics end to end; the
-    previous settings come back on exit.  Under ``--bf16`` the convs take
-    bf16 operands instead (flax's ``nn.Conv(dtype=bf16)``), which these
-    flags do not touch; the f32 parts of a bf16 model (BatchNorm, the
-    resize, spectral norm) still run in full f32."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    old = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = old
+    previous settings come back when the last thread inside leaves.
+    Under ``--bf16`` the convs take bf16 operands instead (flax's
+    ``nn.Conv(dtype=bf16)``), which these flags do not touch; the f32
+    parts of a bf16 model (BatchNorm, the resize, spectral norm) still
+    run in full f32."""
+    return _F32.hold()
 
 
-@contextlib.contextmanager
 def deterministic():
     """Run stock convs on cuDNN's deterministic algorithms inside the
     block.
@@ -57,14 +100,8 @@ def deterministic():
     port's own kernels reduce in a fixed order).  The JAX package's
     training is reproducible, and so is the port's inside this block, in
     f32 and bf16; the training steps hold it around every step.  The
-    previous setting comes back on exit."""
-    cudnn = torch.backends.cudnn
-    old = cudnn.deterministic
-    cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        cudnn.deterministic = old
+    previous setting comes back when the last thread inside leaves."""
+    return _DETERMINISTIC.hold()
 
 
 def resolve_device(device="cuda") -> torch.device:

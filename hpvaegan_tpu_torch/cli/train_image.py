@@ -15,9 +15,9 @@ The flags are the JAX CLI's: the fast path's (``--fast-grads``,
 train as in ``cli/train_video.py``, the memory ladder's (``--remat``,
 ``--gp-chunked``, ``--remat-blocks``, and the automatic escalation) and
 ``--wpack`` (the 2D stages and critic over packed W, ``models/packed.py``)
-too, ``--compile-ahead`` is accepted and changes nothing, as there
-(``note_noop_flags``); ``--spmd --mesh-shape DxS`` trains over a mesh as
-there.
+too, ``--compile-ahead`` readies each next scale ahead as there
+(``train/precompile.py``); ``--spmd --mesh-shape DxS`` trains over a
+mesh as there.
 The 2D models hold no TPU kernel: every conv runs on stock PyTorch ops.
 
 With ``--tag`` and ``$NEPTUNE_PROJECT`` set and the neptune client
@@ -47,7 +47,7 @@ from ..utils.logger import LoggingBlock, configure_logging
 from ..utils.saver import ImageSaver, apply_resume
 from ..utils.summaries import TensorboardSummary
 from ..utils.tools import seeded_generator
-from .train_video import note_noop_flags, spawn_ranks
+from .train_video import spawn_ranks
 
 __all__ = ["main"]
 
@@ -104,7 +104,6 @@ def main(argv: Optional[Sequence[str]] = None,
                       if primary else None)
     try:
         cfg.adjust_scales()
-        note_noop_flags(cfg)
         logging.info(f"Random Seed: {cfg.manualSeed}")
         mesh = None
         if sharded:
@@ -153,8 +152,9 @@ def main(argv: Optional[Sequence[str]] = None,
             if callback is not None:
                 def hook(event, it, info, scale=scale):
                     callback(scale, event, it, info)
-            train_scale(cfg, G, dataset=dataset, saver=saver,
-                        summary=summary, callback=hook)
+            # under --compile-ahead, the generator readied ahead
+            G = train_scale(cfg, G, dataset=dataset, saver=saver,
+                            summary=summary, callback=hook)[0]
             cfg.scale_idx += 1
     finally:
         saver.wait()   # a write queued before an error still lands

@@ -16,9 +16,13 @@ replays on the card, the device-resident frame cache unless
 (``--remat``, ``--gp-chunked``, ``--remat-blocks``, and the automatic
 escalation of ``train/fallback.py``); ``--wpack`` runs the refinement
 stages and the critic over W-pair-packed activations at the scales
-whose W is even and at least 128 (``models/packed.py``).
-``--compile-ahead`` is accepted and changes nothing
-(``note_noop_flags``).  As
+whose W is even and at least 128 (``models/packed.py``);
+``--compile-ahead`` readies each next scale's training state while the
+scale before it trains (a thread builds its generator, critic,
+optimizers and device cache; a warm-up step and, under ``--scan-steps``
+on the card, the capture of its CUDA graph follow at a chunk boundary;
+``train/precompile.py``), and each scale trains on the generator
+``train_scale`` returns.  As
 in the JAX CLI, every run opens an event file in its experiment directory
 (``utils/summaries.py``), which ``--visualize`` fills with the scalars
 and sample grids; ``--profile-dir`` writes a ``torch.profiler`` trace per
@@ -68,24 +72,7 @@ from ..utils.saver import VideoSaver, apply_resume
 from ..utils.summaries import TensorboardSummary
 from ..utils.tools import seeded_generator
 
-__all__ = ["main", "note_noop_flags", "spawn_ranks"]
-
-# flag -> (is it asked for?, why it has nothing to do in the port)
-NOOP_FLAGS = {
-    "--compile-ahead": (
-        lambda c: c.compile_ahead,
-        "it schedules the next scale's XLA compiles; eager PyTorch "
-        "compiles nothing per scale and the kernels build once into "
-        "build/kernels/"),
-}
-
-
-def note_noop_flags(cfg) -> None:
-    """One log line for each flag asked for that the port accepts and
-    that changes nothing here (the JAX package's XLA scheduling)."""
-    for flag, (on, why) in NOOP_FLAGS.items():
-        if on(cfg):
-            logging.info(f"{flag}: accepted, nothing to do: {why}")
+__all__ = ["main", "spawn_ranks"]
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -120,7 +107,6 @@ def main(argv: Optional[Sequence[str]] = None,
     configure_logging(os.path.join(saver.experiment_dir, "logbook.txt")
                       if primary else None)
     cfg.adjust_scales()
-    note_noop_flags(cfg)
     logging.info(f"Random Seed: {cfg.manualSeed}")
     mesh = None
     if sharded:
@@ -181,8 +167,9 @@ def main(argv: Optional[Sequence[str]] = None,
             if callback is not None:
                 def hook(event, it, info, scale=scale):
                     callback(scale, event, it, info)
-            train_scale(cfg, G, dataset=dataset, saver=saver,
-                        summary=summary, callback=hook)
+            # under --compile-ahead, the generator readied ahead
+            G = train_scale(cfg, G, dataset=dataset, saver=saver,
+                            summary=summary, callback=hook)[0]
             cfg.scale_idx += 1
     finally:
         saver.wait()   # a write queued before an error still lands

@@ -16,7 +16,8 @@ JAX package's fix of a reference resume bug).  As ``cli.train_video``:
 the clip's frames file must exist, it trains on the card unless
 ``--no-cuda``, the memory ladder climbs as there (``--gp-chunked``
 changes nothing under the BatchNorm critic), ``--compile-ahead``
-changes nothing (``note_noop_flags``), ``--wpack`` is taken and, as by
+is logged once and changes nothing, as the JAX baselines trainer starts
+no thread ahead (``note_noop_flags``), ``--wpack`` is taken and, as by
 the JAX baselines steps, not used (they never pack), the batches come
 from the device-resident cache unless ``--host-loader``, the fast-path flags of ``cli.train_video``
 are taken and, as by the JAX baselines CLI, not used, every run opens an
@@ -49,11 +50,28 @@ from ..utils.logger import LoggingBlock, configure_logging
 from ..utils.saver import VideoSaver, apply_resume, restore_file
 from ..utils.summaries import TensorboardSummary
 from ..utils.tools import seeded_generator
-from .train_video import note_noop_flags, spawn_ranks
+from .train_video import spawn_ranks
 
-__all__ = ["main"]
+__all__ = ["main", "note_noop_flags"]
 
 BASELINES = ("GeneratorCSG", "GeneratorSG")
+
+# flag -> (is it asked for?, why it has nothing to do here)
+NOOP_FLAGS = {
+    "--compile-ahead": (
+        lambda c: c.compile_ahead,
+        "the baselines trainer readies no scale ahead, as the JAX "
+        "package's (trainer_baselines.py) starts no compile-ahead "
+        "thread"),
+}
+
+
+def note_noop_flags(cfg) -> None:
+    """One log line for each flag asked for that this CLI accepts and
+    that changes nothing here."""
+    for flag, (on, why) in NOOP_FLAGS.items():
+        if on(cfg):
+            logging.info(f"{flag}: accepted, nothing to do: {why}")
 
 
 def main(argv: Optional[Sequence[str]] = None,

@@ -41,9 +41,13 @@ class DeviceCacheLoader:
     (``rows``, ``draw``) and the gather (``gather``) apart."""
 
     def __init__(self, dataset, batch_size: int, seed: int, scale_idx: int,
-                 device="cpu", start_iteration: int = 0):
+                 device="cpu", start_iteration: int = 0, views=None):
+        """``views``: the dataset's ``device_cache_spec(scale_idx)``,
+        where the stores are built beside another scale's training
+        (``--compile-ahead``); by default ``device_cache_views``."""
         device = torch.device(device)
-        cur, zero, n_start, kw = dataset.device_cache_views(scale_idx)
+        cur, zero, n_start, kw = (views if views is not None else
+                                  dataset.device_cache_views(scale_idx))
         kw = dict(kw)
         self.hflip = bool(kw.pop("hflip"))
         self._n = int(kw.pop("virtual_len"))

@@ -95,6 +95,10 @@ class _ImageDatasetBase:
         return cur, zero, len(self.images), dict(
             hflip=bool(self.cfg.hflip), virtual_len=len(self))
 
+    # the views change no state here (each scale's images are resized
+    # once into their own cache entry): --compile-ahead's stores too
+    device_cache_spec = device_cache_views
+
     def get(self, idx: int, scale_idx: int, hflip: bool
             ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """(H, W, 3) image ``idx`` at ``scale_idx``, and its zero-scale

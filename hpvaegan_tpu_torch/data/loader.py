@@ -173,17 +173,19 @@ class BatchLoader:
 
 
 def make_loader(dataset, cfg, seed: int, scale_idx: int, device,
-                start_iteration: int = 0):
+                start_iteration: int = 0, views=None):
     """The trainer's loader, seeded ``seed * 1000 + scale_idx``
     (``hpvaegan_tpu/train/trainer.py:149-167``): the device-resident
-    cache (``data/device_cache.DeviceCacheLoader``), or ``BatchLoader``
-    on the host stream under ``--host-loader``."""
+    cache (``data/device_cache.DeviceCacheLoader``, from ``views`` when
+    given), or ``BatchLoader`` on the host stream under
+    ``--host-loader``."""
     from .device_cache import DeviceCacheLoader
     seed = seed * 1000 + scale_idx
     if not cfg.host_loader:
         return DeviceCacheLoader(dataset, cfg.batch_size, seed=seed,
                                  scale_idx=scale_idx, device=device,
-                                 start_iteration=start_iteration)
+                                 start_iteration=start_iteration,
+                                 views=views)
     return BatchLoader(dataset, cfg.batch_size, seed=seed,
                        scale_idx=scale_idx, device=device, stream="host",
                        start_iteration=start_iteration)

@@ -181,19 +181,34 @@ class SingleVideoDataset:
         """``(cur_store, zero_store, n_start, gather_kwargs)`` for
         ``data/device_cache.DeviceCacheLoader`` (JAX ``data/video.py:
         169-188``): the scale's frames and the zero scale's, or at scale
-        0 its own frames twice, at the same stride."""
+        0 its own frames twice, at the same stride.  They become the
+        current frames (``generate_frames``)."""
         self.generate_frames(scale_idx)
+        return self._views(scale_idx, self.frames)
+
+    def device_cache_spec(self, scale_idx: int):
+        """``device_cache_views(scale_idx)`` without touching the current
+        frames (the counterpart of JAX ``device_cache_spec``, ``data/
+        video.py:190``): ``--compile-ahead`` builds the next scale's
+        stores while this one trains on its frames.  The next scale's
+        frames are resized apart, the same values ``generate_frames``
+        makes."""
+        frames = (self.frames if self._frames_scale == scale_idx
+                  else self._generate_frames(scale_idx))
+        return self._views(scale_idx, frames)
+
+    def _views(self, scale_idx: int, frames: np.ndarray):
         cfg = self.cfg
         every = cfg.sampling_rates[self.pyramid.fps_index(scale_idx)]
         if scale_idx > 0:
             zero, every0 = self.zero_scale_frames, cfg.sampling_rates[0]
         else:
-            zero, every0 = self.frames, every
+            zero, every0 = frames, every
         kw = dict(td=cfg.fps_lcm // every + 1, every=every,
                   td0=cfg.fps_lcm // every0 + 1, every0=every0,
                   hflip=bool(cfg.hflip),
                   virtual_len=self.n_starts * cfg.data_rep)
-        return self.frames, zero, self.n_starts, kw
+        return frames, zero, self.n_starts, kw
 
     def get(self, idx: int, hflip: bool, scale_idx: Optional[int] = None
             ) -> Tuple[np.ndarray, Optional[np.ndarray]]:

@@ -11,8 +11,8 @@ The WGAN-GP's double backprop is ``torch.autograd.grad`` with
 ``create_graph=True``, as in the reference.  The critic it differentiates
 may run stock convs (the trainer's route, as in the JAX package) or the
 K1 kernels, whose gradients are differentiable any number of times; the
-inner gradient is taken under ``input_grads_only()``, so K1 computes no
-weight gradient there.  K2's gradients are first order only.
+inner gradient is taken w.r.t. the input alone, and K1's backward then
+computes no weight gradient (``conv3d_pack._engine_runs``).  K2's gradients are first order only.
 ``chunked`` (``--gp-chunked``) evaluates it one sample at a time and
 backpropagates each sample's term at once, so that one sample's double
 backward graph lives at a time (the JAX package's ``lax.map``).
@@ -32,7 +32,6 @@ from typing import Callable, Optional
 
 import torch
 
-from .ops.kernels.conv3d_pack import input_grads_only
 
 __all__ = ["global_mean", "kl_criterion", "kl_bern_criterion", "mse",
            "calc_gradient_penalty"]
@@ -123,6 +122,5 @@ def _penalty(d_apply, interpolates: torch.Tensor) -> torch.Tensor:
     the graph of its gradient kept for the double backprop."""
     x = interpolates.detach().requires_grad_(True)
     out = d_apply(x).sum()
-    with input_grads_only():
-        (grads,) = torch.autograd.grad(out, x, create_graph=True)
+    (grads,) = torch.autograd.grad(out, x, create_graph=True)
     return (grads.square().sum(dim=1).sqrt() - 1.0).square()

@@ -28,7 +28,10 @@ and the residual stream is bf16 as in the JAX package: ``mu``/``logvar``,
 ``tanh(y + x_up)``.  The noisy stage input ``x_up + noise * amp`` is f32
 there, because the JAX package's amps are an f32 array, so it is
 computed in f32 here too (torch would keep ``bf16 * float`` in bf16).
-The parameters stay f32.
+The parameters stay f32.  The amps are Python floats, or the training
+steps' f32 tensor (one 0-dim element a stage: the same bits in the
+product, and a CUDA graph captured ahead of the scale's calibration
+reads its amps from its inputs).
 Under a mesh (``parallel.mesh.attach``) the inputs and draws stay whole,
 as a single-process run has them, and ``apply`` cuts this rank's block
 of each (``Mesh.shard``); every draw it makes itself (``eps``, the stage
@@ -144,6 +147,16 @@ def to_model_layout(t, device=None, dtype=None) -> torch.Tensor:
 def to_public_layout(t: torch.Tensor) -> torch.Tensor:
     """NCDHW (NCHW) -> NTHWC (NHWC) view."""
     return t.permute(0, 2, 3, 4, 1) if t.dim() == 5 else t.permute(0, 2, 3, 1)
+
+
+def _amp_values(amps):
+    """The noise amps as the stages index them: the training steps' f32
+    tensor as it is (a CUDA graph then reads them from its inputs instead
+    of baking them in; its 0-dim elements multiply as the f32 of the
+    Python floats do), else a list of floats (sampling, serving)."""
+    if isinstance(amps, torch.Tensor):
+        return amps
+    return [float(a) for a in amps]
 
 
 class _PyramidModule(nn.Module):
@@ -329,7 +342,7 @@ class GeneratorHPVAEGAN(_PyramidModule):
         """The decoder on the latent ``z_vae`` (model layout), then the
         refinement stages up to ``stop`` (all by default); returns
         ``apply``'s triple."""
-        amps = [float(a) for a in amps]
+        amps = _amp_values(amps)
         vae_out = torch.tanh(self._run(self.decoder, z_vae, train,
                                        update_stats))
         if sample_init is not None:
@@ -371,7 +384,7 @@ class GeneratorHPVAEGAN(_PyramidModule):
         and stream position (JAX ``generators.py:234-241``)."""
         with full_f32():
             x = self._refinement_layers(
-                start_idx, self._local(x, x.dtype), [float(a) for a in amps],
+                start_idx, self._local(x, x.dtype), _amp_values(amps),
                 mode, train, noises, generator, update_stats)
             return to_public_layout(x)
 
@@ -685,7 +698,7 @@ class GeneratorCSG(_Baseline):
               update_stats: bool = False) -> torch.Tensor:
         """The sample (NTHWC) from ``noise_init`` (rand: a fresh draw;
         rec: the fixed ``Z_init``), in the compute dtype."""
-        amps = [float(a) for a in amps]
+        amps = _amp_values(amps)
         with full_f32():
             x = self.head(self._local(noise_init), train, update_stats)
             x = self._run(self.body[0], pad_spatial(x, self.shrink,
@@ -721,7 +734,7 @@ class GeneratorSG(_Baseline):
               generator: Optional[torch.Generator] = None,
               update_stats: bool = False) -> torch.Tensor:
         """As ``GeneratorCSG.apply``."""
-        amps = [float(a) for a in amps]
+        amps = _amp_values(amps)
         with full_f32():
             x = self._run(self.body[0],
                           pad_spatial(self._local(noise_init), self.shrink,

@@ -42,9 +42,10 @@ import torch
 import torch.nn.functional as F
 
 from ... import full_f32
+from ._counting import pick
 
 __all__ = ["conv3d_lrelu", "conv3d_lrelu_plain", "conv3d_lrelu_forward",
-           "Conv3dLReLUFunction", "counts", "LReLUCounts", "kernel_config",
+           "Conv3dLReLUFunction", "counts", "ahead_counts", "LReLUCounts", "kernel_config",
            "k3_instance", "k3_plan", "K3Plan", "INSTANCES", "NEG_SLOPE",
            "SOURCE", "REPLACES"]
 
@@ -73,6 +74,7 @@ class LReLUCounts:
 
 
 counts = LReLUCounts()
+ahead_counts = LReLUCounts()   # --compile-ahead's (``_counting.py``)
 
 
 def _nc(x: torch.Tensor) -> torch.Tensor:
@@ -226,7 +228,7 @@ def conv3d_lrelu_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the kernel."""
     _check(x, w, b)
     if x.device.type == "cpu":
-        counts.plain_calls += 1
+        pick(x, counts, ahead_counts).plain_calls += 1
         return conv3d_lrelu_plain(x, w, b, neg_slope)
     x, w, b = (t.float().contiguous() for t in (x, w, b))
     B, T, H, W, c_in = x.shape
@@ -249,9 +251,9 @@ def conv3d_lrelu_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"conv3d_lrelu kernel launch failed with CUDA "
                            f"error {err}")
-    counts.launches += 1
-    counts.by_instance[plan.instance] = (
-        counts.by_instance.get(plan.instance, 0) + 1)
+    c = pick(x, counts, ahead_counts)
+    c.launches += 1
+    c.by_instance[plan.instance] = c.by_instance.get(plan.instance, 0) + 1
     return y
 
 

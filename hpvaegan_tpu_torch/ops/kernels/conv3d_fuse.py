@@ -45,9 +45,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import conv3d_pack as cp
+from ._counting import pick
 
 __all__ = ["conv3d64_pair", "conv3d64_pair_plain", "conv3d64_pair_forward",
-           "conv3d64_pair_backward", "Conv3d64PairFunction", "counts",
+           "conv3d64_pair_backward", "Conv3d64PairFunction", "counts", "ahead_counts",
            "PairCounts", "kernel_config", "pair_plan", "SLOPE", "SOURCE",
            "REPLACES"]
 
@@ -73,6 +74,7 @@ class PairCounts:
 
 
 counts = PairCounts()
+ahead_counts = PairCounts()   # --compile-ahead's (``_counting.py``)
 
 
 def conv3d64_pair_plain(x, w1, b1, w2, b2, slope: float = SLOPE,
@@ -142,13 +144,17 @@ def _check(x, w1, b1, w2, b2) -> None:
         raise ValueError("conv3d64_pair needs both biases")
 
 
+def _counts(x: torch.Tensor) -> PairCounts:
+    return pick(x, counts, ahead_counts)
+
+
 def conv3d64_pair_forward(x, w1, b1, w2, b2, slope: float = SLOPE,
                           with_mid: bool = False):
     """The fused forward without autograd: ``y``, or ``(y, z)`` with
     ``with_mid``."""
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
-        counts.plain_calls += 1
+        _counts(x).plain_calls += 1
         return conv3d64_pair_plain(x, w1, b1, w2, b2, slope, with_mid)
     w1, b1, w2, b2 = (cp.as_compute(t, x.dtype) for t in (w1, b1, w2, b2))
     B, T, H, W, _ = x.shape
@@ -175,9 +181,9 @@ def conv3d64_pair_forward(x, w1, b1, w2, b2, slope: float = SLOPE,
             B, T, H, W, float(slope), *grid, cp._stream(x.device))
     cp._raise_on(err, "conv3d64_pair")
     if x.dtype == torch.bfloat16:
-        counts.bf16_launches += 1
+        _counts(x).bf16_launches += 1
     else:
-        counts.launches += 1
+        _counts(x).launches += 1
     return (y, z) if with_mid else y
 
 

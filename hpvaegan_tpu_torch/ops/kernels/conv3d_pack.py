@@ -23,9 +23,12 @@ Replaces the TPU kernels behind ``conv3d64``
 (``conv3d_pack.py:388-447``): ``Conv3d64Function``'s backward computes dx
 through ``conv3d64`` itself on ``flip_swap(w)`` and dw through
 ``Conv3d64DwFunction``, whose backward is again two K1 convs, so every
-derivative of every order runs on these kernels.  Inside
-``input_grads_only()`` (the WGAN-GP's inner gradient, taken w.r.t. the
-critic's input alone) the backward skips dw and db.
+derivative of every order runs on these kernels.  A backward that will
+not use dw or db skips it: the WGAN-GP's inner gradient, taken w.r.t.
+the critic's input alone, asks the autograd engine whether it will run
+the weight's and the bias's gradient edges (``_engine_runs``), which is a
+fact of that one backward, so a step on another thread at the same time
+keeps its weight gradients.
 
 Two compute dtypes, as in the JAX package (``conv3d_pack.py:190-197,
 315-320, 423-444``):
@@ -44,7 +47,8 @@ The dw launch is planned from the kernel's own report
 blocks a chunk, row-tile width) by the pure ``dw_plan``; the bf16
 forward's persistent grid likewise (``kernel_config``, ``fwd_plan``).
 
-Launches are counted per kernel and dtype (``counts``).
+Launches are counted per kernel and dtype (``counts``; the work of
+``--compile-ahead`` beside the main path in ``ahead_counts``).
 
 Routing gate: the port routes a conv here when it is 3D, 3x3x3, stride 1,
 padding 1 with zeros and 64 -> 64 (``hpvaegan_tpu/models/blocks.py:164-166``).
@@ -57,7 +61,6 @@ it launches its kernel or raises.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -66,10 +69,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ._counting import pick
+
 __all__ = ["conv3d64", "conv3d64_plain", "conv3d64_dw", "conv3d64_dw_plain",
            "conv3d64_dx", "flip_swap", "as_compute", "scalar_as",
-           "Conv3d64Function", "Conv3d64DwFunction", "input_grads_only",
-           "counts", "KernelCounts", "kernel_config", "dw_kernel_config",
+           "Conv3d64Function", "Conv3d64DwFunction",
+           "counts", "ahead_counts", "KernelCounts", "kernel_config", "dw_kernel_config",
            "DwPlan", "dw_plan", "FwdPlan", "fwd_plan", "SOURCE", "DW_SOURCE",
            "REPLACES", "DX_REPLACES", "DW_REPLACES"]
 
@@ -112,6 +117,9 @@ class KernelCounts:
 
 
 counts = KernelCounts()
+# the launches of --compile-ahead's work beside the main path
+# (``_counting.py``)
+ahead_counts = KernelCounts()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -303,6 +311,10 @@ def fwd_plan(sms: int, blocks_per_sm: int, tile_h: int, tile_w: int,
     return FwdPlan(ntiles, tiles_h, tiles_w, grid)
 
 
+def _counts(x: torch.Tensor) -> KernelCounts:
+    return pick(x, counts, ahead_counts)
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -312,7 +324,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     """One forward conv in x's dtype: the plain version on the CPU, else
     the kernel of that dtype, counted as ``kind`` ("fwd" or "dx")."""
     if x.device.type == "cpu":
-        counts.plain_calls += 1
+        _counts(x).plain_calls += 1
         return conv3d64_plain(x, w, b, neg_slope)
     w, b = as_compute(w, x.dtype), as_compute(b, x.dtype)
     B, T, H, W, _ = x.shape
@@ -337,7 +349,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             B, T, H, W, int(neg_slope is not None), float(neg_slope or 0.0),
             *grid, _stream(x.device))
     _raise_on(err, "conv3d64")
-    counts.add(kind, x.dtype)
+    _counts(x).add(kind, x.dtype)
     return y
 
 
@@ -411,7 +423,7 @@ def conv3d64_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}, {tuple(dy.shape)}")
     _check_tensors([x, dy])
     if x.device.type == "cpu":
-        counts.plain_calls += 1
+        _counts(x).plain_calls += 1
         return conv3d64_dw_plain(x, dy)
     dy = as_compute(dy, x.dtype)
     B, T, H, W, _ = x.shape
@@ -433,7 +445,7 @@ def conv3d64_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
             B, T, H, W, plan.nchunk, _stream(x.device))
     _raise_on(err, "conv3d64_dw")
-    counts.add("dw", x.dtype)
+    _counts(x).add("dw", x.dtype)
     return dw
 
 
@@ -450,25 +462,25 @@ def _lrelu_grad(dy: torch.Tensor, y: torch.Tensor, slope: float):
     return torch.where(y >= 0, dy, scalar_as(slope, dy.dtype) * dy)
 
 
-_inputs_only = 0   # depth of the input_grads_only() contexts now open
-
-
-@contextlib.contextmanager
-def input_grads_only():
-    """Within: K1's backward computes the input gradient only, no dw and
-    no db.  ``ctx.needs_input_grad`` is fixed when the graph is built, so
-    a gradient taken w.r.t. the input alone (the WGAN-GP's inner
-    ``autograd.grad``, ``losses.calc_gradient_penalty``) would otherwise
-    launch a dw per conv for nothing.  The setting is process-wide while
-    open (the autograd engine runs a CUDA backward on its own thread):
-    take no gradient of a kernel conv's weights in another thread
-    meanwhile."""
-    global _inputs_only
-    _inputs_only += 1
+def _engine_runs(edge) -> bool:
+    """Will the backward now running use the gradient sent along
+    ``edge`` (a ``next_functions`` entry)?  ``ctx.needs_input_grad`` is
+    fixed when the graph is built, so a gradient taken w.r.t. the input
+    alone (the WGAN-GP's inner ``autograd.grad``,
+    ``losses.calc_gradient_penalty``) would otherwise launch a dw per
+    conv for nothing.  The engine's record is a fact of the one
+    backward, whatever other threads differentiate meanwhile (a flag
+    held around the inner pass would be process-wide: the engine runs a
+    CUDA backward on its own thread).  True outside a backward that asks
+    for chosen inputs only, and where the engine cannot say (a leaf
+    asked for by ``autograd.grad`` itself)."""
+    node = edge[0]
+    if node is None:
+        return False
     try:
-        yield
-    finally:
-        _inputs_only -= 1
+        return bool(torch._C._will_engine_execute_node(node))
+    except RuntimeError:
+        return True
 
 
 def _differentiable(*tensors) -> bool:
@@ -497,7 +509,8 @@ class Conv3d64Function(torch.autograd.Function):
     them differentiable, so the backward can itself be differentiated.
     The cotangent is rounded to x's dtype first; dx comes back in the
     cotangent's dtype, dw and db in the parameters'.  Gradients not asked
-    for are skipped, and so are dw and db inside ``input_grads_only()``.
+    for are skipped, and so are dw and db where this backward will not
+    use them (``_engine_runs``: the WGAN-GP's inner gradient).
     An undefined cotangent stays undefined (no launch): the outer pass of
     the WGAN-GP sends one into every forward node of the critic (a stock
     conv's double backward has no input gradient when the inner pass took
@@ -523,8 +536,9 @@ class Conv3d64Function(torch.autograd.Function):
         if ctx.neg_slope is not None:
             dy = _lrelu_grad(dy, y, ctx.neg_slope)
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        if _inputs_only:
-            need_w = need_b = False
+        edges = ctx.next_functions
+        need_w = need_w and _engine_runs(edges[1])
+        need_b = need_b and _engine_runs(edges[2])
         dx = (_conv(dy, flip_swap(w), None, None, "dx").to(out_dtype)
               if need_x else None)
         dw = _dw(x, dy).to(w.dtype) if need_w else None

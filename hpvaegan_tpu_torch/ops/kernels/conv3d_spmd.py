@@ -59,10 +59,11 @@ from typing import Optional
 import torch
 
 from ...parallel import distributed as _dist
+from ._counting import pick
 from .conv3d_pack import conv3d64, conv3d64_plain
 
 __all__ = ["conv3d64_spmd", "conv3d64_spmd_plain", "pconv_spmd_ok", "halo",
-           "counts", "SpmdCounts", "REPLACES", "SOURCE"]
+           "counts", "ahead_counts", "SpmdCounts", "REPLACES", "SOURCE"]
 
 SOURCE = "hpvaegan_tpu_torch/ops/kernels/conv3d_spmd.py"
 REPLACES = "hpvaegan_tpu/ops/pallas/conv3d_spmd.py:109"
@@ -82,6 +83,7 @@ class SpmdCounts:
 
 
 counts = SpmdCounts()
+ahead_counts = SpmdCounts()   # --compile-ahead's (``_counting.py``)
 
 
 def _exchange(x: torch.Tensor, mesh, dim: int, width: int) -> torch.Tensor:
@@ -189,13 +191,14 @@ def conv3d64_spmd(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"x must be a (B,T,h,W,64) block, got "
                          f"{tuple(x.shape)}")
     y = _compose(conv3d64, x, w, b, mesh, neg_slope)
+    c = pick(x, counts, ahead_counts)
     if x.is_cuda:
         if x.dtype == torch.bfloat16:
-            counts.bf16_launches += 1
+            c.bf16_launches += 1
         else:
-            counts.launches += 1
+            c.launches += 1
     else:
-        counts.plain_calls += 1
+        c.plain_calls += 1
     return y
 
 

@@ -13,6 +13,14 @@ the step into a graph, with static copies of the inputs, and every call
 from then on copies its inputs into those buffers and replays the graph.
 The metrics come back as clones, so a chunk keeps every iteration's.
 
+Primed (``prime``, for ``--compile-ahead``, ``train/precompile.py``):
+during the scale before, one warm-up step runs on stand-in inputs, what
+it changed is undone (``reset``), and the capture runs on those inputs;
+every call from then on, the first included, replays (without the
+capture, a warm-up alone: the eager first step then comes later).  The
+eager steps and the capture run on the graph's own two streams, never
+on the default capture stream that every ``torch.cuda.graph`` shares.
+
 What makes a step capturable (and the port's steps are):
 
 * no host synchronisation and no draw inside: the trainer draws
@@ -57,6 +65,9 @@ def _clone(tree):
 
 def _copy_into(static, tree) -> None:
     if isinstance(static, torch.Tensor):
+        if static.shape != tree.shape:
+            raise ValueError(f"a replay's input of shape {tuple(tree.shape)}"
+                             f" for the captured {tuple(static.shape)}")
         static.copy_(tree)
     elif isinstance(static, dict):
         for k, v in static.items():
@@ -79,6 +90,11 @@ class StepGraph:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._static = None
         self._out = None
+        # the eager steps run on one stream, the capture on another: its
+        # own, never the default capture stream that every
+        # torch.cuda.graph shares
+        self.streams = (torch.cuda.Stream(self._device),
+                        torch.cuda.Stream(self._device))
         self.eager_steps = 0
         self.replays = 0
         self.pool_bytes = 0   # reserved by the capture
@@ -94,8 +110,23 @@ class StepGraph:
         self.replays += 1
         return {k: v.clone() for k, v in self._out.items()}
 
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def prime(self, inputs: dict, reset: Callable[[], None],
+              capture: bool = True) -> None:
+        """Warm up on ``inputs`` (a stand-in of the real ones, same
+        shapes), call ``reset()`` to undo the warm-up's changes, and
+        capture on ``inputs`` (unless ``capture`` is false): the first
+        call then replays."""
+        self._eager(inputs)
+        reset()
+        if capture:
+            self._capture(inputs)
+
     def _eager(self, inputs: dict) -> Dict[str, torch.Tensor]:
-        side = torch.cuda.Stream(self._device)
+        side = self.streams[0]
         side.wait_stream(torch.cuda.current_stream(self._device))
         with torch.cuda.stream(side):
             out = self._step(inputs)
@@ -112,8 +143,10 @@ class StepGraph:
         before = torch.cuda.memory_reserved(self._device)
         graph = torch.cuda.CUDAGraph()
         # thread_local: the host loader's thread (--host-loader) may pin
-        # and copy the next batches while this thread captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # and copy the next batches while this thread captures, and the
+        # compile-ahead thread may build the next scale's state
+        with torch.cuda.graph(graph, stream=self.streams[1],
+                              capture_error_mode="thread_local"):
             self._out = self._step(self._static)
         self._graph = graph
         self.pool_bytes = torch.cuda.memory_reserved(self._device) - before

@@ -31,6 +31,9 @@ frozen groups are ``set_to_zero`` (``optim.py:214-231``).  Here:
 * on CUDA both optimizers are ``capturable`` Adams (their step count on
   the card), whatever ``--scan-steps``: a step captured in a CUDA graph
   (``train/graphs.py``) and an eager step then run one update rule;
+* ``reset_adam_`` puts a used Adam back to a fresh one's state in place
+  (``--compile-ahead`` warms the next scale's optimizers up on stand-in
+  inputs before a CUDA graph captures their tensors);
 * ``load_jax_g_state``/``load_jax_d_state`` take a JAX ``netG_mid``'s
   optax states: the generator's is ``chain(clip_by_global_norm,
   multi_transform({label: adam | set_to_zero}))`` (without the clip when
@@ -50,7 +53,8 @@ import torch
 
 __all__ = ["hpvaegan_group_plan", "baselines_group_plan", "group_plan",
            "build_g_optimizer", "build_d_optimizer", "freeze_frozen",
-           "hoist_index", "clip_grad_norm_", "load_jax_g_state",
+           "hoist_index", "clip_grad_norm_", "reset_adam_",
+           "load_jax_g_state",
            "load_jax_d_state", "ADAM_B2", "ADAM_EPS"]
 
 ADAM_B2 = 0.999
@@ -182,6 +186,17 @@ def build_g_optimizer(cfg, G, scale_idx: int) -> torch.optim.Adam:
 def build_d_optimizer(cfg, D) -> torch.optim.Adam:
     return _adam(D.parameters(), cfg.lr_d, cfg,
                  next(D.parameters()).device)
+
+
+@torch.no_grad()
+def reset_adam_(opt: torch.optim.Optimizer) -> None:
+    """Every moment and step count of ``opt`` to zero, in place: the
+    state a fresh Adam makes at its first step, in the same tensors (a
+    CUDA graph that captured them keeps reading them)."""
+    for state in opt.state.values():
+        for v in state.values():
+            if isinstance(v, torch.Tensor):
+                v.zero_()
 
 
 def _load_adam(opt: torch.optim.Optimizer, module,

@@ -100,6 +100,20 @@ draws; the rung stays on ``cfg`` for the later scales.  Under
 ``--scan-steps K`` on the card the escalation closes the scale's
 ``StepGraph`` (its pool freed) and a new one starts on the new rung: an
 eager step, then a fresh capture.
+
+``--compile-ahead`` (``train/precompile.py``; ``trainer.py:176-189,
+346-352``), in the file form: once a scale's first chunk has returned,
+a thread builds the next scale's generator, critic, optimizers and
+device cache, and at a later chunk boundary (or at the next scale's
+start) this thread warms them up and, on the card under
+``--scan-steps``, captures the next scale's ``StepGraph``
+(``prime_ahead``); the next ``train_scale`` takes that state before its
+calibration, with the values the scale would have started from (event
+``"ahead"``, -1, ``{"seconds", "prime_seconds", "captured",
+"graph_pool_bytes", "launches"}``), and returns the adopted generator.
+Every step takes the amps as an f32 tensor in its inputs
+(``iteration_inputs``), which a graph captured before the calibration
+reads at each replay.
 """
 from __future__ import annotations
 
@@ -123,9 +137,10 @@ from ..utils.watchdog import Watchdog
 from .fallback import Ladder
 from .graphs import StepGraph
 from .optim import build_d_optimizer, build_g_optimizer, freeze_frozen
+from .precompile import prime_ahead, start_ahead, take_ahead
 from .steps import calibrate, gan_draws, gan_step, vae_step
 
-__all__ = ["train_scale"]
+__all__ = ["train_scale", "scale_step", "iteration_inputs"]
 
 
 def _z_init_shape(cfg, G) -> Tuple[int, ...]:
@@ -138,6 +153,46 @@ def _z_init_shape(cfg, G) -> Tuple[int, ...]:
         return tuple(size)
     shape = (G.pyramid.shape3d(0) if G.ndim == 3 else G.pyramid.shape2d(0))
     return (cfg.batch_size, *shape, cfg.latent_dim)
+
+
+def scale_step(cfg, G, D, opt_g, opt_d, batches, gan_phase: bool
+               ) -> Callable[[dict], dict]:
+    """One step of the scale on an iteration's inputs (``iteration_inputs``:
+    its batch, or the device cache's rows gathered by ``batches``, its
+    amps and every draw); the same function whether it runs eagerly or is
+    captured in a CUDA graph, for this scale or ahead
+    (``train/precompile.py``)."""
+    cache = hasattr(batches, "gather")
+
+    def run_step(inp: dict) -> dict:
+        if cache:
+            real, real_zero = batches.gather(inp["idx"], inp["flip"])
+        else:
+            real, real_zero = inp["real"], inp["real_zero"]
+        if gan_phase:
+            return gan_step(G, D, opt_g, opt_d, cfg, real, real_zero,
+                            inp["noise_init"], inp["amps"],
+                            noises=inp["noises"], eps=inp["eps"],
+                            alpha=inp["alpha"], latents=inp["latents"])
+        return vae_step(G, opt_g, cfg, real, real_zero, inp["amps"],
+                        eps=inp["eps"])
+    return run_step
+
+
+def iteration_inputs(cfg, G, gan_phase: bool, source: dict, rz_shape,
+                     amps: torch.Tensor, draw: torch.Generator) -> dict:
+    """An iteration's inputs: its batch source, the amps (an f32 tensor
+    on the device, so a captured step reads them) and its draws from
+    ``draw``, in the order the step consumes them."""
+    inp = dict(source, amps=amps)
+    if gan_phase:
+        noise_init = torch.randn(_z_init_shape(cfg, G), generator=draw,
+                                 device=G.device)
+        inp.update(noise_init=noise_init,
+                   **gan_draws(G, noise_init, rz_shape, generator=draw))
+    else:
+        inp["eps"] = G.draw_eps(rz_shape, draw)
+    return inp
 
 
 def _calibrate_amp(cfg, G, real, real_zero, scale_idx: int,
@@ -206,6 +261,14 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     mesh = G.mesh
     if mesh is not None:
         _check_mesh_shapes(cfg, G, mesh)
+    ahead = None
+    if dataset is not None and cfg.compile_ahead:
+        # the state readied during the previous scale, with G's values
+        ahead = take_ahead(cfg, scale_idx, G)
+        if ahead is not None:
+            G = ahead.G
+            if callback is not None:
+                callback("ahead", -1, ahead.info())
     # the reference clips over every generator parameter, frozen or not
     # (--fast-grads freezes the plan's frozen groups below)
     G.requires_grad_(True)
@@ -225,11 +288,14 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
 
     D = opt_d = None
     if gan_phase:
-        D = make_discriminator(cfg.discriminator, cfg, G.ndim)
-        D.reset_parameters(torch.Generator().manual_seed(
-            seed * 1000 + 101 + scale_idx))
-        D.to(dev)
-        attach(D, mesh)
+        if ahead is not None:   # its init, adopted
+            D = ahead.D
+        else:
+            D = make_discriminator(cfg.discriminator, cfg, G.ndim)
+            D.reset_parameters(torch.Generator().manual_seed(
+                seed * 1000 + 101 + scale_idx))
+            D.to(dev)
+            attach(D, mesh)
         if mid is not None:
             load_mid_critic(D, mid)
         elif dataset is not None and cfg.netG and \
@@ -247,14 +313,18 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
                                             f"netD_{scale_idx - 1}"))
             elif D_prev is not None:
                 D.load_state_dict(D_prev.state_dict())
-        opt_d = build_d_optimizer(cfg, D)
-    opt_g = build_g_optimizer(cfg, G, scale_idx)
+        opt_d = ahead.opt_d if ahead is not None else \
+            build_d_optimizer(cfg, D)
+    opt_g = ahead.opt_g if ahead is not None else \
+        build_g_optimizer(cfg, G, scale_idx)
     if mid is not None:
         load_mid_optimizers(mid, cfg, G, opt_g, D, opt_d)
     if cfg.fast_grads:   # differentiate the plan's trainable groups only
         freeze_frozen(cfg, G, scale_idx)
 
-    if dataset is not None:
+    if ahead is not None and ahead.loader is not None:
+        batches = ahead.loader
+    elif dataset is not None:
         batches = make_loader(dataset, cfg, seed, scale_idx, dev,
                               start_iteration=start_it)
     # the device-resident cache: steps take its rows and gather on the card
@@ -274,36 +344,18 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     # every rank of a mesh samples (the forwards are collectives); the
     # ranks without a summary write nothing
     visualize = cfg.visualize and (summary is not None or mesh is not None)
-    amps = None
-
-    def run_step(inp: dict) -> dict:
-        """One step on the iteration's inputs (its batch or cache rows,
-        and every draw)."""
-        if cache:
-            real, real_zero = batches.gather(inp["idx"], inp["flip"])
-        else:
-            real, real_zero = inp["real"], inp["real_zero"]
-        if gan_phase:
-            return gan_step(G, D, opt_g, opt_d, cfg, real, real_zero,
-                            inp["noise_init"], amps, noises=inp["noises"],
-                            eps=inp["eps"], alpha=inp["alpha"],
-                            latents=inp["latents"])
-        return vae_step(G, opt_g, cfg, real, real_zero, amps,
-                        eps=inp["eps"])
+    amps = amps_t = None
+    run_step = scale_step(cfg, G, D, opt_g, opt_d, batches, gan_phase)
+    # the next scale's state is readied once this scale's first chunk
+    # has returned (its own capture done)
+    ahead_due = dataset is not None and cfg.compile_ahead
 
     def inputs_of(it: int, source: dict, rz_shape) -> dict:
-        """Iteration ``it``'s inputs: its batch source and its draws, from
-        ``(seed, scale, it)`` in the order the step consumes them."""
-        draw = seeded_generator(seed, scale_idx, it, device=dev)
-        inp = dict(source)
-        if gan_phase:
-            noise_init = torch.randn(_z_init_shape(cfg, G), generator=draw,
-                                     device=dev)
-            inp.update(noise_init=noise_init,
-                       **gan_draws(G, noise_init, rz_shape, generator=draw))
-        else:
-            inp["eps"] = G.draw_eps(rz_shape, draw)
-        return inp
+        """Iteration ``it``'s inputs, its draws from ``(seed, scale,
+        it)``."""
+        return iteration_inputs(
+            cfg, G, gan_phase, source, rz_shape, amps_t,
+            seeded_generator(seed, scale_idx, it, device=dev))
 
     def next_source() -> dict:
         if cache:
@@ -344,7 +396,8 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     graph = None
     if scan_k > 1 and dev.type == "cuda":
         if mesh is None:
-            graph = new_graph()
+            graph = (ahead.graph if ahead is not None
+                     and ahead.graph is not None else new_graph())
         elif not getattr(cfg, "_scan_mesh_noted", False):   # once a run
             cfg._scan_mesh_noted = True
             logging.info(f"--scan-steps {scan_k} under a mesh: the chunks' "
@@ -368,6 +421,7 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
                 callback("calibrate", -1, {"rmse": rmse,
                                            "noise_amp": cfg.Noise_Amps[-1]})
             amps = list(cfg.Noise_Amps)
+            amps_t = torch.tensor(amps, dtype=torch.float32, device=dev)
             rz_shape = tuple(real_zero.shape)
         while it < cfg.niter:
             # the trace window starts and ends at chunk boundaries
@@ -393,6 +447,11 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
             for j, source in enumerate(sources):
                 inp = inputs_of(it + j, source, rz_shape)
                 chunk.append(ladder(step_of, inp))
+            if ahead_due:
+                ahead_due = False
+                start_ahead(cfg, G, dataset, scale_idx + 1, seed)
+            elif dataset is not None and cfg.compile_ahead:
+                prime_ahead(cfg)   # once the thread has built the state
             last = it + k - 1
             bar.update(k)
             timer.step(n=k)

@@ -222,15 +222,15 @@ def test_dw_function_backward_matches_jax_vjp(dtype):
 
 
 def test_input_grads_only_skips_dw_and_db():
-    """Inside ``input_grads_only()`` the backward runs dx alone, though
-    ``ctx.needs_input_grad`` asks for all three; outside it, all three
-    again."""
+    """A gradient taken w.r.t. the input alone runs dx alone, though
+    ``ctx.needs_input_grad`` asks for all three (the backward asks the
+    autograd engine which edges it will run); w.r.t. all three, all
+    three again."""
     x, w, b, dy = (torch.from_numpy(a) for a in _inputs(SHAPES[0], seed=2))
     leaves = [t.requires_grad_(True) for t in (x, w, b)]
     cp.counts.reset()
     y = cp.conv3d64(*leaves)
-    with cp.input_grads_only():
-        (gx,) = torch.autograd.grad(y, leaves[0], dy)
+    (gx,) = torch.autograd.grad(y, leaves[0], dy)
     assert cp.counts.plain_calls == 2
     assert w.grad is None and b.grad is None
     cp.counts.reset()

@@ -1097,3 +1097,74 @@ def test_packed_gan_step_launches_the_derived_kernels_on_card(
                for k in ("fwd", "dx", "dw"))
     assert (k2.launches if bf16 else k2.bf16_launches) == 0
     assert c.plain_calls == k2.plain_calls == 0
+
+
+def _card_cli_run(run_dir, *extra) -> dict:
+    """``cli.train_video`` on the card at full width on a tiny pyramid
+    of the in-repo clip, ``--scan-steps 4 --niter 5`` (chunks of 4 and
+    1); returns each scale's events and the experiment directory."""
+    import logging
+    import os
+
+    from hpvaegan_tpu_torch.cli import train_video
+    events: dict = {}
+    root = logging.getLogger()
+    handlers = list(root.handlers)
+    try:
+        train_video.main([
+            "--video-path", os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "data", "vids", "wingsuit.avi"),
+            "--img-size", "24", "--min-size", "12", "--max-size", "24",
+            "--niter", "5", "--scan-steps", "4", "--vae-levels", "2",
+            "--latent-dim", "8", "--enc-blocks", "1", "--num-layer", "3",
+            "--manualSeed", "3", "--pconv", "--pconv-all", "--pfuse",
+            "--run-dir", str(run_dir), *extra],
+            callback=lambda s, e, i, info: events.setdefault(s, []).append(
+                (e, i, dict(info))))
+    finally:
+        for h in list(root.handlers):
+            root.removeHandler(h)
+            h.close()
+        for h in handlers:
+            root.addHandler(h)
+    return {"events": events,
+            "exp": os.path.join(str(run_dir), "wingsuit", "DEBUG",
+                                "experiment_0")}
+
+
+@pytest.mark.gpu
+def test_compile_ahead_starts_each_scale_on_a_replay_on_card(cuda_device,
+                                                             tmp_path):
+    """``--scan-steps 4 --compile-ahead`` on the card: the run ends
+    bit-equal to the one without the flag, every scale after the first
+    takes its state from the thread (an ``"ahead"`` event with a
+    captured graph) and its first chunk of 4 is 4 replays (3 without the
+    flag: an eager step first), and no ``failed`` line is logged."""
+    import os
+    plain = _card_cli_run(tmp_path / "plain")
+    ahead = _card_cli_run(tmp_path / "ahead", "--compile-ahead")
+    scales = sorted(plain["events"])
+    assert len(scales) >= 3
+    for s in scales:
+        first = {r: [i for e, _, i in r_ev if e == "chunk"][0]
+                 for r, r_ev in (("plain", plain["events"][s]),
+                                 ("ahead", ahead["events"][s]))}
+        assert first["plain"]["k"] == first["ahead"]["k"] == 4
+        assert first["plain"]["replays"] == 3
+        got = [i for e, _, i in ahead["events"][s] if e == "ahead"]
+        if s == 0:
+            assert first["ahead"]["replays"] == 3 and not got
+        else:
+            assert first["ahead"]["replays"] == 4, s
+            assert len(got) == 1 and got[0]["captured"] == 1, (s, got)
+            assert got[0]["graph_pool_bytes"] > 0
+    for name, key in (("netG", "gvars"), (f"netD_{scales[-1]}", "dvars")):
+        a, b = (torch.load(os.path.join(r["exp"], name), map_location="cpu",
+                           weights_only=True)[key] for r in (plain, ahead))
+        assert set(a) == set(b)
+        for k, v in a.items():
+            assert torch.equal(v, b[k]), (name, k)
+    with open(os.path.join(ahead["exp"], "logbook.txt")) as f:
+        log = f.read()
+    assert "failed" not in log
+    assert all(f"compile-ahead scale {s}: " in log for s in scales[1:])

@@ -29,6 +29,7 @@ import hpvaegan_tpu_torch.parallel.multihost
 import hpvaegan_tpu_torch.parallel.launch
 import hpvaegan_tpu_torch.losses
 import hpvaegan_tpu_torch.train.trainer
+import hpvaegan_tpu_torch.train.precompile
 import hpvaegan_tpu_torch.train.trainer_baselines
 import hpvaegan_tpu_torch.train.steps
 import hpvaegan_tpu_torch.train.optim

@@ -16,6 +16,7 @@ rank alone fails the run on both ranks within seconds (the agreement's
 time limit), not a hang (``tests/torch_port_ranks.py``'s programs)."""
 import logging
 import os
+import re
 import shutil
 import time
 
@@ -152,11 +153,13 @@ def test_a_one_rank_oom_fails_every_rank_without_a_hang(tmp_path):
 @pytest.mark.parametrize("kind", ["video", "image"])
 def test_compile_ahead_and_wpack_change_nothing(kind, inputs, plain_runs,
                                                 tmp_path):
-    """``--compile-ahead`` schedules XLA compiles in the JAX package; in
-    the port it is logged once as a no-op.  ``--wpack`` runs the packed
-    path (``models/packed.py``), so it is not logged as one; it packs
-    only at W >= ``WPACK_MIN_W`` (128), which the tiny pyramid (W <= 16)
-    stays under, so both runs end bit-equal to the one without them."""
+    """``--compile-ahead`` readies each next scale on a thread
+    (``train/precompile.py``): every scale after the first logs its
+    ``ready`` line and none a ``failed`` one.  ``--wpack`` runs the
+    packed path (``models/packed.py``); neither is logged as a no-op.
+    It packs only at W >= ``WPACK_MIN_W`` (128), which the tiny pyramid
+    (W <= 16) stays under, so both runs end bit-equal to the one
+    without them."""
     exp = _run(kind, inputs, tmp_path, "--compile-ahead", "--wpack")
     got, want = _netG(exp), _netG(plain_runs[kind])
     for name, v in want["gvars"].items():
@@ -164,5 +167,9 @@ def test_compile_ahead_and_wpack_change_nothing(kind, inputs, plain_runs,
     assert got["noise_amps"] == want["noise_amps"]
     with open(os.path.join(exp, "logbook.txt")) as f:
         log = f.read()
-    assert log.count("--compile-ahead: accepted, nothing to do") == 1
-    assert "--wpack: accepted, nothing to do" not in log
+    for scale in range(1, 5):
+        assert len(re.findall(rf"compile-ahead scale {scale}: state built "
+                              rf"in [0-9.]+s, warmed up, ready in ",
+                              log)) == 1, scale
+    assert "failed" not in log
+    assert "nothing to do" not in log

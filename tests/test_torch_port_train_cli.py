@@ -210,10 +210,10 @@ def test_netG_mid_resume_ends_with_the_uninterrupted_weights(clip,
     ["--remat-blocks"], ["--gp-chunked"], ["--compile-ahead"], ["--wpack"]])
 def test_unported_flags_raise_naming_their_roadmap_item(clip, tmp_path, flag):
     """No flag is left unported: the fast path's (ROADMAP Queue 1 item
-    9), the memory ladder's (item 8), ``--compile-ahead`` (the port
-    accepts it as a logged no-op) and ``--wpack`` (the packed path,
-    which the tiny pyramid stays under, W < 128) all train the tiny run
-    to the JAX e2e's file set."""
+    9), the memory ladder's (item 8), ``--compile-ahead`` (the next
+    scale readied on a thread, ``train/precompile.py``) and ``--wpack``
+    (the packed path, which the tiny pyramid stays under, W < 128) all
+    train the tiny run to the JAX e2e's file set."""
     steps = []
     cfg = _run(clip, tmp_path, *flag,
                callback=lambda s, e, i, m: steps.append(s)

@@ -341,8 +341,9 @@ def test_netG_resume_replays_growth_and_keeps_the_amps(image, runs,
 def test_unported_flags_raise_naming_their_roadmap_item(image, tmp_path,
                                                        flag):
     """No flag is left unported: the fast-path flags (ROADMAP Queue 1
-    item 9), ``--remat`` (item 8) and ``--compile-ahead`` (item 13, a
-    no-op here) train the tiny 2D run to its file set."""
+    item 9), ``--remat`` (item 8) and ``--compile-ahead`` (item 13, the
+    next scale readied on a thread) train the tiny 2D run to its file
+    set."""
     with kept_logging():
         train_image.main(["--image-path", image, *TINY_IMAGE,
                           "--run-dir", str(tmp_path), *flag])

@@ -32,6 +32,7 @@ from hpvaegan_tpu_torch.ops.kernels import conv3d_pack as cp
 from hpvaegan_tpu_torch.train import optim, steps
 from hpvaegan_tpu_torch.train.trainer import train_scale
 from hpvaegan_tpu_torch.utils import convert
+from torch_port_runs import one_torch_thread
 
 RTOL, ATOL = 2e-3, 2e-4
 TINY = dict(img_size=16, min_size=8, max_size=16, nfc=64, latent_dim=8,
@@ -55,6 +56,14 @@ def _np(tree):
 
 def _copy(tree):
     return jax.tree_util.tree_map(jnp.array, tree)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The nfc-64 model on a tiny pyramid: one intra-op thread runs its
+    small ops several times faster, and no worker oversubscribes."""
+    with one_torch_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

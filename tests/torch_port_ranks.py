@@ -463,11 +463,67 @@ def program_ladder_one(meshes, workdir):
     return {}
 
 
+# (isend and irecv run through batch_isend_irecv, whose P2POp takes the
+# functions themselves)
+_COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "barrier",
+                "batch_isend_irecv", "send", "recv",
+                "broadcast_object_list", "all_gather_object", "gather",
+                "scatter", "reduce", "reduce_scatter", "all_to_all")
+
+
+def program_ahead_mesh(meshes, workdir):
+    """``cli.train_video`` on the tiny config over a 1x2 mesh, without
+    and with ``--compile-ahead`` (the clip ``test_video.avi`` in
+    ``workdir``): the names of the threads that ran a collective, their
+    count, and both runs' final generator weights."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from hpvaegan_tpu_torch.cli import train_video
+    from hpvaegan_tpu_torch.utils.logger import kept_logging
+    from torch_port_runs import TINY
+
+    threads, calls = set(), [0]
+
+    def recorded(fn):
+        def call(*args, **kwargs):
+            threads.add(threading.current_thread().name)
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name in _COLLECTIVES:
+        if hasattr(dist, name):
+            setattr(dist, name, recorded(getattr(dist, name)))
+    out = {}
+    for tag, extra in (("plain", []), ("ahead", ["--compile-ahead"])):
+        with kept_logging():
+            train_video.main(["--video-path",
+                              os.path.join(str(workdir), "test_video.avi"),
+                              *TINY, "--spmd", "--mesh-shape", "1x2",
+                              "--distributed", "--run-dir",
+                              os.path.join(str(workdir), tag), *extra])
+        exp = os.path.join(str(workdir), tag, "test_video", "DEBUG",
+                           "experiment_0")
+        if dist.get_rank() == 0:
+            out[tag] = torch.load(os.path.join(exp, "netG"),
+                                  map_location="cpu",
+                                  weights_only=True)["gvars"]
+        dist.barrier()
+    if dist.get_rank() != 0:   # every rank checks rank 0's files
+        out = {tag: torch.load(os.path.join(
+            str(workdir), tag, "test_video", "DEBUG", "experiment_0",
+            "netG"), map_location="cpu", weights_only=True)["gvars"]
+            for tag in ("plain", "ahead")}
+    return {"threads": sorted(threads), "collectives": calls[0], **out}
+
+
 PROGRAMS = {"k4": program_k4, "halo": program_halo, "k4gp": program_k4gp,
             "steps": program_steps,
             "ladder_both": program_ladder_both,
             "ladder_one": program_ladder_one, "models": program_models,
-            "sampling": program_sampling}
+            "sampling": program_sampling, "ahead_mesh": program_ahead_mesh}
 
 
 def serve_rank(argv) -> None:
