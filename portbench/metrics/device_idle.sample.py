@@ -1,0 +1,8 @@
+"""device_idle.sample: the share of the traced sampling window in which
+no kernel, copy or memset ran on the card."""
+
+
+def read(run):
+    if run.kind != "sample" or run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
