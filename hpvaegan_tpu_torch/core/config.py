@@ -118,7 +118,7 @@ class Config:
     #                                VMEM; ops/pallas/conv3d_fuse.py)
     host_loader: bool = False      # host prefetch pipeline instead of the
     #                                device-resident frame cache
-    profile_dir: str = ""          # jax.profiler trace output dir
+    profile_dir: str = ""          # torch.profiler Chrome trace output dir
     compile_ahead: bool = False    # compile next scale's programs during
     #                                this scale's training (a thread lowers
     #                                from abstract shapes; no HBM touched)
@@ -298,7 +298,10 @@ _COMMON_FLAGS = [
     (["--spmd"], dict(action="store_true", default=False, help="shard train step over the device mesh")),
     (["--run-dir"], dict(type=str, default="run", dest="run_dir", help="experiment tree root")),
     (["--profile-dir"], dict(type=str, default="", dest="profile_dir",
-                             help="write a jax.profiler trace of iterations 5-15 of each scale")),
+                             help="write a torch.profiler Chrome trace of "
+                                  "iterations 5-15 of each scale, the "
+                                  "package's spans among its kernels, to "
+                                  "<dir>/scale_<s>/trace.json")),
     (["--compile-ahead"], dict(action="store_true", default=False,
                                dest="compile_ahead",
                                help="overlap the next scale's XLA "

@@ -114,6 +114,7 @@ from ..core.pyramid import Pyramid
 from ..ops.noise import generate_noise
 from ..ops.resize import interpolate_2d, interpolate_3d
 from ..parallel.mesh import attach
+from ..utils.profiling import span
 from .blocks import ConvBlock, ConvND
 from .networks import (CSGStage, Decoder, EncodeVAE, EncodeVAE_nb, SGStage,
                        Stage, pad_spatial, reparameterize,
@@ -455,28 +456,29 @@ class GeneratorHPVAEGAN(_PyramidModule):
         batch ``[rec | rand]``, and only its rand half takes noise."""
         for idx in range(start_idx, len(self.body) if stop is None
                          else stop):
-            if self._detach_before(idx):
-                x = x.detach()
-            x_up = self._upscale(x, idx + 1)
-            if mode in ("rand", "fused") and self._stage_has_noise(idx):
-                ref = x_up if mode == "rand" else x_up[x_up.shape[0] // 2:]
-                if noises is not None:
-                    noise = self._local(noises[idx], ref.dtype)
-                elif self.mesh is not None:
-                    b = self.mesh.global_batch(ref.shape[0])
-                    noise = self._draw((b, ref.shape[1],
-                                        *self._shape(idx + 1)),
-                                       ref.dtype, generator)
+            with span(f"gen.stage.{idx}"):
+                if self._detach_before(idx):
+                    x = x.detach()
+                x_up = self._upscale(x, idx + 1)
+                if mode in ("rand", "fused") and self._stage_has_noise(idx):
+                    ref = x_up if mode == "rand" else x_up[x_up.shape[0] // 2:]
+                    if noises is not None:
+                        noise = self._local(noises[idx], ref.dtype)
+                    elif self.mesh is not None:
+                        b = self.mesh.global_batch(ref.shape[0])
+                        noise = self._draw((b, ref.shape[1],
+                                            *self._shape(idx + 1)),
+                                           ref.dtype, generator)
+                    else:
+                        noise = generate_noise(ref=ref, generator=generator)
+                    if mode == "fused":
+                        noise = torch.cat([torch.zeros_like(noise), noise])
+                    # f32, as the JAX package's f32 amps make it
+                    x_in = x_up.float() + noise.float() * amps[idx + 1]
                 else:
-                    noise = generate_noise(ref=ref, generator=generator)
-                if mode == "fused":
-                    noise = torch.cat([torch.zeros_like(noise), noise])
-                # f32, as the JAX package's f32 amps make it
-                x_in = x_up.float() + noise.float() * amps[idx + 1]
-            else:
-                x_in = x_up
-            y = self._run_stage(self.body[idx], x_in, train, update_stats)
-            x = torch.tanh(y + x_up)
+                    x_in = x_up
+                y = self._run_stage(self.body[idx], x_in, train, update_stats)
+                x = torch.tanh(y + x_up)
         return x
 
 

@@ -86,6 +86,7 @@ from .data.video import SingleVideoDataset
 from .models.registry import make_generator
 from .parallel import make_mesh, maybe_initialize, parse_mesh_shape, replicate
 from .tools.decode_frames import frames_path
+from .utils.profiling import span
 from .utils.saver import restore_file, restore_generator, write_png
 from .utils.video_io import write_avi
 
@@ -277,10 +278,11 @@ class SamplerSession:
     def _host(self, out: torch.Tensor) -> np.ndarray:
         """A sampler's output on the host as float32, whole: under a mesh
         gathered from every rank's block (every rank gets it)."""
-        out = out.float()
-        if self.mesh is not None:
-            out = self.mesh.gather_whole(out, 2 if self.ndim == 3 else 1)
-        return out.cpu().numpy()
+        with span("serve.host"):
+            out = out.float()
+            if self.mesh is not None:
+                out = self.mesh.gather_whole(out, 2 if self.ndim == 3 else 1)
+            return out.cpu().numpy()
 
     # ---- the clip (rec and inject modes) ----
 
@@ -345,8 +347,9 @@ class SamplerSession:
 
     def _apply(self, **kw) -> torch.Tensor:
         """The generator's sample alone, whatever its family returns."""
-        out = self.G.apply(self.amps, train=True, **kw)
-        return out[0] if self.is_triple else out
+        with span("serve.forward"):
+            out = self.G.apply(self.amps, train=True, **kw)
+            return out[0] if self.is_triple else out
 
     @staticmethod
     def _latent_kw(latents) -> dict:
@@ -364,7 +367,7 @@ class SamplerSession:
         run the pyramid (BatchNorm on batch statistics, as in training).
         ``latents``: ``GeneratorVAE_nb``'s ``(z_norm, z_bern)``."""
         g = self._generator(generator)
-        with torch.inference_mode():
+        with span("serve.request"), torch.inference_mode():
             if noise is None:
                 noise = torch.randn(self.noise_shape, generator=g,
                                     device=self.device)
@@ -381,20 +384,21 @@ class SamplerSession:
         (``rec_input``).  For the baselines ``real_zero`` is their fixed
         noise, by default the checkpointed ``Z_init`` (its batch is the
         training batch), and the forward draws nothing."""
-        if real_zero is None:
-            real_zero = (self.rec_input()[0] if self.is_triple
-                         else self.z_init())
-        real_zero = np.asarray(real_zero, np.float32)
-        if real_zero.ndim == self.ndim + 1:
-            real_zero = np.stack([real_zero] * self.batch_size)
-        g = self._generator(generator)
-        with torch.inference_mode():
-            if not self.is_triple:
-                out = self._apply(noise_init=real_zero, mode="rec")
-            else:
-                out = self._apply(real_zero=real_zero, mode="rec", eps=eps,
-                                  generator=g)
-            return self._host(out)
+        with span("serve.request"):
+            if real_zero is None:
+                real_zero = (self.rec_input()[0] if self.is_triple
+                             else self.z_init())
+            real_zero = np.asarray(real_zero, np.float32)
+            if real_zero.ndim == self.ndim + 1:
+                real_zero = np.stack([real_zero] * self.batch_size)
+            g = self._generator(generator)
+            with torch.inference_mode():
+                if not self.is_triple:
+                    out = self._apply(noise_init=real_zero, mode="rec")
+                else:
+                    out = self._apply(real_zero=real_zero, mode="rec",
+                                      eps=eps, generator=g)
+                return self._host(out)
 
     def inject_batch(self, x_init: np.ndarray, start: int,
                      generator: Optional[torch.Generator] = None, *,
@@ -408,7 +412,7 @@ class SamplerSession:
             raise ValueError("--inject-scale requires GeneratorHPVAEGAN")
         x_init = np.asarray(x_init, np.float32)
         g = self._generator(generator)
-        with torch.inference_mode():
+        with span("serve.request"), torch.inference_mode():
             zeros = torch.zeros((x_init.shape[0], *self.noise_shape[1:]),
                                 device=self.device)
             out = self._apply(noise_init=zeros, sample_init=(start, x_init),

@@ -50,6 +50,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["StepGraph"]
 
 
@@ -105,10 +107,11 @@ class StepGraph:
             return self._eager(inputs)
         if self._graph is None:
             self._capture(inputs)
-        _copy_into(self._static, inputs)
-        self._graph.replay()
-        self.replays += 1
-        return {k: v.clone() for k, v in self._out.items()}
+        with span("graph.replay"):
+            _copy_into(self._static, inputs)
+            self._graph.replay()
+            self.replays += 1
+            return {k: v.clone() for k, v in self._out.items()}
 
     @property
     def captured(self) -> bool:

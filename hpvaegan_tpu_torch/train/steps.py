@@ -133,6 +133,7 @@ from ..models.networks import WDiscriminator, WDiscriminatorBaselines
 from ..models.packed import wdisc_apply_packed, wpack_ok
 from ..models.remat import remat, remat_level
 from ..parallel.mesh import shard
+from ..utils.profiling import span
 from .optim import clip_grad_norm_, hoist_index
 
 __all__ = ["update_g_spectral", "update_d_spectral", "calibrate",
@@ -294,66 +295,75 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
     hoist = None if fused else hoist_index(cfg, G, len(G.body))
     critic = _critic(D, cfg, remat_level(cfg))
     with full_f32(), deterministic():
-        update_g_spectral(G)
-        update_d_spectral(D)
+        with span("step.spectral"):
+            update_g_spectral(G)
+            update_d_spectral(D)
 
         # ---- critic step (train_video.py:168-183) ----
-        with torch.no_grad():
-            if fused:
-                _, fake, _, _ = G.apply_fused(amps, real_zero, noise_init,
-                                              train=True, eps=d["eps"],
-                                              noises=d["noises"])
-            elif hoist is not None:
-                # the frozen prefix, once: the generator step reuses it
-                x_pre, _, _, at = G.apply_prefix(
-                    amps, noise_init=noise_init, mode="rand", train=True,
-                    upto=hoist, **rand_kw)
-                fake = G.apply_suffix(amps, x_pre, at, mode="rand",
-                                      train=True, noises=d["noises"])
-            else:
-                fake, _, _ = G.apply(amps, noise_init=noise_init,
-                                     mode="rand", train=True, **rand_kw)
-        x_real, x_fake = to_model_layout(real), to_model_layout(fake)
-        nb = x_real.shape[0]
-        D.zero_grad(set_to_none=True)
-        out = critic(torch.cat([x_real, x_fake]))
-        errD_real = -global_mean(out[:nb], mesh)
-        errD_fake = global_mean(out[nb:], mesh)
-        gp = calc_gradient_penalty(
-            lambda x: critic(x, use_kernels=False), x_real, x_fake,
-            cfg.lambda_grad, d["alpha"], mesh=mesh,
-            chunked=_gp_chunked(cfg, D))
-        (errD_real + errD_fake + gp).backward()
-        _update(D.parameters(), opt_d, None, mesh)
+        with span("step.critic"):
+            with torch.no_grad():
+                if fused:
+                    _, fake, _, _ = G.apply_fused(amps, real_zero, noise_init,
+                                                  train=True, eps=d["eps"],
+                                                  noises=d["noises"])
+                elif hoist is not None:
+                    # the frozen prefix, once: the generator step reuses it
+                    x_pre, _, _, at = G.apply_prefix(
+                        amps, noise_init=noise_init, mode="rand", train=True,
+                        upto=hoist, **rand_kw)
+                    fake = G.apply_suffix(amps, x_pre, at, mode="rand",
+                                          train=True, noises=d["noises"])
+                else:
+                    fake, _, _ = G.apply(amps, noise_init=noise_init,
+                                         mode="rand", train=True, **rand_kw)
+            x_real, x_fake = to_model_layout(real), to_model_layout(fake)
+            nb = x_real.shape[0]
+            D.zero_grad(set_to_none=True)
+            out = critic(torch.cat([x_real, x_fake]))
+            errD_real = -global_mean(out[:nb], mesh)
+            errD_fake = global_mean(out[nb:], mesh)
+            with span("step.critic.penalty"):
+                gp = calc_gradient_penalty(
+                    lambda x: critic(x, use_kernels=False), x_real, x_fake,
+                    cfg.lambda_grad, d["alpha"], mesh=mesh,
+                    chunked=_gp_chunked(cfg, D))
+            with span("step.critic.backward"):
+                (errD_real + errD_fake + gp).backward()
+            with span("step.critic.update"):
+                _update(D.parameters(), opt_d, None, mesh)
 
         # ---- generator step with the UPDATED, frozen critic ----
-        D.requires_grad_(False)
-        try:
-            G.zero_grad(set_to_none=True)
-            if fused:
-                generated, fake_g, _, _ = G.apply_fused(
-                    amps, real_zero, noise_init, train=True, eps=d["eps"],
-                    noises=d["noises"], update_stats=True)
-            else:
-                generated, _, _ = G.apply(amps, real_zero=real_zero,
-                                          mode="rec", train=True,
-                                          eps=d["eps"], update_stats=True)
-                if hoist is not None:
-                    fake_g = G.apply_suffix(amps, x_pre, at, mode="rand",
-                                            train=True, noises=d["noises"],
-                                            update_stats=True)
+        with span("step.generator"):
+            D.requires_grad_(False)
+            try:
+                G.zero_grad(set_to_none=True)
+                if fused:
+                    generated, fake_g, _, _ = G.apply_fused(
+                        amps, real_zero, noise_init, train=True,
+                        eps=d["eps"], noises=d["noises"], update_stats=True)
                 else:
-                    fake_g, _, _ = G.apply(amps, noise_init=noise_init,
-                                           mode="rand", train=True,
-                                           update_stats=True, **rand_kw)
-            rec = mse(generated, real, mesh)
-            errG = -global_mean(critic(to_model_layout(fake_g)),
-                                mesh) * cfg.disc_loss_weight
-            total = cfg.rec_weight * rec + errG
-            total.backward()
-        finally:
-            D.requires_grad_(True)
-        _update(G.parameters(), opt_g, cfg.grad_clip, mesh)
+                    generated, _, _ = G.apply(amps, real_zero=real_zero,
+                                              mode="rec", train=True,
+                                              eps=d["eps"], update_stats=True)
+                    if hoist is not None:
+                        fake_g = G.apply_suffix(amps, x_pre, at, mode="rand",
+                                                train=True,
+                                                noises=d["noises"],
+                                                update_stats=True)
+                    else:
+                        fake_g, _, _ = G.apply(amps, noise_init=noise_init,
+                                               mode="rand", train=True,
+                                               update_stats=True, **rand_kw)
+                rec = mse(generated, real, mesh)
+                errG = -global_mean(critic(to_model_layout(fake_g)),
+                                    mesh) * cfg.disc_loss_weight
+                total = cfg.rec_weight * rec + errG
+                with span("step.generator.backward"):
+                    total.backward()
+            finally:
+                D.requires_grad_(True)
+            with span("step.generator.update"):
+                _update(G.parameters(), opt_g, cfg.grad_clip, mesh)
     return _whole({"loss": total, "rec_loss": rec, "errG": errG,
                    "errD_real": errD_real, "errD_fake": errD_fake,
                    "gradient_penalty": gp}, mesh)

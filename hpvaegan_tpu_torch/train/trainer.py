@@ -50,7 +50,11 @@ after the step's callback and report themselves to it as the event
 ``--profile-dir`` traces ten iterations from the first at or past
 iteration 5 with ``torch.profiler`` (CPU, and CUDA on the card), as the
 JAX trainer traces its window (``:216-231``), and writes a Chrome trace
-to ``<profile dir>/scale_<s>/trace.json``.
+to ``<profile dir>/scale_<s>/trace.json``, the package's spans
+(``utils/profiling.span``) among its kernels: ``train.chunk`` (a chunk's
+inputs and steps, K = 1 a chunk of one), ``train.inputs`` (an
+iteration's draws), ``train.callback`` (every call of ``callback``), and
+those of the graph, the steps and the generator below them.
 
 Under a mesh (``G.mesh``, attached by the CLI under ``--spmd
 --mesh-shape``; ``trainer.py:129-140``) every rank runs ``train_scale``
@@ -130,7 +134,7 @@ from ..models.registry import make_discriminator
 from ..ops.kernels.conv3d_spmd import pconv_spmd_ok
 from ..parallel import multihost
 from ..parallel.mesh import attach, check_replicated
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, span
 from ..utils.saver import load_critic, load_mid_critic, load_mid_optimizers
 from ..utils.tools import create_progressbar, seeded_generator
 from ..utils.watchdog import Watchdog
@@ -252,6 +256,8 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     in the file form."""
     if (batches is None) == (dataset is None):
         raise ValueError("pass either batches or a dataset")
+    if callback is not None:
+        callback = _spanned(callback)
     if dataset is not None and saver is None:
         raise ValueError("training from a dataset needs a saver")
     scale_idx = cfg.scale_idx
@@ -353,9 +359,10 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     def inputs_of(it: int, source: dict, rz_shape) -> dict:
         """Iteration ``it``'s inputs, its draws from ``(seed, scale,
         it)``."""
-        return iteration_inputs(
-            cfg, G, gan_phase, source, rz_shape, amps_t,
-            seeded_generator(seed, scale_idx, it, device=dev))
+        with span("train.inputs"):
+            return iteration_inputs(
+                cfg, G, gan_phase, source, rz_shape, amps_t,
+                seeded_generator(seed, scale_idx, it, device=dev))
 
     def next_source() -> dict:
         if cache:
@@ -434,19 +441,20 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
             if cfg.visualize and cfg.print_interval > 0:   # keep cadence
                 boundary = (it // cfg.print_interval + 1) * cfg.print_interval
                 k = max(1, min(k, boundary - it))
-            if cache and k > 1:
-                idxs, flips = batches.draw(k)
-                sources = [dict(zip(("idx", "flip"),
-                                    batches.rows(idxs[j], flips[j])))
-                           for j in range(k)]
-            else:
-                sources = [first if it + j == start_it else next_source()
-                           for j in range(k)]
             replays = replays_so_far()
-            chunk = []
-            for j, source in enumerate(sources):
-                inp = inputs_of(it + j, source, rz_shape)
-                chunk.append(ladder(step_of, inp))
+            with span("train.chunk"):
+                if cache and k > 1:
+                    idxs, flips = batches.draw(k)
+                    sources = [dict(zip(("idx", "flip"),
+                                        batches.rows(idxs[j], flips[j])))
+                               for j in range(k)]
+                else:
+                    sources = [first if it + j == start_it
+                               else next_source() for j in range(k)]
+                chunk = []
+                for j, source in enumerate(sources):
+                    inp = inputs_of(it + j, source, rz_shape)
+                    chunk.append(ladder(step_of, inp))
             if ahead_due:
                 ahead_due = False
                 start_ahead(cfg, G, dataset, scale_idx + 1, seed)
@@ -550,6 +558,16 @@ def train_scale(cfg, G, batches: Optional[Iterator] = None, *, dataset=None,
     finally:
         watchdog.stop()
     return G, D, history
+
+
+def _spanned(callback: Callable[[str, int, dict], None]
+             ) -> Callable[[str, int, dict], None]:
+    """``callback`` inside the span ``train.callback``: the caller's own
+    time between the trainer's steps."""
+    def call(event: str, it: int, info: dict) -> None:
+        with span("train.callback"):
+            callback(event, it, info)
+    return call
 
 
 def _warm_start(D, path: str) -> None:

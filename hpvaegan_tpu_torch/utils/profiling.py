@@ -1,5 +1,6 @@
 """``StepTimer``: amortized steps per second for the progress bar (port of
-``hpvaegan_tpu/utils/profiling.py:30-91``).
+``hpvaegan_tpu/utils/profiling.py:30-91``); ``span``: a named interval of
+the package in a ``torch.profiler`` trace.
 
 PyTorch returns from a CUDA step before the card has run it, so a host
 clock alone measures the enqueue.  The timer synchronizes the device every
@@ -7,15 +8,39 @@ clock alone measures the enqueue.  The timer synchronizes the device every
 Everything up to the first synchronization counts as warm-up (the
 kernels' first build, cuDNN's first-call set-up); its rate is shown
 flagged as such until the second synchronization.
+
+``span(name)`` marks where a layer's work happens (the request, the
+generator's stages, the trainer's chunk and replay, the GAN step's halves)
+as a ``torch.profiler.record_function`` range, which the profiler keeps
+beside the kernels and writes out with them (``export_chrome_trace``:
+``user_annotation`` events on the trace's clock, which Kineto aligns with
+the device's).  A span's parent is the span that encloses it on the same
+thread.  Spans exist exactly while a profiler records (``--profile-dir``'s
+window, a benchmark's traced window); otherwise ``span`` returns one
+shared no-op context after a read of the profiler's module-global flag,
+and builds no ``record_function``, whose construction alone costs
+microseconds.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["StepTimer"]
+__all__ = ["StepTimer", "span"]
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a ``torch.profiler`` session
+    records, else the shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _autograd_profiler.record_function(name)
 
 
 class StepTimer:
