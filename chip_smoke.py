@@ -59,14 +59,14 @@ Phases; any failure exits non-zero and prints no result:
    top stage (2, 13, 144, 256), the critic on (4, 13, 144, 256, 3)) on
    clips made from ``--seed``, each step's wall time, losses, peak memory
    and launches per kernel printed and the launches checked;
-5b. the same under ``--bf16``: per scale-9 GAN step 137 K1-fwd, 4 K2,
-   80 K1-dx and 75 K1-dw launches of the bf16 kernels, no f32 launch and
+5b. the same under ``--bf16``: per scale-9 GAN step 142 K1-fwd, 4 K2,
+   90 K1-dx and 80 K1-dw launches of the bf16 kernels, no f32 launch and
    no plain call;
 6. the training entry point at full width:
    ``python -m hpvaegan_tpu_torch.cli.train_video`` in-process on
    ``data/vids/wingsuit.avi`` (its committed frames file) with the default
    model, ``--niter 2 --pconv --pconv-all --pfuse``, all ten scales: each
-   step's wall time, peak memory and launches printed, 137/4/80/75
+   step's wall time, peak memory and launches printed, 142/4/90/80
    launches and no plain call per scale-9 GAN step, the JAX package's file
    set; under ``--visualize`` (the five grids at iteration 0 of each
    scale, their 4 x 5 x scale K1 launches counted apart, their time and
@@ -74,7 +74,7 @@ Phases; any failure exits non-zero and prints no result:
    scalars, ten image values a scale); then a ``--netG`` resume (scale 9
    again, 10 amps kept) and one request at batch 2 from the run through
    ``SamplerSession`` (45 K1 launches, finite values in [-1, 1]);
-6b. the same CLI run under ``--bf16``: 137/4/80/75 bf16 launches and no
+6b. the same CLI run under ``--bf16``: 142/4/90/80 bf16 launches and no
    f32 one per scale-9 GAN step;
 6c. reproducible training, f32 and bf16: the CLI of 6/6b again on the
    same seed (``--save-interval 1``, no ``--visualize``), its ``netG``
@@ -144,16 +144,16 @@ Phases; any failure exits non-zero and prints no result:
    (phase 5's bars); ``cli.train_video --generator GeneratorVAE_nb
    --pconv --pconv-all --pfuse --niter 2`` on the clip, f32 and
    ``--bf16``, ten scales, a scale-9 GAN step launching what 6's does
-   (137/4/80/75: the stage stack and the critic are the same), with its
+   (142/4/90/80: the stage stack and the critic are the same), with its
    seconds and peak memory; then ``cli.generate`` as in phase 7 on each
    run (rand, rec, ``--inject-scale 5``, ``--w-factor 1.5``);
 12. the baselines at full width: one ``GeneratorCSG`` baseline step on a
    small pyramid, card against CPU; ``cli.train_video_baselines``
    (``GeneratorCSG``, the SN critic, ``--pconv --pfuse --niter 2``), f32
-   and ``--bf16``, ten scales, 3 K1-fwd, 6 K2, 15 K1-dx and 10 K1-dw a
+   and ``--bf16``, ten scales, 8 K1-fwd, 6 K2, 25 K1-dx and 15 K1-dw a
    scale-9 step (the VALID stages have no route; the critic runs apart on
-   the real and the fake batch, and frozen on the generator's fake), the
-   file set with ``Z_init``, in f32 a ``--netG`` resume that reloads
+   the real and the fake batch, and frozen on the generator's fake; its
+   penalty on K1), the file set with ``Z_init``, in f32 a ``--netG`` resume that reloads
    ``Z_init``; ``cli.generate`` rand and rec (from ``Z_init``) on each,
    no launch, ``--inject-scale`` raising; one f32 ``GeneratorSG`` +
    ``WDiscriminatorBaselines`` run, which launches no kernel;
@@ -167,7 +167,7 @@ Phases; any failure exits non-zero and prints no result:
    (a) ``--fast-grads --hoist-prefix --niter 2`` and (b) ``--fast-grads
    --fused-forwards --niter 2``, every scale-9 GAN step's K1-fwd, K2,
    K1-dx and K1-dw launches equal to the counts derived from the model's
-   structure (``gan_step_launches``: 97/4/20/15 hoisted, 92/4/15/10
+   structure (``gan_step_launches``: 102/4/30/20 hoisted, 97/4/25/15
    fused, the frozen stages taking no dx and no dw), its seconds and
    peak memory printed beside phase 6c's plain step; (c) ``--host-loader
    --scan-steps 4 --niter 9`` against ``--scan-steps 1``: ``netG`` and
@@ -231,9 +231,10 @@ Phases; any failure exits non-zero and prints no result:
    through ``conv3d64_dw_plain``; (b) the penalty and its backward into
    the parameters on the scale-9 default critic (``--pconv``, no
    ``--pfuse``, weights from ``--seed``) for interpolates of two
-   (2, 3, 13, 144, 256) volumes, through the K1 critic and through the
-   stock critic the trainer runs, f32 and bf16: the penalty and every
-   gradient (f32 at the kernel bar, bf16 at the model bar), each route's
+   (2, 3, 13, 144, 256) volumes, through the K1 critic the trainer runs
+   and through the stock critic the JAX package runs, f32 and bf16: the
+   penalty and every gradient (f32 at the kernel bar, bf16 at the model
+   bar), each route's
    median ms of five, its peak allocated memory, and the kernel route's
    launches a call (5 K1-fwd and 5 K1-dx in the inner pass, 5 K1-dx and
    5 K1-dw in the outer one, derived from the critic's five body convs;
@@ -340,20 +341,20 @@ TRAIN_FLAGS = dict(pconv=True, pconv_all=True, pfuse=True)
 VAE_SCALE, VAE_ITERS, GAN_ITERS = 2, 2, 3
 # launches of one scale-9 GAN step under --pconv --pconv-all --pfuse
 # (num_layer 5: per stage 5 K1 convs; the critic body two K2 pairs and
-# one K1 block; see PERF.md):
+# one K1 block, its penalty five K1 convs; see PERF.md):
 GAN_STEP_LAUNCHES = {
-    # 45 critic-step fake + 1 critic + 90 generator rec/rand + 1 critic
-    # on the generator's fake
-    "conv3d64_fwd": 137,
+    # 45 critic-step fake + 1 critic + 5 penalty + 90 generator rec/rand
+    # + 1 critic on the generator's fake
+    "conv3d64_fwd": 142,
     # 2 pairs in the critic step, 2 in the generator step
     "conv3d64_pair": 4,
-    # 5 in the critic step (2 per pair + 1), 5 through the frozen critic,
-    # 70 in stages 2-8 of the two generator forwards (the detach at
-    # vae_levels cuts stages 0-1 off)
-    "conv3d64_dx": 80,
-    # 5 critic (critic step only: frozen in the generator step) + 70
-    # generator
-    "conv3d64_dw": 75,
+    # 5 in the critic step (2 per pair + 1), 10 in the penalty (5 inner,
+    # 5 outer), 5 through the frozen critic, 70 in stages 2-8 of the two
+    # generator forwards (the detach at vae_levels cuts stages 0-1 off)
+    "conv3d64_dx": 90,
+    # 5 critic + 5 penalty (critic step only: frozen in the generator
+    # step) + 70 generator
+    "conv3d64_dw": 80,
 }
 
 
@@ -1594,14 +1595,15 @@ class _Stop(Exception):
 # launches of one scale-9 step of the baselines under --pconv --pfuse
 # (CSG/SG convs are VALID: no route; the SN critic runs apart on the real
 # and the fake batch, two K2 pairs and one K1 block each, and once on the
-# generator's fake, frozen)
+# generator's fake, frozen; its penalty runs the five body convs on K1)
 BASELINE_STEP_LAUNCHES = {
-    "conv3d64_fwd": 3,
+    "conv3d64_fwd": 8,
     "conv3d64_pair": 6,
-    # 5 a critic forward's backward (2 a pair + 1), three forwards
-    "conv3d64_dx": 15,
-    # 5 a critic forward of the critic step
-    "conv3d64_dw": 10,
+    # 5 a critic forward's backward (2 a pair + 1), three forwards; 10
+    # the penalty's
+    "conv3d64_dx": 25,
+    # 5 a critic forward of the critic step, 5 the penalty's
+    "conv3d64_dw": 15,
 }
 BASELINE_FILES = (["Z_init", "netG", "Noise_Amps", "Noise_Amps.json",
                    "config.json", "logbook.txt", "eval"]
@@ -2028,13 +2030,16 @@ FAST_ITERS, SCAN_K, SCAN_ITERS = 2, 4, 9
 def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
                       vae_levels: int = 3, train_depth: int = 1,
                       remat=False, wpack: bool = False,
-                      widths=None) -> dict:
+                      widths=None, gp_chunked: bool = False) -> dict:
     """The kernel launches of one GAN step at a scale of ``stages`` body
     stages, derived from the model's structure: ``num_layer`` K1 convs a
     stage forward; the critic's body ``num_layer // 2`` K2 pairs and
     ``num_layer % 2`` K1 blocks, whose backward takes 2 K1-dx a pair and
-    one a block (the WGAN-GP runs stock convs); one K1-dw a conv whose
-    weight trains.  ``mode``:
+    one a block; one K1-dw a conv whose weight trains.  The WGAN-GP runs
+    every body conv of the critic on K1 (no K2): a K1-fwd and a K1-dx
+    each in its inner pass, a K1-dx and a K1-dw each in the outer one,
+    once a penalty, or once a sample under ``gp_chunked``
+    (``--gp-chunked``, a batch of ``BATCH``).  ``mode``:
 
     * ``"plain"``: the critic step's fake (every stage), the generator
       step's rec and rand forwards; the gradient reaches the stages from
@@ -2052,8 +2057,8 @@ def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
     the critic's K1 block once more under ``--remat`` (the stage or the
     critic), twice under ``--remat-blocks`` (the stage, then its block),
     the critic's K2 pairs once more under either (a pair is not wrapped
-    on its own).  dx and dw do not change, nor does ``--gp-chunked`` (the
-    penalty runs stock convs).
+    on its own); the penalty's K1 forwards as often in each of its two
+    backward passes, the inner and the outer.  dx and dw do not change.
 
     ``wpack`` (``--wpack``): a stage whose input's W (``widths[idx +
     1]``, the pyramid's W at each level; the main configuration's by
@@ -2082,12 +2087,15 @@ def gan_step_launches(mode: str, stages: int = SCALE, num_layer: int = 5,
                "fused": 2 * len(kept)}[mode]
     gen_passes = 1 if mode == "fused" else 2   # backward through stages
     again = {False: 0, True: 1, "blocks": 2}[remat]
+    # the penalty's body convs, each in as many penalties
+    gp = 0 if packs(stages) else L * (BATCH if gp_chunked else 1)
     return {"conv3d64_fwd": (gen_fwd + again * gen_passes * trained) * L
-            + 2 * (1 + again) * crit["fwd"],
+            + (1 + again) * 2 * crit["fwd"] + (1 + 2 * again) * gp,
             "conv3d64_pair": 2 * (1 + bool(remat)) * crit["pair"],
             # the critic step's backward and the frozen critic's
-            "conv3d64_dx": 2 * crit["dx"] + gen_passes * trained * L,
-            "conv3d64_dw": crit["dw"] + gen_passes * trained * L}
+            "conv3d64_dx": 2 * crit["dx"] + gen_passes * trained * L
+            + 2 * gp,
+            "conv3d64_dw": crit["dw"] + gen_passes * trained * L + gp}
 
 
 def profiled_conv_kernels(tracer) -> dict:
@@ -2451,8 +2459,9 @@ def ladder_main_path(dev, seed: int):
             run = ladder_step(dev, seed, bf16, flags, G0, D0, inputs)
             for k, v in all_counts().items():
                 total[k] += v
-            want = step_launches(gan_step_launches("plain", remat=level),
-                                 bf16)
+            want = step_launches(gan_step_launches(
+                "plain", remat=level,
+                gp_chunked=bool(flags.get("gp_chunked"))), bf16)
             for i, got in enumerate(run["launches"]):
                 if got != want:
                     fail(f"{name} {dt}: step {i} launched "
@@ -4268,9 +4277,9 @@ def gp_critic_routes(dev, seed: int, profile: bool, total: dict) -> None:
     """17b: the WGAN-GP plus its backward into the parameters on the
     scale-9 default critic (nfc 64, num_layer 5, SN, ``--pconv``, no
     ``--pfuse``; weights from ``seed``) for interpolates of two
-    (2, 3, 13, 144, 256) volumes, through the K1 critic and through the
-    stock critic (the trainer's route), f32 and bf16, inside the training
-    steps' ``full_f32()`` and ``deterministic()``: the penalty and every
+    (2, 3, 13, 144, 256) volumes, through the K1 critic (the trainer's
+    route) and through the stock critic (the JAX package's), f32 and
+    bf16, inside the training steps' ``full_f32()`` and ``deterministic()``: the penalty and every
     parameter's gradient (f32 at KERNEL_TOL, bf16 at BF16_MODEL_BAR), each
     route's median ms of GP_ITERS (CUDA events, after a warm-up) and peak
     allocated memory, the K1 launches of every kernel-route call against

@@ -9,10 +9,12 @@ one place where they differ (see ``calc_gradient_penalty``).
 
 The WGAN-GP's double backprop is ``torch.autograd.grad`` with
 ``create_graph=True``, as in the reference.  The critic it differentiates
-may run stock convs (the trainer's route, as in the JAX package) or the
-K1 kernels, whose gradients are differentiable any number of times; the
-inner gradient is taken w.r.t. the input alone, and K1's backward then
-computes no weight gradient (``conv3d_pack._engine_runs``).  K2's gradients are first order only.
+may run stock convs (the JAX package's route) or the K1 kernels, whose
+gradients are differentiable any number of times (the trainer's route
+for a K1 critic, ``train/steps._penalty_critic``); the inner gradient
+is taken w.r.t. the input alone, and K1's backward then computes no
+weight gradient (``conv3d_pack._engine_runs``).  K2's gradients are
+first order only.
 ``chunked`` (``--gp-chunked``) evaluates it one sample at a time and
 backpropagates each sample's term at once, so that one sample's double
 backward graph lives at a time (the JAX package's ``lax.map``).

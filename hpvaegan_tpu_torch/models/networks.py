@@ -273,13 +273,19 @@ class WDiscriminator(nn.Module):
     ``SNConv.normalized`` weights, on the input cast to the compute dtype
     (``networks.py:276``), keeping each block's own variables;
     an odd trailing block, and every body block without ``pfuse``, runs
-    on K1 under ``pconv``.  ``forward(x, use_kernels=False)`` runs the
-    same weights on stock convs only: the counterpart of the JAX
-    package's ``D.clone(pconv=False, pfuse=False)``, which the WGAN-GP's
-    double backprop uses (``train/steps.py:316-323``).  Under a ``mesh``
-    the K1 body convs run K4; K2 has no mesh partitioning (as in the
-    JAX package), so a fused critic under a mesh raises
-    (``--spmd`` turns ``--pfuse`` off, ``core/config.py``)."""
+    on K1 under ``pconv``.  ``forward(x, fuse=False)`` runs every body
+    conv of K1's geometry on K1 and none on K2: K2's gradient is first
+    order only, while K1 differentiates any number of times, so this is
+    the route the trainer's WGAN-GP takes on a K1 critic (its double
+    backward; ``train/steps._penalty_critic``).
+    ``forward(x, use_kernels=False)`` runs the same weights on stock
+    convs only: the counterpart of the JAX package's
+    ``D.clone(pconv=False, pfuse=False)``, which the JAX package's
+    WGAN-GP uses (``train/steps.py:316-323``; on a TPU its kernel route
+    measured slower).  Under a ``mesh`` the K1 body convs run K4; K2 has
+    no mesh partitioning (as in the JAX package), so a fused critic
+    under a mesh raises (``--spmd`` turns ``--pfuse`` off,
+    ``core/config.py``)."""
 
     mesh = None
 
@@ -304,21 +310,23 @@ class WDiscriminator(nn.Module):
         return [self.head, *self.body]
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True,
-                update_stats: bool = False, remat=False) -> torch.Tensor:
+                update_stats: bool = False, remat=False,
+                fuse: bool = True) -> torch.Tensor:
         """``update_stats`` is the baselines critic's; this critic has no
         normalisation state.  ``remat``: False, True or ``"blocks"``
-        (``models/remat.py``)."""
-        return _remat_forward(self, x, use_kernels, None, remat)
+        (``models/remat.py``).  ``fuse`` False: no body pair on K2."""
+        return _remat_forward(self, x, use_kernels, None, remat, fuse=fuse)
 
-    def _forward(self, x: torch.Tensor, use_kernels: bool,
-                 blocks: bool) -> torch.Tensor:
-        if use_kernels and self.pfuse and self.mesh is not None:
+    def _forward(self, x: torch.Tensor, use_kernels: bool, blocks: bool,
+                 fuse: bool = True) -> torch.Tensor:
+        fuse = use_kernels and fuse and self.pfuse
+        if fuse and self.mesh is not None:
             raise ValueError("the fused critic pair (K2) has no mesh "
                              "partitioning: build the critic without pfuse")
         x = remat(self.head, x, use_kernels, enabled=blocks)
         i = 0
         while i < self.num_layer:
-            if use_kernels and self.pfuse and i + 1 < self.num_layer:
+            if fuse and i + 1 < self.num_layer:
                 w1, b1 = self.body[i].normalized()
                 w2, b2 = self.body[i + 1].normalized()
                 y = conv3d64_pair(_to_nthwc(_cast(x, self.dtype)),
@@ -331,13 +339,14 @@ class WDiscriminator(nn.Module):
         return remat(self.tail, x, enabled=blocks)
 
 
-def _remat_forward(D, x, use_kernels: bool, update_stats, level):
+def _remat_forward(D, x, use_kernels: bool, update_stats, level, **kw):
     """A critic's forward, recomputed whole in the backward under
     ``level`` (True or ``"blocks"``), and each block too under
     ``"blocks"`` (JAX ``apply_disc``, ``train/steps.py:43-80``);
-    ``update_stats`` None: the critic has no BatchNorm."""
+    ``update_stats`` None: the critic has no BatchNorm.  ``kw`` goes to
+    ``D._forward``."""
     return remat(D._forward, x, use_kernels, level == "blocks",
-                 enabled=level, update_stats=update_stats)
+                 enabled=level, update_stats=update_stats, **kw)
 
 
 def pad_spatial(x: torch.Tensor, p: int, mesh=None) -> torch.Tensor:

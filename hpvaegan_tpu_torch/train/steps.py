@@ -8,8 +8,8 @@ Each step runs eagerly on the modules in place: spectral update, forward,
 Adam), so no stock f32 conv falls back to cuDNN's default TF32, and in
 ``deterministic()``, so that two runs of the same draws end with the
 same bits (cuDNN's default f32 weight gradients do not).  Under
-``cfg.bf16`` the models' convs compute in bf16 (the GP's stock critic
-too, on cuDNN), the cotangents reaching K1 and K2 are bf16 as the JAX
+``cfg.bf16`` the models' convs compute in bf16 (the GP's critic too),
+the cotangents reaching K1 and K2 are bf16 as the JAX
 package casts them, and the parameters, their gradients, the clip and
 Adam stay f32; the metrics keep the JAX package's dtypes (the critic's
 means and the KL bf16, the MSEs, the GP and the totals f32).
@@ -23,7 +23,8 @@ Semantics kept from the JAX package:
   then its rand forward.  The critic step's fake forward discards its
   statistics (``steps.py:295-297``);
 * the critic runs once on ``concat[real, fake]``; the WGAN-GP runs the
-  same critic on stock convs only (``:316-323``);
+  same critic's weights (``:316-323``), on the route ``_penalty_critic``
+  picks (below);
 * the generator step uses the critic after its Adam update, and the same
   stage noises as the critic step's fake (one ``k_fake``, ``:14-16``);
 * the critic's parameters are frozen around the generator step, so no
@@ -69,19 +70,29 @@ shape (``_critic``), ahead of the kernel routes, and the generator's
 refinement stages pack as ``G.cfg`` says (``models/generators.py``).
 ``baseline_step`` never packs, as the JAX package's baselines steps.
 
-Without ``--wpack`` the WGAN-GP runs the stock critic in every mode.
-The kernel route exists (K1 and K4 are differentiable any number of
-times, and
-``calc_gradient_penalty(lambda x: D(x, use_kernels=True), ...)`` works
-on a critic without ``pfuse``), but the trainer keeps the JAX package's
-routing (``steps.py:316-323``), chosen there because on a TPU the kernel
-route measured slower; switching it waits for a benchmark cell.
+The WGAN-GP's critic (``_penalty_critic``, the one place that picks it
+for ``gan_step`` and ``baseline_step``): an SN critic whose body convs
+take K1 (``pconv``, 3D, 64 channels) and that has no mesh runs every
+body conv on K1 and none on K2 (``D(x, fuse=False)``; K2 is first order
+only, K1 differentiates any number of times), its head and tail on
+stock convs.  On an H100 the penalty and its double backward run 1.4x
+to 2.3x faster there than on cuDNN's deterministic f32 convs from level
+3 of the default pyramid up (4.9x in bf16 at the top), and as fast
+within the noise of their host-bound timings at levels 0-2 (PERF.md's
+per-level table).  Every other critic runs the stock route
+(``use_kernels=False``): the BatchNorm baselines critic, 2D critics,
+critics without ``pconv``, and a critic under a mesh, whose K1 route
+would be K4.  The JAX package keeps its WGAN-GP on the stock critic
+(``steps.py:316-323``; on a TPU its kernel route measured slower): the
+two give the same penalty up to f32 round-off.  Under ``--wpack`` the
+packed critic comes first at a qualifying shape, as for every critic
+forward.
 
 The memory rungs (``train/fallback.py``; ``steps.py:153-156, 305-325,
 492-530``): under ``--remat``/``--remat-blocks`` the critic's forwards
-(with the kernels, on stock convs in the GP, frozen in the generator
-step) are recomputed in the backward (``models/remat.py``), and the
-generator's stages through ``G.cfg``; under ``--gp-chunked`` the SN
+(with the kernels, on the penalty's route in the GP, frozen in the
+generator step) are recomputed in the backward (``models/remat.py``),
+and the generator's stages through ``G.cfg``; under ``--gp-chunked`` the SN
 critic's penalty runs one sample at a time and backpropagates itself
 (``losses.calc_gradient_penalty``), so the step backpropagates the
 other critic terms alone.  The BatchNorm baselines critic keeps the
@@ -94,8 +105,8 @@ train_video_baselines.py:120-173) is a pure GAN step:
   ``noise_init`` and stage noises (the generator's BatchNorm statistics
   move in each), each with its own GP draw (``fold_in(k_gp, j)``);
 * the critic, either the SN ``WDiscriminator`` (the default, with its
-  kernel routes; its GP on stock convs, as the main step's) or the
-  BatchNorm ``WDiscriminatorBaselines``, runs on the real batch, then on
+  kernel routes; its GP on ``_penalty_critic``'s route, as the main
+  step's) or the BatchNorm ``WDiscriminatorBaselines``, runs on the real batch, then on
   the fake, each forward moving its running statistics; its GP forward
   moves none and keeps the whole batch (PARITY.md, remat note 2);
 * the generator step: ``errG`` on the rand forward against the updated,
@@ -119,6 +130,7 @@ under ``--spmd`` (``core/config.py``), as K2 has no mesh partitioning.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -186,15 +198,27 @@ def _critic(D, cfg, level):
     """The critic's forward as ``gan_step`` runs it, at remat ``level``
     (JAX ``apply_disc`` with ``cfg``, ``steps.py:43-70``): the SN critic
     over packed W under ``--wpack`` at a qualifying shape
-    (``models/packed.py``), whatever ``use_kernels`` asks, since the
+    (``models/packed.py``), whatever the route arguments ask, since the
     JAX package's WGAN-GP critic keeps ``cfg`` (``:316-326``); else
-    ``D``'s own routes."""
-    def forward(x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+    ``D``'s own routes, with ``route`` (``use_kernels``, ``fuse``)
+    handed to ``D``."""
+    def forward(x: torch.Tensor, **route) -> torch.Tensor:
         if isinstance(D, WDiscriminator) and wpack_ok(cfg, x.shape):
             return remat(wdisc_apply_packed, D, x, level == "blocks",
                          enabled=level)
-        return D(x, use_kernels=use_kernels, remat=level)
+        return D(x, remat=level, **route)
     return forward
+
+
+def _penalty_critic(D, forward):
+    """The critic forward the WGAN-GP differentiates twice: ``forward``
+    (``_critic``'s, or ``D``'s own) on K1 without K2 for an SN critic
+    whose body takes K1 and that has no mesh, else on stock convs (see
+    the module's docstring)."""
+    if (isinstance(D, WDiscriminator) and D.mesh is None
+            and any(block.kernel_route for block in D.body)):
+        return lambda x: forward(x, fuse=False)
+    return lambda x: forward(x, use_kernels=False)
 
 
 def _whole(metrics: Dict[str, torch.Tensor], mesh
@@ -324,7 +348,7 @@ def gan_step(G, D, opt_g, opt_d, cfg, real, real_zero, noise_init,
             errD_fake = global_mean(out[nb:], mesh)
             with span("step.critic.penalty"):
                 gp = calc_gradient_penalty(
-                    lambda x: critic(x, use_kernels=False), x_real, x_fake,
+                    _penalty_critic(D, critic), x_real, x_fake,
                     cfg.lambda_grad, d["alpha"], mesh=mesh,
                     chunked=_gp_chunked(cfg, D))
             with span("step.critic.backward"):
@@ -417,8 +441,8 @@ def baseline_step(G, D, opt_g, opt_d, cfg, real, noise_init, z_init,
             errD_fake = global_mean(D(x_fake, update_stats=True,
                                       remat=level), mesh)
             gp = calc_gradient_penalty(
-                lambda x: D(x, use_kernels=False, remat=level), x_real,
-                x_fake, cfg.lambda_grad,
+                _penalty_critic(D, functools.partial(D, remat=level)),
+                x_real, x_fake, cfg.lambda_grad,
                 None if alphas is None else alphas[j], generator, mesh,
                 chunked=_gp_chunked(cfg, D))
             (errD_real + errD_fake + gp).backward()

@@ -646,6 +646,72 @@ def test_graph_replayed_gan_steps_are_bit_equal_to_eager(cuda_device, bf16):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_penalty_on_k1_steps_are_bit_equal_on_card(cuda_device, bf16):
+    """The WGAN-GP on the K1 critic (``steps._penalty_critic``: every body
+    conv on K1, none on K2) on the card, small-pyramid nfc-64 model:
+    a GAN step launches ``chip_smoke.gan_step_launches``'s counts (the
+    penalty's 3 K1-fwd, 6 K1-dx and 3 K1-dw among them) in the run's
+    dtype alone; two eager runs of two steps from the same weights and
+    draws end bit-equal (``deterministic()``), and so does ``train_scale``
+    replaying a ``--scan-steps 4`` chunk from its CUDA graph against the
+    same five steps run eagerly."""
+    from chip_smoke import gan_step_launches
+    from hpvaegan_tpu_torch.train.trainer import train_scale
+    cfg, G0, D0 = _small_models("GeneratorHPVAEGAN", bf16=bf16)
+    x = _draws(cfg, G0)
+    ends = []
+    for _ in range(2):
+        G, D = (copy.deepcopy(m).to(cuda_device) for m in (G0, D0))
+        opt_g = optim.build_g_optimizer(cfg, G, cfg.scale_idx)
+        opt_d = optim.build_d_optimizer(cfg, D)
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        for i in range(2):
+            cp.counts.reset()
+            cf.counts.reset()
+            steps.gan_step(G, D, opt_g, opt_d, cfg, x["real"],
+                           x["real_zero"], x["noise_init"],
+                           [1.0, 0.3, 0.2, 0.1], noises=x["noises"],
+                           alpha=0.37, generator=gen)
+        torch.cuda.synchronize()
+        c, k2 = cp.counts, cf.counts
+        sfx, other = ("_bf16", "") if bf16 else ("", "_bf16")
+        assert {"conv3d64_fwd": getattr(c, f"fwd{sfx}_launches"),
+                "conv3d64_pair": k2.bf16_launches if bf16 else k2.launches,
+                "conv3d64_dx": getattr(c, f"dx{sfx}_launches"),
+                "conv3d64_dw": getattr(c, f"dw{sfx}_launches")} == \
+            gan_step_launches("plain", stages=cfg.scale_idx,
+                              num_layer=cfg.num_layer,
+                              vae_levels=cfg.vae_levels)
+        assert all(getattr(c, f"{k}{other}_launches") == 0
+                   for k in ("fwd", "dx", "dw"))
+        assert c.plain_calls == k2.plain_calls == 0
+        ends.append([t.clone() for m in (G, D)
+                     for t in m.state_dict().values()])
+    assert all(torch.equal(a, b) for a, b in zip(*ends))
+
+    cfg.niter = 5
+    runs, chunks = [], []
+    for k in (1, 4):
+        cfg.scan_steps = k
+        cfg.Noise_Amps = [1.0, 0.3, 0.2]
+        G = copy.deepcopy(G0).to(cuda_device)
+
+        def batches():
+            while True:
+                yield x["real"], x["real_zero"]
+
+        _, D, _ = train_scale(cfg, G, batches(), seed=6,
+                              callback=lambda e, i, m: chunks.append(
+                                  (k, e, m.get("replays", 0))))
+        torch.cuda.synchronize()
+        runs.append([t.clone() for m in (G, D)
+                     for t in m.state_dict().values()])
+    assert sum(r for k, e, r in chunks if k == 4 and e == "chunk") > 0
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", ["GeneratorVAE_nb", "GeneratorCSG"])
 def test_new_generators_step_on_card_matches_cpu(cuda_device, name):
     """One GAN step of a ``GeneratorVAE_nb`` (K1 in its stages, K2 and K1

@@ -351,7 +351,7 @@ def test_kernel_calls_follow_the_derived_launches(kernel_calls, mode,
                    generator=torch.Generator().manual_seed(2))
     want = chip_smoke.gan_step_launches(
         mode, stages=stages, num_layer=layers, vae_levels=vae_levels,
-        train_depth=cfg.train_depth, remat=level)
+        train_depth=cfg.train_depth, remat=level, gp_chunked=cfg.gp_chunked)
     assert dict(kernel_calls) == {
         "fwd": want["conv3d64_fwd"], "pair": want["conv3d64_pair"],
         "dx": want["conv3d64_dx"], "dw": want["conv3d64_dw"]}

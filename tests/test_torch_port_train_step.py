@@ -240,7 +240,8 @@ def test_gan_step_matches_jax(jax_models):
         noises=_noises_of(k_fake, pyr, cfg.vae_levels, GAN_SCALE),
         eps=_eps_of(k_rec, pyr, cfg.latent_dim),
         alpha=float(jax.random.uniform(k_gp, ())))
-    # K2: critic step + generator step; the GP runs stock convs only
+    # K2: critic step + generator step; the GP runs the critic's body on
+    # K1, unfused (steps._penalty_critic), so it adds no K2 call
     assert cf.counts.plain_calls == 2 and cf.counts.launches == 0
     assert all(p.requires_grad for p in D.parameters())  # unfrozen again
     _assert_metrics_close(metrics, metrics_ref)

@@ -286,7 +286,7 @@ def test_the_packed_modules_launch_no_kernel():
     a ``--pconv --pfuse`` critic run packed on stock convs: no K1 or K2
     wrapper is called, forward or backward, the GP's second order
     included, and they compute what the trainer's unpacked routes compute
-    (the critic on K2 and K1, its GP on stock convs)."""
+    (the critic on K2 and K1, its GP's body on K1 unfused)."""
     stage = networks.Stage(64, 3, 3, 1, 2, ndim=3, pconv=True)
     stage.reset_parameters(torch.Generator().manual_seed(3))
     assert stage.blocks[0].conv.kernel_route
@@ -306,7 +306,7 @@ def test_the_packed_modules_launch_no_kernel():
         else:
             y = s(xt, True)
             loss, g = _critic_loss(d, d, x, fake, 0.3,
-                                   lambda z: d(z, use_kernels=False))
+                                   lambda z: d(z, fuse=False))
         y.square().sum().backward()
         routed[route] = (_np(y), _np(xt.grad), loss, g, _grads(s),
                          cp.counts.plain_calls, cf.counts.plain_calls)
