@@ -4,22 +4,29 @@
 * the traffic mix: ``portbench/traffic/<traffic>.json``;
 * the limits of its correctness numbers: ``portbench/limits/<cell>.json``;
 * each per-layer metric's reader: ``portbench/metrics/<metric>.py``, a
-  module with ``read(reading) -> float | None``.
+  module with ``read(reading) -> float | None``;
+* the model family of the configuration's ``generator``:
+  ``portbench/families/<generator>.py`` (its contract:
+  ``portbench/README.md``).
 
-Adding a cell, a configuration, a traffic mix or a metric adds files and
-entries; no code here names one."""
+Adding a cell, a configuration, a traffic mix, a metric or a model adds
+files and entries; no code here names one."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "portbench"
+FAMILIES = BENCH / "families"
 
-__all__ = ["ROOT", "BENCH", "Cell", "load_cell", "reader", "benchmark"]
+__all__ = ["ROOT", "BENCH", "FAMILIES", "Cell", "load_cell", "reader",
+           "family", "benchmark"]
 
 
 def benchmark() -> dict:
@@ -43,6 +50,7 @@ class Cell:
     end_to_end: List[dict]  # the metrics this cell reports with --trace 0
     per_layer: List[dict]   # ... and with --trace 1
     limits: Dict[str, float]
+    family: ModuleType      # families/<the configuration's generator>.py
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -61,19 +69,40 @@ def load_cell(name: str, spec: dict = None) -> Cell:
     moved = {m["name"] for m in e2e}
     per_layer = [m for m in spec["per_layer"]
                  if _applies(m, name) and m["moves"] in moved]
-    return Cell(name=name, config_name=w["config"],
-                config=_json(ROOT / conf["file"]),
+    config = _json(ROOT / conf["file"])
+    return Cell(name=name, config_name=w["config"], config=config,
                 traffic_name=w["traffic"],
                 traffic=_json(BENCH / "traffic" / f"{w['traffic']}.json"),
                 chips=int(w["chips"]), end_to_end=e2e, per_layer=per_layer,
-                limits=_json(BENCH / "limits" / f"{name}.json"))
+                limits=_json(BENCH / "limits" / f"{name}.json"),
+                family=family(config["generator"]))
+
+
+def _load(path: Path, prefix: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(
+        f"{prefix}_{path.stem.replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def reader(metric: str) -> Callable:
     """``read`` of ``portbench/metrics/<metric>.py``."""
-    path = BENCH / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{metric.replace('.', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(BENCH / "metrics" / f"{metric}.py", "portbench_metric").read
+
+
+def family(generator: str) -> ModuleType:
+    """The model family ``FAMILIES / <generator>.py``, loaded once a path;
+    a generator without one is refused, naming the file to add."""
+    path = FAMILIES / f"{generator}.py"
+    if not path.is_file():
+        shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
+        raise FileNotFoundError(
+            f"no model family for the generator {generator!r}: add {shown} "
+            f"(its contract: portbench/README.md)")
+    return _family(path)
+
+
+@functools.lru_cache(maxsize=None)
+def _family(path: Path) -> ModuleType:
+    return _load(path, "portbench_family")

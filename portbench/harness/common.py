@@ -80,7 +80,9 @@ class Run:
     trace: Optional[object] = None         # TraceSummary of the traced window
     launches: Optional[object] = None      # LaunchLog
     flops_per_unit: int = 0
+    peak_flops: float = 0.0                # the compute dtype's peak, FLOP/s
     gp_ms: Optional[float] = None
+    # every correctness number the run gave, compared or not
     checks: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def mark(self, part: str, since: float) -> float:

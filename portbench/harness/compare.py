@@ -5,9 +5,10 @@ Training, the first steps of the scale (through the window's own call),
 which the reference follows from the start:
 
 * ``loss_gap``: over the first three of them (``LOSS_STEPS``), the
-  largest gap of the generator's total loss and of the critic's
-  (``errD_real + errD_fake + gradient_penalty``), each over the sum of
-  its terms' magnitudes in the reference;
+  largest of each step's loss gaps as the model family's ``loss_gaps``
+  scales them (HP-VAE-GAN: the generator's total loss and the critic's,
+  ``errD_real + errD_fake + gradient_penalty``, each over the sum of its
+  terms' magnitudes in the reference);
 * ``grad_gap``: over the trained leaves (the generator's trained stages
   and the critic), the largest gap between the norms of the first step's
   gradient as each optimizer got it, ``| |g_p| - |g_r| |``, over the
@@ -31,13 +32,17 @@ from __future__ import annotations
 
 import math
 import statistics
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 __all__ = ["train_gaps", "window_gaps", "leaf_gap", "TINY_GRAD",
            "LOSS_STEPS"]
 
 TINY_GRAD = 1e-3
 LOSS_STEPS = 3   # the steps whose losses are compared, from a given start
+# a step's loss gaps from its losses and the reference's, in the model
+# family's ``LOSS_TERMS`` order: the family's ``loss_gaps`` with its
+# configuration
+StepGaps = Callable[[tuple, tuple], List[float]]
 
 
 def leaf_gap(got: Dict[str, float], ref: Dict[str, float], keep=None
@@ -59,26 +64,14 @@ def leaf_gap(got: Dict[str, float], ref: Dict[str, float], keep=None
     return worst
 
 
-def _loss_gaps(got, want, rec_weight: float) -> List[float]:
-    """A step's two loss gaps: the generator's total and the critic's
-    (``errD_real + errD_fake + gradient_penalty``), each over the sum of
-    its terms' magnitudes in the reference (the critic's total crosses
-    zero as it learns)."""
-    if not all(math.isfinite(v) for v in got):
-        return [math.inf]
-    loss, rec, errG, real, fake, gp = want
-    g_scale = abs(rec_weight * rec) + abs(errG)
-    d_scale = abs(real) + abs(fake) + abs(gp)
-    return [abs(got[0] - loss) / g_scale,
-            abs(sum(got[3:]) - (real + fake + gp)) / d_scale]
-
-
 def _losses_gap(losses: List[tuple], want: List[tuple],
-                rec_weight: float) -> float:
+                step_gaps: StepGaps) -> float:
     if len(losses) != len(want):
         return math.inf
-    return max(g for got, w in list(zip(losses, want))[:LOSS_STEPS]
-               for g in _loss_gaps(got, w, rec_weight))
+    gaps = [[math.inf] if not all(math.isfinite(v) for v in got)
+            else step_gaps(got, w)
+            for got, w in list(zip(losses, want))[:LOSS_STEPS]]
+    return max(g for step in gaps for g in step)
 
 
 def _moving(ref_grads: Dict[str, float]) -> set:
@@ -88,23 +81,23 @@ def _moving(ref_grads: Dict[str, float]) -> set:
 
 
 def train_gaps(losses: List[tuple], grads: Dict[str, float],
-               change: Dict[str, float], ref: dict, rec_weight: float
+               change: Dict[str, float], ref: dict, step_gaps: StepGaps
                ) -> Dict[str, float]:
     """The three gaps of the scale's first steps against the reference's
-    (``reference.train.follow``'s result)."""
-    return {"loss_gap": _losses_gap(losses, ref["losses"], rec_weight),
+    (the model family's ``follow``'s result)."""
+    return {"loss_gap": _losses_gap(losses, ref["losses"], step_gaps),
             "grad_gap": leaf_gap(grads, ref["grads"]),
             "change_gap": leaf_gap(change, ref["change"],
                                    keep=_moving(ref["grads"]))}
 
 
 def window_gaps(losses: List[tuple], change: Dict[str, float], ref: dict,
-                ref_grads: Dict[str, float], rec_weight: float
+                ref_grads: Dict[str, float], step_gaps: StepGaps
                 ) -> Dict[str, float]:
     """The two gaps of the window's last step or chunk against the
-    reference's (``reference.train.resume``'s result); the leaves left
+    reference's (the model family's ``resume``'s result); the leaves left
     out by the first steps' reference gradients ``ref_grads``."""
     return {"window_loss_gap": _losses_gap(losses, ref["losses"],
-                                           rec_weight),
+                                           step_gaps),
             "window_change_gap": leaf_gap(change, ref["change"],
                                           keep=_moving(ref_grads))}

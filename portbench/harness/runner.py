@@ -10,7 +10,8 @@ import torch
 
 from . import sample_cell, train_cell
 from .cells import reader
-from .common import Run
+from .common import Run, note
+from .yardstick import peak_flops
 
 __all__ = ["run_cell", "forbidden_modules", "FORBIDDEN"]
 
@@ -30,12 +31,20 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, dev,
     object and the run's record."""
     kind = cell.traffic["kind"]
     runner = {"train": train_cell, "sample": sample_cell}[kind]
-    run = Run(kind=kind, t0=time.perf_counter() if t0 is None else t0)
+    run = Run(kind=kind, t0=time.perf_counter() if t0 is None else t0,
+              peak_flops=peak_flops(bool((conf or cell.config)["bf16"])))
     gaps = (runner.run_train if kind == "train" else runner.run_sample)(
         cell, seed, seconds, trace, dev, run, conf)
-    checks = {name: {"value": float(gaps[name]),
+    run.checks = {name: float(v) for name, v in gaps.items()}
+    # a null limit: a number with no upper reading, left uncompared
+    # (PERF.md section 2); the run must still give it
+    compared = sorted(n for n in gaps if cell.limits.get(n) is not None)
+    checks = {name: {"value": run.checks[name],
                      "limit": float(cell.limits[name])}
-              for name in sorted(gaps)}
+              for name in compared}
+    for name in sorted(set(gaps) - set(compared)):
+        note(f"not compared (its limit is null): {name} "
+             f"{run.checks[name]!r}")
     correct = (run.failed == 0 and set(gaps) == set(cell.limits) and all(
         math.isfinite(c["value"]) and c["value"] <= c["limit"]
         for c in checks.values()))

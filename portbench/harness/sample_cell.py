@@ -5,8 +5,9 @@ Set-up writes the benchmark's generator (weights from ``--seed``) as a
 under the run's temporary directory, loads it into the measured
 package's ``serving.SamplerSession`` as the CLI does, and warms it up.
 
-One client in a closed loop: request ``i`` draws its decoder latent and
-stage noises on the card from ``seed_value(seed, REQUEST_KEY, i)`` (the
+One client in a closed loop: request ``i`` draws its inputs (the model
+family's ``request_draws``; HP-VAE-GAN: its decoder latent and stage
+noises) on the card from ``seed_value(seed, REQUEST_KEY, i)`` (the
 benchmark's inputs, handed to ``SamplerSession.sample_batch``), and is
 complete when its clips are on the host.  Its latency runs from before
 its draws to then.  The window starts after ``warmup_requests`` and ends
@@ -37,7 +38,7 @@ from .common import (Run, note, peak_bytes, precision, reserved_peak_bytes,
                      reset_peak, sync)
 from .spans import SetupSpans
 from .launches import LaunchLog
-from .models import amps_before, port_config, reference_models
+from .models import port_config, reference_models
 from .trace import Tracer
 from .train_cell import reference_pyramid
 from .yardstick import request_flops
@@ -50,19 +51,13 @@ WARMUP_KEY = 0x5A4
 _PICK_KEY = 0x9C4
 
 
-def request_draws(G_shapes, has_noise, conf: dict, dev, seed: int, i: int,
+def request_draws(family, G, conf: dict, dev, seed: int, i: int,
                   key: int = REQUEST_KEY):
-    """Request ``i``'s draws, channels last: the latent (N, *level-0 size,
-    latent) and the stage noises (N, *level size, 3) of the stages that
-    take noise (None for the others)."""
+    """Request ``i``'s draws, channels last, as ``family.request_draws``
+    makes them for the reference generator ``G``, from one generator on
+    ``dev`` seeded ``seed_value(seed, key, i)``."""
     g = torch.Generator(device=dev).manual_seed(seed_value(seed, key, i))
-    b = conf["batch_size"]
-    z = torch.randn((b, *G_shapes[0], conf["latent_dim"]), generator=g,
-                    device=dev)
-    noises = [torch.randn((b, *G_shapes[j + 1], conf["nc_im"]), generator=g,
-                          device=dev) if has_noise(j) else None
-              for j in range(len(G_shapes) - 1)]
-    return z, noises
+    return family.request_draws(G, conf, g, dev)
 
 
 def _session(conf: dict, scale: int, G_ref, amps, dev, workdir: str):
@@ -88,14 +83,14 @@ def _session(conf: dict, scale: int, G_ref, amps, dev, workdir: str):
 def run_sample(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
                conf: Optional[dict] = None) -> dict:
     conf = dict(cell.config if conf is None else conf)
-    tr = cell.traffic
+    fam, tr = cell.family, cell.traffic
     scale, ndim = int(tr["scale"]), int(conf["ndim"])
     t = time.perf_counter()
     pyr = reference_pyramid(conf)
     shapes = [pyr.thw(i) if ndim == 3 else pyr.hw(i)
               for i in range(scale + 1)]
-    G_ref, _ = reference_models(conf, ndim, shapes, scale, dev, seed)
-    amps = amps_before(conf, scale) + [float(conf["noise_amp"])]
+    G_ref, _ = reference_models(fam, conf, ndim, shapes, scale, dev, seed)
+    amps = fam.amps_before(conf, scale) + [float(conf["noise_amp"])]
     t = run.mark("weights", t)
     log = LaunchLog().install() if trace else None
     tracer = Tracer(dev) if trace else None
@@ -115,8 +110,8 @@ def run_sample(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
             spans.remove()
         t = run.mark("load and warm-up", t)
         for i in range(int(tr["warmup_requests"])):
-            z, noises = request_draws(shapes, G_ref.has_noise, conf, dev,
-                                      seed, i, WARMUP_KEY)
+            z, noises = request_draws(fam, G_ref, conf, dev, seed, i,
+                                      WARMUP_KEY)
             session.sample_batch(noise=z, noises=noises)
         sync(dev)
         run.mark("warm-up requests", t)
@@ -136,8 +131,7 @@ def run_sample(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
         i = 0
         while True:
             t_req = time.perf_counter()
-            z, noises = request_draws(shapes, G_ref.has_noise, conf, dev,
-                                      seed, i)
+            z, noises = request_draws(fam, G_ref, conf, dev, seed, i)
             out = session.sample_batch(noise=z, noises=noises)
             done = time.perf_counter()
             run.latencies_ms.append((done - t_req) * 1e3)
@@ -170,13 +164,8 @@ def run_sample(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
     gap = 0.0
     with torch.no_grad(), precision(tf32=False):
         for j, out in sorted(kept.items()):
-            z, noises = request_draws(shapes, G_ref.has_noise, conf, dev,
-                                      seed, j)
-            ref = G_ref.rand(torch.tensor(amps, device=dev),
-                             z.movedim(-1, 1),
-                             [None if n is None else n.movedim(-1, 1)
-                              for n in noises])
-            ref = ref.movedim(1, -1).cpu().numpy()
+            z, noises = request_draws(fam, G_ref, conf, dev, seed, j)
+            ref = fam.reference_clip(G_ref, amps, z, noises).cpu().numpy()
             d = (float(np.abs(out - ref).max()) if out.shape == ref.shape
                  and np.isfinite(out).all() else math.inf)
             gap = max(gap, d)

@@ -1,7 +1,8 @@
 """A training cell: one GAN scale through the measured package's own
-trainer, ``train/trainer.train_scale`` (in-memory form: the benchmark
-hands it the generator, the device-resident frame cache and the previous
-critic), stopped from its callback once the window has closed.
+trainer, run by the model family's ``train`` (HP-VAE-GAN's: the trainer's
+in-memory form, handed the generator, the device-resident frame cache and
+the previous critic), stopped from its callback once the window has
+closed.
 
 Set-up builds the one generator, critic and optimizer state the window
 drives: the calibration, then the scale's first steps through the
@@ -23,9 +24,11 @@ change.  With ``--trace 1`` the profiler covers as many steps as set-up
 took (one chunk when replayed) and the window ends with them."""
 from __future__ import annotations
 
+import functools
 import gc
 import math
 import statistics
+import tempfile
 import time
 from typing import Optional
 
@@ -34,15 +37,13 @@ from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from reference.data import image_pair, read_frames, video_pair
 from reference.geometry import Pyramid
-from reference.train import LOSS_TERMS, follow, model_state, resume
 
 from .common import (Run, Stop, note, peak_bytes, precision,
                      reserved_peak_bytes, reset_peak, sync)
 from .compare import LOSS_STEPS, train_gaps, window_gaps
 from .launches import LaunchLog
 from .spans import SetupSpans
-from .models import (amps_before, frames_file, port_config, port_generator,
-                     reference_models)
+from .models import frames_file, port_config, reference_models
 from .trace import Tracer
 from .yardstick import step_flops
 
@@ -138,9 +139,9 @@ def _leaf_names(G, D_ref, optimizers):
 
 
 def _trainer_critic(G, optimizers, keys) -> torch.nn.Module:
-    """The critic that ``train_scale`` builds for itself: the live module
-    that holds exactly the parameters of the optimizer that is not the
-    generator's, with the state-dict keys ``keys``."""
+    """The critic that the package's trainer builds for itself: the live
+    module that holds exactly the parameters of the optimizer that is not
+    the generator's, with the state-dict keys ``keys``."""
     gparams = {id(p) for p in G.parameters()}
     ids = next([id(p) for g in opt.param_groups for p in g["params"]]
                for opt in optimizers
@@ -182,7 +183,7 @@ class _Snapshot:
         self.it = it
 
     def state(self, shapes: dict) -> dict:
-        """``reference.train.resume``'s ``state``, every tensor in the
+        """The model family's ``resume``'s ``state``, every tensor in the
         reference's layout (``shapes``: its shape by state key)."""
         return {"model": {k: _torch_layout(v, shapes[k])
                           for k, v in self.model.items()},
@@ -207,9 +208,11 @@ def _torch_layout(t: torch.Tensor, shape) -> torch.Tensor:
 
 def _gp_ms(cfg, ndim: int, D_ref, real, dev, seed: int) -> Optional[float]:
     """One penalty and its backward on the trainer's critic route
-    (``steps._critic`` and ``steps.calc_gradient_penalty`` as the GAN step
-    calls them) at the cell's critic and shapes, timed with CUDA events:
-    the median of three after one untimed."""
+    (``steps._penalty_critic`` over ``steps._critic`` and
+    ``steps.calc_gradient_penalty``, as the GAN step calls them: a 3D K1
+    critic's body on K1 unfused, other critics on stock convs) at the
+    cell's critic and shapes, timed with CUDA events: the median of three
+    after one untimed."""
     if dev.type != "cuda":
         return None
     from hpvaegan_tpu_torch import deterministic, full_f32
@@ -224,7 +227,8 @@ def _gp_ms(cfg, ndim: int, D_ref, real, dev, seed: int) -> Optional[float]:
     x_fake = torch.tanh(torch.randn(real.shape, generator=g, device=dev)
                         ).contiguous(memory_format=fmt)
     alpha = torch.rand((), generator=g, device=dev)
-    critic = steps._critic(D, cfg, remat_level(cfg))
+    critic = steps._penalty_critic(D, steps._critic(D, cfg,
+                                                    remat_level(cfg)))
     times = []
     with full_f32(), deterministic():
         for i in range(4):
@@ -233,8 +237,8 @@ def _gp_ms(cfg, ndim: int, D_ref, real, dev, seed: int) -> Optional[float]:
             D.zero_grad(set_to_none=True)
             e0.record()
             gp = steps.calc_gradient_penalty(
-                lambda x: critic(x, use_kernels=False), x_real, x_fake,
-                cfg.lambda_grad, alpha)
+                critic, x_real, x_fake, cfg.lambda_grad, alpha,
+                chunked=steps._gp_chunked(cfg, D))
             gp.backward()
             e1.record()
             e1.synchronize()
@@ -250,10 +254,9 @@ def run_train(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
     ``seconds`` 0 closes the window at set-up's end (the first steps'
     numbers alone)."""
     from hpvaegan_tpu_torch.data.loader import make_loader
-    from hpvaegan_tpu_torch.train.trainer import train_scale
 
     conf = dict(cell.config if conf is None else conf)
-    tr = cell.traffic
+    fam, tr = cell.family, cell.traffic
     scale, ndim, K = int(tr["scale"]), int(conf["ndim"]), int(tr["scan_steps"])
     first_n = first_steps(tr)
     t = time.perf_counter()
@@ -261,7 +264,7 @@ def run_train(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
     cfg = port_config(conf, scale)   # niter as the source: the window ends
     cfg.scan_steps = K               # the scale long before
     cfg.manualSeed = seed
-    cfg.Noise_Amps = amps_before(conf, scale)
+    cfg.Noise_Amps = fam.amps_before(conf, scale)
     dataset = _dataset(cfg, ndim)
     pyramid = dataset.pyramid
     shapes = [(pyramid.shape3d(i) if ndim == 3 else pyramid.shape2d(i))
@@ -272,8 +275,9 @@ def run_train(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
     batches = make_loader(dataset, cfg, seed, scale, dev)
     t = run.mark("data", t)
 
-    G_ref, D_ref = reference_models(conf, ndim, ref_shapes, scale, dev, seed)
-    G = port_generator(cfg, pyramid, ndim, scale, G_ref, dev)
+    G_ref, D_ref = reference_models(fam, conf, ndim, ref_shapes, scale, dev,
+                                    seed)
+    G = fam.port_generator(cfg, pyramid, ndim, scale, G_ref, dev)
     init = {n: p.detach().clone() for n, p in G.named_parameters()}
     init.update({f"D.{n}": p.detach().clone()
                  for n, p in D_ref.named_parameters()})
@@ -338,7 +342,7 @@ def run_train(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
         elif event == "step":
             # a chunk's steps report after its boundary: by iteration
             st["losses"][it] = torch.stack([info[k].float()
-                                            for k in LOSS_TERMS])
+                                            for k in fam.LOSS_TERMS])
             if K == 1 and st["phase"] != "closed":
                 boundary(it + 1)
             if st["stop_at"] == it + 1:
@@ -347,8 +351,8 @@ def run_train(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
             boundary(it + info["k"])
 
     try:
-        train_scale(cfg, G, batches, D_prev=D_ref, seed=seed,
-                    callback=callback)
+        with tempfile.TemporaryDirectory(prefix="portbench-") as work:
+            fam.train(cfg, G, D_ref, batches, dataset, work, seed, callback)
         raise RuntimeError("the scale ended before the window closed")
     except Stop:
         pass
@@ -372,7 +376,8 @@ def run_train(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
         start, end = snap.it, st["end"]
         window = {"start": start, "steps": end - start,
                   "state": snap.state({k: v.shape for k, v in
-                                       model_state(G_ref, D_ref).items()}),
+                                       fam.model_state(G_ref,
+                                                       D_ref).items()}),
                   "losses": [every[it] for it in range(start, end)
                              if it in every],
                   "change": {n: float(torch.linalg.vector_norm(
@@ -389,24 +394,26 @@ def run_train(cell, seed: int, seconds: float, trace: bool, dev, run: Run,
         run.flops_per_unit = step_flops(conf, ndim, ref_shapes, scale,
                                         conf["batch_size"])
         run.gp_ms = _gp_ms(cfg, ndim, D_ref, real, dev, seed)
-    amps = amps_before(conf, scale)
+    amps = fam.amps_before(conf, scale)
+    step_gaps = functools.partial(fam.loss_gaps, conf=conf)
     with precision(tf32=False):
-        ref = follow(G_ref, D_ref, conf, real, real_zero, amps, dev, seed,
-                     scale, first_n)
-        gaps = train_gaps(losses, grads, change, ref, conf["rec_weight"])
+        ref = fam.follow(G_ref, D_ref, conf, real, real_zero, amps, dev,
+                         seed, scale, first_n)
+        gaps = train_gaps(losses, grads, change, ref, step_gaps)
         if window is not None:
-            seg = resume(G_ref, D_ref, conf, real, real_zero,
-                         amps + [ref["amp"]], dev, seed, scale,
-                         window["state"], window["start"], window["steps"])
+            seg = fam.resume(G_ref, D_ref, conf, real, real_zero,
+                             amps + [ref["amp"]], dev, seed, scale,
+                             window["state"], window["start"],
+                             window["steps"])
             gaps.update(window_gaps(window["losses"], window["change"], seg,
-                                    ref["grads"], conf["rec_weight"]))
+                                    ref["grads"], step_gaps))
         elif seconds > 0:
             gaps.update(window_loss_gap=math.inf, window_change_gap=math.inf)
     if shapes != ref_shapes or amp is None:
         gaps = {k: math.inf for k in gaps}
     note(f"calibrated amp: program {amp!r}, reference {ref['amp']!r}")
     for j, (p, r) in enumerate(zip(losses, ref["losses"])):
-        note(f"step {j}: {', '.join(LOSS_TERMS)}: program {p}, "
+        note(f"step {j}: {', '.join(fam.LOSS_TERMS)}: program {p}, "
              f"reference {r}")
     if window is not None:
         note(f"window's last segment: steps {window['start']} .. "

@@ -1,6 +1,7 @@
 """The benchmark's yardstick, frozen: the card's published peaks, the
 bound of a K1 or K2 launch from its shape, and the operations of a whole
-GAN step or sampling request counted from the plain reference.
+training step or sampling request counted on the plain reference (the
+model family's, found by the configuration's ``generator``).
 
 Peaks: NVIDIA H100 SXM data sheet, dense: 67 TFLOP/s f32 outside the
 tensor cores (the measured package runs f32 with TF32 off), 989 TFLOP/s
@@ -28,7 +29,7 @@ PEAK_HBM_BYTES = 3.35e12
 _TAPS = 27 * 64 * 64
 
 __all__ = ["PEAK_F32_FLOPS", "PEAK_BF16_FLOPS", "PEAK_HBM_BYTES", "bound",
-           "k1_bound", "dw_bound", "pair_bound", "step_flops",
+           "peak_flops", "k1_bound", "dw_bound", "pair_bound", "step_flops",
            "request_flops"]
 
 
@@ -45,8 +46,14 @@ def _voxels(shape: Sequence[int]) -> int:
     return b * t * h * w
 
 
+def peak_flops(bf16: bool) -> float:
+    """The peak of the compute dtype: bf16's tensor cores, or f32 outside
+    them."""
+    return PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+
+
 def _rate(bf16: bool):
-    return (2 if bf16 else 4), (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+    return (2 if bf16 else 4), peak_flops(bf16)
 
 
 def k1_bound(shape, bias: bool = True, bf16: bool = False):
@@ -63,13 +70,6 @@ def pair_bound(shape, with_mid: bool = False, bf16: bool = False):
     v, (e, peak) = _voxels(shape), _rate(bf16)
     return bound(2 * 2 * _TAPS * v,
                  e * ((2 + with_mid) * v * 64 + 2 * (_TAPS + 64)), peak)
-
-
-def _meta_models(cfg: dict, ndim: int, shapes, stages: int):
-    import torch
-    from reference.model import Critic, Generator
-    with torch.device("meta"):
-        return (Generator(cfg, ndim, shapes, stages), Critic(cfg, ndim))
 
 
 class _FlopCount:
@@ -103,41 +103,32 @@ class _FlopCount:
         return self.mode.__exit__(*exc)
 
 
+def _count(cfg: dict, ndim: int, shapes, stages: int, run) -> int:
+    """The FLOPs of ``run(family, G, D, meta)`` on the model family's
+    reference models (``cfg``'s ``generator``) built on the meta device."""
+    import torch
+    from .cells import family
+    fam, meta = family(cfg["generator"]), torch.device("meta")
+    with meta:
+        G, D = fam.models(cfg, ndim, shapes, stages)
+    with _FlopCount() as counter:
+        run(fam, G, D, meta)
+    return counter.total
+
+
 def step_flops(cfg: dict, ndim: int, shapes, stages: int, batch: int
                ) -> int:
-    """The FLOPs of one GAN step of the reference (its forwards, both
-    backward passes and the penalty's double backward) at these shapes,
-    counted by ``torch.utils.flop_counter``'s formulas on the meta device."""
-    import torch
-    from reference.train import gan_step
-    G, D = _meta_models(cfg, ndim, shapes, stages)
-    meta = torch.device("meta")
-    real = torch.empty((batch, cfg["nc_im"], *shapes[stages]), device=meta)
-    real_zero = torch.empty((batch, cfg["nc_im"], *shapes[0]), device=meta)
-    d = {"noise_init": torch.empty((batch, cfg["latent_dim"], *shapes[0]),
-                                   device=meta),
-         "noises": [torch.empty((batch, cfg["nc_im"], *shapes[i + 1]),
-                                device=meta) if G.has_noise(i) else None
-                    for i in range(stages)],
-         "alpha": torch.empty((), device=meta),
-         "eps": torch.empty((batch, cfg["latent_dim"], *shapes[0]),
-                            device=meta)}
-    amps = torch.empty(stages + 1, device=meta)
-    with _FlopCount() as counter:
-        gan_step(G, D, cfg, real, real_zero, d, amps)
-    return counter.total
+    """The FLOPs of one training step of the reference (the family's
+    ``flop_step``: its forwards and backward passes, a penalty's double
+    backward included) at these shapes, counted by
+    ``torch.utils.flop_counter``'s formulas on the meta device."""
+    return _count(cfg, ndim, shapes, stages, lambda fam, G, D, dev:
+                  fam.flop_step(G, D, cfg, batch, dev))
 
 
 def request_flops(cfg: dict, ndim: int, shapes, stages: int, batch: int
                   ) -> int:
-    """The FLOPs of one rand-mode forward of the reference generator."""
-    import torch
-    G, _ = _meta_models(cfg, ndim, shapes, stages)
-    meta = torch.device("meta")
-    z = torch.empty((batch, cfg["latent_dim"], *shapes[0]), device=meta)
-    noises = [torch.empty((batch, cfg["nc_im"], *shapes[i + 1]),
-                          device=meta) if G.has_noise(i) else None
-              for i in range(stages)]
-    with _FlopCount() as counter, torch.no_grad():
-        G.rand(torch.empty(stages + 1, device=meta), z, noises)
-    return counter.total
+    """The FLOPs of one sampling request of the reference generator (the
+    family's ``flop_request``)."""
+    return _count(cfg, ndim, shapes, stages, lambda fam, G, D, dev:
+                  fam.flop_request(G, cfg, batch, dev))

@@ -39,9 +39,10 @@ def test_bytes_bound_a_one_voxel_launch():
     assert PEAK_F32_FLOPS == 67e12
 
 
-CFG = dict(nc_im=3, nfc=4, latent_dim=2, vae_levels=1, enc_blocks=1,
-           ker_size=3, padd_size=1, num_layer=1, train_all=False,
-           lambda_grad=0.1, rec_weight=10.0, disc_loss_weight=1.0)
+CFG = dict(generator="GeneratorHPVAEGAN", nc_im=3, nfc=4, latent_dim=2,
+           vae_levels=1, enc_blocks=1, ker_size=3, padd_size=1, num_layer=1,
+           train_all=False, lambda_grad=0.1, rec_weight=10.0,
+           disc_loss_weight=1.0)
 SHAPES = [(5, 6), (7, 8)]     # 2D levels 0 and 1
 
 

@@ -23,6 +23,7 @@ largest program reading and smallest control and fault readings."""
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -39,12 +40,11 @@ import torch  # noqa: E402
 from harness.cells import load_cell  # noqa: E402
 from harness.common import precision  # noqa: E402
 from harness.compare import train_gaps, window_gaps  # noqa: E402
-from harness.models import amps_before, reference_models  # noqa: E402
+from harness.models import reference_models  # noqa: E402
 from harness.runner import run_cell  # noqa: E402
 from harness.sample_cell import request_draws  # noqa: E402
 from harness.train_cell import (first_steps, last_segment,  # noqa: E402
                                 reference_batch, reference_pyramid)
-from reference.train import follow, resume  # noqa: E402
 
 
 def _shapes(conf, scale):
@@ -54,54 +54,54 @@ def _shapes(conf, scale):
 
 
 def train_controls(cell, seed: int, dev) -> dict:
-    conf, tr = cell.config, cell.traffic
+    conf, tr, fam = cell.config, cell.traffic, cell.family
     scale, steps = int(tr["scale"]), first_steps(tr)
     pyr, shapes = _shapes(conf, scale)
-    G, D = reference_models(conf, conf["ndim"], shapes, scale, dev, seed)
+    G, D = reference_models(fam, conf, conf["ndim"], shapes, scale, dev,
+                            seed)
     real, real_zero = reference_batch(conf, pyr, scale, dev)
-    amps = amps_before(conf, scale)
-    rec_weight = conf["rec_weight"]
+    amps = fam.amps_before(conf, scale)
+    step_gaps = functools.partial(fam.loss_gaps, conf=conf)
     with precision(tf32=False):
-        ref = follow(G, D, conf, real, real_zero, amps, dev, seed, scale,
-                     steps)
-        half = follow(G, D, conf, real, real_zero, amps, dev, seed, scale,
-                      steps, fault="half_batch")
+        ref = fam.follow(G, D, conf, real, real_zero, amps, dev, seed,
+                         scale, steps)
+        half = fam.follow(G, D, conf, real, real_zero, amps, dev, seed,
+                          scale, steps, fault="half_batch")
     with precision(tf32=True):
-        tf32 = follow(G, D, conf, real, real_zero, amps, dev, seed, scale,
-                      steps)
+        tf32 = fam.follow(G, D, conf, real, real_zero, amps, dev, seed,
+                          scale, steps)
     out = {what: train_gaps(r["losses"], r["grads"], r["change"], ref,
-                            rec_weight)
+                            step_gaps)
            for what, r in (("control", tf32), ("half_batch", half))}
     # the window's last segment from the state after the first steps
     seg = (G, D, conf, real, real_zero, amps + [ref["amp"]], dev, seed,
            scale, ref["state"], steps, last_segment(tr))
     with precision(tf32=False):
-        want = resume(*seg)
-        half = resume(*seg, fault="half_batch")
+        want = fam.resume(*seg)
+        half = fam.resume(*seg, fault="half_batch")
     with precision(tf32=True):
-        tf32 = resume(*seg)
+        tf32 = fam.resume(*seg)
     for what, r in (("control", tf32), ("half_batch", half)):
         out[what].update(window_gaps(r["losses"], r["change"], want,
-                                     ref["grads"], rec_weight))
+                                     ref["grads"], step_gaps))
     out["unchanged"] = {"change_gap": 1.0, "window_change_gap": 1.0}
     return out
 
 
 def sample_controls(cell, seed: int, dev) -> dict:
-    conf, tr = cell.config, cell.traffic
+    conf, tr, fam = cell.config, cell.traffic, cell.family
     scale = int(tr["scale"])
     _, shapes = _shapes(conf, scale)
-    G, _ = reference_models(conf, conf["ndim"], shapes, scale, dev, seed)
-    amps = torch.tensor(amps_before(conf, scale) + [conf["noise_amp"]],
-                        device=dev)
+    G, _ = reference_models(fam, conf, conf["ndim"], shapes, scale, dev,
+                            seed)
+    amps = fam.amps_before(conf, scale) + [conf["noise_amp"]]
     gap = 0.0
     for i in range(int(tr["compare_requests"])):
-        z, noises = request_draws(shapes, G.has_noise, conf, dev, seed, i)
-        noises = [None if n is None else n.movedim(-1, 1) for n in noises]
+        z, noises = request_draws(fam, G, conf, dev, seed, i)
         outs = []
         for tf32 in (False, True):
             with torch.no_grad(), precision(tf32=tf32):
-                outs.append(G.rand(amps, z.movedim(-1, 1), noises))
+                outs.append(fam.reference_clip(G, amps, z, noises))
         gap = max(gap, float((outs[0] - outs[1]).abs().max()))
     return {"control": {"clip_gap": gap}}
 
@@ -123,8 +123,8 @@ def main(argv=None) -> int:
     lower, upper = {}, {}
     for seed in args.seeds:
         t = time.perf_counter()
-        result, _ = run_cell(cell, seed, seconds, False, dev)
-        gaps = {k: c["value"] for k, c in result["checks"].items()}
+        _, run = run_cell(cell, seed, seconds, False, dev)
+        gaps = run.checks
         print(json.dumps({"seed": seed, "program": gaps,
                           "seconds": time.perf_counter() - t}), flush=True)
         for k, v in gaps.items():
