@@ -20,6 +20,11 @@ The contract, every name below:
 * ``amps_before(conf, scale)``: the noise amplitudes below the scale;
 * ``train(cfg, G, D_ref, batches, dataset, workdir, seed, callback)``:
   the package's trainer for one scale, the harness's ``callback`` given;
+* ``STEP``: ``(module, attribute)``, where that trainer looks its step up
+  at each call (the benchmark's tests plant their faults there), and
+  ``half_batch_call(step, *args, **kwargs)``: ``step`` on the first row
+  of every batched input (the fault of a step that leaves half of its
+  batch out);
 * ``loss_gaps(got, want, conf)``: a step's loss gaps, each scaled;
 * ``follow``, ``resume``, ``model_state``: the reference's steps from the
   scale's start and from a state, and that state's keys;
@@ -38,8 +43,11 @@ from reference.model import BatchNorm, Conv, Critic, Generator, SNConv
 from reference.train import LOSS_TERMS, follow, gan_step, model_state, resume
 
 __all__ = ["LOSS_TERMS", "models", "draw", "port_generator", "amps_before",
-           "train", "loss_gaps", "follow", "resume", "model_state",
-           "request_draws", "reference_clip", "flop_step", "flop_request"]
+           "train", "STEP", "half_batch_call", "loss_gaps", "follow",
+           "resume", "model_state", "request_draws", "reference_clip",
+           "flop_step", "flop_request"]
+
+STEP = ("hpvaegan_tpu_torch.train.trainer", "gan_step")
 
 
 def models(conf: dict, ndim: int, shapes, stages: int):
@@ -109,6 +117,15 @@ def train(cfg, G, D_ref, batches, dataset, workdir, seed: int,
     previous scale's critic (the dataset and the directory unused)."""
     from hpvaegan_tpu_torch.train.trainer import train_scale
     train_scale(cfg, G, batches, D_prev=D_ref, seed=seed, callback=callback)
+
+
+def half_batch_call(step, G, D, opt_g, opt_d, cfg, real, real_zero,
+                    noise_init, amps, noises=None, eps=None, **kwargs):
+    """``gan_step`` on the first sample of the batch, its draws cut alike."""
+    return step(G, D, opt_g, opt_d, cfg, real[:1], real_zero[:1],
+                noise_init[:1], amps,
+                noises=[None if n is None else n[:1] for n in noises],
+                eps=eps[:1], **kwargs)
 
 
 def loss_gaps(got, want, conf: dict):

@@ -9,9 +9,13 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 __all__ = ["sync", "peak_bytes", "reserved_peak_bytes", "reset_peak", "Run",
-           "note", "Stop", "precision"]
+           "note", "Stop", "precision", "control_precision", "fp8_round"]
+
+E4M3_MAX = 448.0   # the largest finite float8_e4m3fn
 
 
 class Stop(Exception):
@@ -54,6 +58,57 @@ def precision(tf32: bool):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def fp8_round(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values rounded to fp8 (e4m3), scaled per tensor so that its
+    largest magnitude is e4m3's largest, as an fp8 operand is; the
+    gradient passes straight through, to any order."""
+    d = t.detach()
+    scale = d.abs().amax().clamp_min(torch.finfo(d.dtype).tiny) / E4M3_MAX
+    q = (d / scale).to(torch.float8_e4m3fn).to(d.dtype) * scale
+    return t + (q - d)
+
+
+class _Fp8Grad(torch.autograd.Function):
+    """The identity, whose backward hands on its gradient ``fp8_round``ed:
+    a convolution's output gradient, the operand of its backward's two
+    convolutions."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fp8_round(g)
+
+
+class _Fp8Convs(TorchFunctionMode):
+    """Every convolution called inside computes in fp8 operands with f32
+    accumulation, as fp8 tensor cores do: its input and weight
+    ``fp8_round``ed, and its output gradient too, the operand of the
+    input's and the weight's gradients."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (F.conv2d, F.conv3d):
+            args = (fp8_round(args[0]), fp8_round(args[1]), *args[2:])
+            return _Fp8Grad.apply(func(*args, **(kwargs or {})))
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def control_precision(bf16: bool):
+    """The control's precision inside the block, the nearest below the
+    configuration's compute dtype: TF32 for f32 (with TF32 off); for
+    bf16, every convolution's operands in fp8 (``_Fp8Convs``), the rest
+    f32 with TF32 off."""
+    if not bf16:
+        with precision(tf32=True):
+            yield
+        return
+    with precision(tf32=False), _Fp8Convs():
+        yield
 
 
 def note(msg: str) -> None:

@@ -34,9 +34,7 @@ from __future__ import annotations
 import bisect
 import statistics
 from collections import defaultdict
-from typing import Dict, List, Optional
-
-from .trace import _merge
+from typing import Dict, List, Optional, Tuple
 
 __all__ = ["PACKAGE", "Span", "ProgramSpans", "per_span_ms", "host_tail_ms",
            "launch_idle_ms", "table", "OUTSIDE"]
@@ -48,6 +46,17 @@ OUTSIDE = "(no span)"
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def _merge(spans: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
+    """The union of intervals, as disjoint intervals in order."""
+    out: List[List[float]] = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
 
 
 class Span:

@@ -7,7 +7,9 @@ length of their union (the device ran something), ``window_s`` the host's
 clock over the traced window, which starts and ends on a
 synchronisation.  An idle gap of the device is named by the innermost
 operator the host's busiest thread was running at the gap's middle, or
-``between_operators``."""
+``between_operators``.  The measured package's own spans in the window,
+matched to the device work they launched, are ``spans``
+(``program_spans.ProgramSpans``), for the span metrics' readers."""
 from __future__ import annotations
 
 import bisect
@@ -16,19 +18,19 @@ import os
 import tempfile
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["Tracer", "TraceSummary", "function_name"]
+from .program_spans import _DEVICE_CATS, ProgramSpans, _merge
 
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+__all__ = ["Tracer", "TraceSummary", "function_name"]
 
 
 class TraceSummary:
     """What one traced window holds: ``kernels`` as ``(name, start_us,
-    dur_us)``, ``busy_s``, ``window_s``, the top device operations and the
-    longest idle gaps by host operator."""
+    dur_us)``, ``busy_s``, ``window_s``, the top device operations, the
+    longest idle gaps by host operator and the package's ``spans``."""
 
     def __init__(self, events: List[dict], window_s: float):
         self.window_s = window_s
@@ -57,6 +59,7 @@ class TraceSummary:
         host = max(cpu.values(), key=len) if cpu else []
         host.sort()
         self.idle_gaps = _gaps_by_host_op(spans, host)
+        self.spans = ProgramSpans(events)
 
     def kernel_time(self, *prefixes: str) -> float:
         """Seconds of the kernels whose function name (namespaces, return
@@ -83,16 +86,6 @@ def function_name(name: str) -> str:
 
 def _short(name: str) -> str:
     return _bare(name)[:64]
-
-
-def _merge(spans: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
-    out: List[List[float]] = []
-    for a, b in sorted(spans):
-        if out and a <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], b)
-        else:
-            out.append([a, b])
-    return [(a, b) for a, b in out]
 
 
 def _gaps_by_host_op(spans, host) -> List[list]:

@@ -1,11 +1,13 @@
 """The model family: every configuration of BENCHMARK.json finds its own
 by its ``generator``, a generator without one is refused naming the file
 to add, a family is found by its file alone (a copy elsewhere runs the
-tiny cells ``correct``), no module outside a family imports the
-reference's model or steps, and MFU reads against the compute dtype's
-peak."""
+tiny cells ``correct``), a stand-in family whose trainer calls its step
+through another attribute has its faults planted there, no module outside
+a family imports the reference's model or steps or names a model's step,
+and MFU reads against the compute dtype's peak."""
 import ast
 import json
+import re
 import shutil
 import sys
 import types
@@ -23,8 +25,9 @@ CPU = torch.device("cpu")
 SEED = 2 ** 31 + 4242
 # the contract of families/<generator>.py (portbench/README.md)
 CONTRACT = ("LOSS_TERMS", "models", "draw", "port_generator", "amps_before",
-            "train", "loss_gaps", "follow", "resume", "model_state",
-            "request_draws", "reference_clip", "flop_step", "flop_request")
+            "train", "STEP", "half_batch_call", "loss_gaps", "follow",
+            "resume", "model_state", "request_draws", "reference_clip",
+            "flop_step", "flop_request")
 
 
 @pytest.fixture(autouse=True)
@@ -71,7 +74,7 @@ def test_a_family_is_found_by_its_file_alone(kind, tmp_path, monkeypatch):
     """The families directory pointed at a copy: the tiny cell of each
     kind runs ``correct`` on the copy, and no module was imported from
     the original."""
-    from test_pb_run_cpu import TOL
+    from test_pb_run_cpu import bar
     name = next(w["name"] for w in SPEC["workloads"]
                 if load_cell(w["name"], SPEC).traffic["kind"] == kind)
     generator = load_cell(name, SPEC).config["generator"]
@@ -83,9 +86,77 @@ def test_a_family_is_found_by_its_file_alone(kind, tmp_path, monkeypatch):
     result, _ = run_cell(cell, SEED, 0.5, False, CPU, conf=conf)
     assert result["correct"], result["checks"]
     for key, check in result["checks"].items():
-        assert check["value"] <= TOL[key], (key, check)
+        assert check["value"] <= bar(conf)[key], (key, check)
     assert not [m for m in list(sys.modules.values())
                 if getattr(m, "__file__", None) == str(original)]
+
+
+# appended to a copy of families/GeneratorHPVAEGAN.py: the same network
+# under another generator's name, whose trainer calls the GAN step
+# through ``steps.gan_step``, looked up at each call, so that a fault
+# planted in ``trainer.gan_step`` before the scale would not reach it
+STAND_IN = """
+STEP = ("hpvaegan_tpu_torch.train.steps", "gan_step")
+_port_generator = port_generator
+
+
+def port_generator(cfg, *args):
+    cfg.generator = "GeneratorHPVAEGAN"
+    return _port_generator(cfg, *args)
+
+
+def train(cfg, G, D_ref, batches, dataset, workdir, seed, callback):
+    from hpvaegan_tpu_torch.train import steps, trainer
+
+    def step(*args, **kwargs):
+        return steps.gan_step(*args, **kwargs)
+    saved, trainer.gan_step = trainer.gan_step, step
+    try:
+        trainer.train_scale(cfg, G, batches, D_prev=D_ref, seed=seed,
+                            callback=callback)
+    finally:
+        trainer.gan_step = saved
+"""
+
+
+@pytest.mark.parametrize("fault", [None, "half_batch", "unchanged",
+                                   "window_half_batch", "window_unchanged"])
+def test_a_stand_in_familys_faults_read_incorrect(fault, tmp_path,
+                                                  monkeypatch):
+    """The tiny scale-9 cell on a configuration of ``GeneratorStandIn``:
+    sound, ``correct``; each fault, planted through the stand-in's own
+    ``STEP``, ``correct`` false against the cell's limits."""
+    from test_pb_run_cpu import FAULTS, TINY
+    original = BENCH / "families" / "GeneratorHPVAEGAN.py"
+    (tmp_path / "GeneratorStandIn.py").write_text(original.read_text()
+                                                  + STAND_IN)
+    name = "hpvaegan3d.train_s9"
+    conf = dict(load_cell(name, SPEC).config, generator="GeneratorStandIn")
+    monkeypatch.setattr(cells, "FAMILIES", tmp_path)
+    path = tmp_path / "conf.json"
+    path.write_text(json.dumps(conf))
+    spec = dict(SPEC, configs=[dict(c, file=str(path)) for c in
+                               SPEC["configs"]])
+    cell = load_cell(name, spec)
+    assert cell.family.STEP[0] == "hpvaegan_tpu_torch.train.steps"
+    cell.traffic = dict(cell.traffic, scale=3)
+    conf = dict(cell.config, **TINY)
+    if fault is not None:
+        FAULTS["train"][fault](monkeypatch, cell)
+    result, _ = run_cell(cell, SEED, 0.5, False, CPU, conf=conf)
+    assert result["correct"] is (fault is None), result["checks"]
+
+
+_STEPS = re.compile(r"\b(gan_step|baseline_step)\b")
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "harness").glob("*.py"))
+                         + [BENCH / "tests" / "test_pb_run_cpu.py"],
+                         ids=lambda p: str(p.relative_to(BENCH)))
+def test_no_step_is_named_outside_a_family(path):
+    """The harness and the CPU cell tests reach a model's step through its
+    family's ``STEP`` alone."""
+    assert not _STEPS.findall(path.read_text()), path
 
 
 def _imports(path):

@@ -6,15 +6,17 @@ in one process (set-up once a seed, a short window):
         --seeds 11 12 13 --control-seeds 11 12 13
 
 For each ``--seeds`` seed, the program's numbers: a run of the cell with
-a window of ``--seconds`` (a training window of one step or chunk: the
-last segment that the reference takes from the program's state), then
-the comparison with the reference, as a run makes it.  For each
-``--control-seeds`` seed, the control's: the reference put in the
-program's place and computed in TF32 (the nearest precision below the
-configurations' f32 with TF32 off), compared with the f32 reference by
-the same numbers, the window's segment taken from the f32 reference's
-own state after the first steps; and, for a training cell, the fault of
-a step that leaves half of its batch out (the reference on the first
+a window of ``--seconds`` (a training window as long as a run's, whose
+last step or chunk the reference takes from the program's state: the
+window numbers grow with the steps before it), then the comparison with
+the reference, as a run makes it.  For each ``--control-seeds`` seed,
+the control's: the reference put in the program's place and computed in
+the nearest precision below the configuration's
+(``harness.common.control_precision``: TF32 for f32 with TF32 off, fp8
+convolution operands for bf16), compared with the f32 reference by the
+same numbers, the window's segment taken from the f32 reference's own
+state after the first steps; and, for a training cell, the fault of a
+step that leaves half of its batch out (the reference on the first
 sample alone, the mean over it).  A state left unchanged reads 1 on each
 change gap by construction and needs no run.
 
@@ -37,8 +39,8 @@ sys.path[:0] = [HERE, ROOT]
 
 import torch  # noqa: E402
 
-from harness.cells import load_cell  # noqa: E402
-from harness.common import precision  # noqa: E402
+from harness.cells import benchmark, load_cell  # noqa: E402
+from harness.common import control_precision, precision  # noqa: E402
 from harness.compare import train_gaps, window_gaps  # noqa: E402
 from harness.models import reference_models  # noqa: E402
 from harness.runner import run_cell  # noqa: E402
@@ -67,21 +69,21 @@ def train_controls(cell, seed: int, dev) -> dict:
                          scale, steps)
         half = fam.follow(G, D, conf, real, real_zero, amps, dev, seed,
                           scale, steps, fault="half_batch")
-    with precision(tf32=True):
-        tf32 = fam.follow(G, D, conf, real, real_zero, amps, dev, seed,
-                          scale, steps)
+    with control_precision(bool(conf["bf16"])):
+        low = fam.follow(G, D, conf, real, real_zero, amps, dev, seed,
+                         scale, steps)
     out = {what: train_gaps(r["losses"], r["grads"], r["change"], ref,
                             step_gaps)
-           for what, r in (("control", tf32), ("half_batch", half))}
+           for what, r in (("control", low), ("half_batch", half))}
     # the window's last segment from the state after the first steps
     seg = (G, D, conf, real, real_zero, amps + [ref["amp"]], dev, seed,
            scale, ref["state"], steps, last_segment(tr))
     with precision(tf32=False):
         want = fam.resume(*seg)
         half = fam.resume(*seg, fault="half_batch")
-    with precision(tf32=True):
-        tf32 = fam.resume(*seg)
-    for what, r in (("control", tf32), ("half_batch", half)):
+    with control_precision(bool(conf["bf16"])):
+        low = fam.resume(*seg)
+    for what, r in (("control", low), ("half_batch", half)):
         out[what].update(window_gaps(r["losses"], r["change"], want,
                                      ref["grads"], step_gaps))
     out["unchanged"] = {"change_gap": 1.0, "window_change_gap": 1.0}
@@ -99,8 +101,9 @@ def sample_controls(cell, seed: int, dev) -> dict:
     for i in range(int(tr["compare_requests"])):
         z, noises = request_draws(fam, G, conf, dev, seed, i)
         outs = []
-        for tf32 in (False, True):
-            with torch.no_grad(), precision(tf32=tf32):
+        for ctx in (precision(tf32=False),
+                    control_precision(bool(conf["bf16"]))):
+            with torch.no_grad(), ctx:
                 outs.append(fam.reference_clip(G, amps, z, noises))
         gap = max(gap, float((outs[0] - outs[1]).abs().max()))
     return {"control": {"clip_gap": gap}}
@@ -112,14 +115,16 @@ def main(argv=None) -> int:
     parser.add_argument("--seeds", type=int, nargs="*", default=[])
     parser.add_argument("--control-seeds", type=int, nargs="*", default=[])
     parser.add_argument("--seconds", type=float, default=None,
-                        help="the program's window (default: 1 for a "
-                        "training cell, 0 for a sampling cell, whose "
-                        "window is then its compared requests)")
+                        help="the program's window (default: "
+                        "BENCHMARK.json's run_seconds for a training "
+                        "cell, 0 for a sampling cell, whose window is "
+                        "then its compared requests)")
     args = parser.parse_args(argv)
     cell = load_cell(args.workload)
     dev = torch.device("cuda", 0)
     seconds = args.seconds if args.seconds is not None else float(
-        cell.traffic["kind"] == "train")
+        benchmark()["run_seconds"] if cell.traffic["kind"] == "train"
+        else 0)
     lower, upper = {}, {}
     for seed in args.seeds:
         t = time.perf_counter()
